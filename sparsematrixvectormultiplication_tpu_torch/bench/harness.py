@@ -76,8 +76,10 @@ def run_matrix(
     device,
 ) -> MatrixResult:
     """Run the three stages on one matrix (≙ the per-matrix body of
-    main.c:39-459 / main_cuda.cu:52-729). SELL bins take the "auto" layout;
-    differences count at the default tolerances of ``difference_metrics``."""
+    main.c:39-459 / main_cuda.cu:52-729). SELL bins take the "auto" layout,
+    rebuilt with SELL-sigma row order when the plain conversion is
+    pathological; differences count at the default tolerances of
+    ``difference_metrics``."""
     device = torch.device(device)
     M, N, nnz = coo.nrows, coo.ncols, coo.nnz
     if x is None:
@@ -108,12 +110,31 @@ def run_matrix(
     med_nnz = float(np.median(csr.row_nnz())) if M else 0.0
     split_cap = 16 if med_nnz <= 24 else 256
     csr_k, seg_map = csr.split_heavy_rows(split_cap, strided=split_cap < 256)
-    ids = None
     if seg_map is not None:
-        ids = torch.from_numpy(seg_map.astype(np.int64)).to(device)
         fstats["heavy_row_segments"] = int(csr_k.nrows - M)
         log(f"[{name}] split {csr_k.nrows - M} heavy-row segments "
             f"(rows {M} -> {csr_k.nrows})")
+
+    t0 = time.perf_counter()
+    sell = SellMatrix.from_csr(csr_k)
+    # pathological plain conversions (power-law heads: bins with k > 1024
+    # or padding above 8x) fall back to SELL-sigma row sorting, as the JAX
+    # harness's build_sell does
+    if any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8:
+        log(f"[{name}] plain SELL pathological "
+            f"(pad {sell.padding_ratio:.1f}, kmax "
+            f"{max((b.k for b in sell.bins), default=0)}) -> auto sigma")
+        sell = SellMatrix.from_csr(csr_k, sigma_sort=True)
+    fstats["convert_sell_s"] = time.perf_counter() - t0
+
+    # kernel output slot -> original row: the sigma permutation picks the
+    # segment, the segment map its row
+    ids = None
+    if seg_map is not None or sell.row_perm is not None:
+        ids = seg_map if seg_map is not None else np.arange(csr_k.nrows)
+        if sell.row_perm is not None:
+            ids = np.asarray(ids)[sell.row_perm]
+        ids = torch.from_numpy(np.asarray(ids, np.int64)).to(device)
 
     def spmv_rows(d, xt):
         y = sell_spmv(d, xt)
@@ -121,10 +142,6 @@ def run_matrix(
             y = torch.zeros(M, dtype=y.dtype, device=device).index_add_(
                 0, ids, y)
         return y
-
-    t0 = time.perf_counter()
-    sell = SellMatrix.from_csr(csr_k)
-    fstats["convert_sell_s"] = time.perf_counter() - t0
     fstats["sell"] = sell.memory_stats()
     xt = device_put_x(x, N, device=device)
 

@@ -15,7 +15,8 @@
 // (group, row-block); neighbouring threads read neighbouring addresses of each
 // plane row, so both streams coalesce. Sums are f32 whatever the value type.
 // Rows within a bin are unique and bins run in order on one stream, so y is
-// written with a plain store.
+// written with a plain store, or, with `accumulate` (the sg far-remainder
+// bins and column panels), read and added onto without atomics.
 
 #include "sell_common.cuh"
 
@@ -25,7 +26,7 @@ template <typename T>
 __global__ void __launch_bounds__(kLanes)
 k_major_kernel(const int* __restrict__ group_ids, const int* __restrict__ ja,
                const T* __restrict__ as, const float* __restrict__ x,
-               float* __restrict__ y, int K) {
+               float* __restrict__ y, int K, int accumulate) {
   const int64_t g = blockIdx.x / kSublanes;
   const int i = blockIdx.x % kSublanes;
   const int j = threadIdx.x;
@@ -35,17 +36,19 @@ k_major_kernel(const int* __restrict__ group_ids, const int* __restrict__ ja,
   for (int k = 0; k < K; ++k, off += stride) {
     acc += widen(as[off]) * x[ja[off]];
   }
-  y[int64_t(group_ids[g]) * kGroupRows + i * kLanes + j] = acc;
+  float* out = y + int64_t(group_ids[g]) * kGroupRows + i * kLanes + j;
+  *out = accumulate ? *out + acc : acc;
 }
 
 template <typename T>
 int launch_k_major(const int* group_ids, const int* ja, const T* as,
                    const float* x, float* y, int64_t n_groups, int K,
-                   void* stream) {
+                   int accumulate, void* stream) {
   if (n_groups > 0) {
     k_major_kernel<T><<<dim3(unsigned(n_groups * kSublanes)), kLanes, 0,
                         static_cast<cudaStream_t>(stream)>>>(group_ids, ja, as,
-                                                             x, y, K);
+                                                             x, y, K,
+                                                             accumulate);
   }
   return int(cudaGetLastError());
 }
@@ -54,15 +57,16 @@ int launch_k_major(const int* group_ids, const int* ja, const T* as,
 
 extern "C" int sell_k_major_f32(const int* group_ids, const int* ja,
                                 const float* as, const float* x, float* y,
-                                int64_t n_groups, int K, void* stream) {
+                                int64_t n_groups, int K, int accumulate,
+                                void* stream) {
   return sell::launch_k_major<float>(group_ids, ja, as, x, y, n_groups, K,
-                                     stream);
+                                     accumulate, stream);
 }
 
 extern "C" int sell_k_major_bf16(const int* group_ids, const int* ja,
                                  const __nv_bfloat16* as, const float* x,
                                  float* y, int64_t n_groups, int K,
-                                 void* stream) {
+                                 int accumulate, void* stream) {
   return sell::launch_k_major<__nv_bfloat16>(group_ids, ja, as, x, y,
-                                             n_groups, K, stream);
+                                             n_groups, K, accumulate, stream);
 }

@@ -19,8 +19,9 @@
 // row-block). The block's NW*8 slab ids are uniform across its threads, so
 // they are read once into shared memory as x offsets. Each packed index word
 // is read once per tile (four times per word, the repeats hit L1). Sums are
-// f32 whatever the value type; y is written with a plain store (rows within a
-// bin are unique).
+// f32 whatever the value type; y is written with a plain store, or added onto
+// with `accumulate` (column panels); rows within a bin are unique, so
+// neither needs atomics.
 
 #include "sell_common.cuh"
 
@@ -30,7 +31,8 @@ template <typename T>
 __global__ void __launch_bounds__(kLanes)
 wl_kernel(const int* __restrict__ group_ids, const int* __restrict__ slabs,
           const int* __restrict__ packed, const T* __restrict__ as,
-          const float* __restrict__ x, float* __restrict__ y, int NW, int L) {
+          const float* __restrict__ x, float* __restrict__ y, int NW, int L,
+          int accumulate) {
   extern __shared__ int x_base[];  // NW*8 slot offsets 128*slab into x
   const int64_t g = blockIdx.x / kSublanes;
   const int rb = blockIdx.x % kSublanes;
@@ -59,18 +61,20 @@ wl_kernel(const int* __restrict__ group_ids, const int* __restrict__ slabs,
       }
     }
   }
-  y[int64_t(group_ids[g]) * kGroupRows + rb * kLanes + j] = acc;
+  float* out = y + int64_t(group_ids[g]) * kGroupRows + rb * kLanes + j;
+  *out = accumulate ? *out + acc : acc;
 }
 
 template <typename T>
 int launch_wl(const int* group_ids, const int* slabs, const int* packed,
               const T* as, const float* x, float* y, int64_t n_groups, int NW,
-              int L, void* stream) {
+              int L, int accumulate, void* stream) {
   if (n_groups > 0) {
     wl_kernel<T><<<dim3(unsigned(n_groups * kSublanes)), kLanes,
                    size_t(NW) * 8 * sizeof(int),
                    static_cast<cudaStream_t>(stream)>>>(group_ids, slabs,
-                                                        packed, as, x, y, NW, L);
+                                                        packed, as, x, y, NW, L,
+                                                        accumulate);
   }
   return int(cudaGetLastError());
 }
@@ -80,15 +84,15 @@ int launch_wl(const int* group_ids, const int* slabs, const int* packed,
 extern "C" int sell_wl_f32(const int* group_ids, const int* slabs,
                            const int* packed, const float* as, const float* x,
                            float* y, int64_t n_groups, int NW, int L,
-                           void* stream) {
+                           int accumulate, void* stream) {
   return sell::launch_wl<float>(group_ids, slabs, packed, as, x, y, n_groups,
-                                NW, L, stream);
+                                NW, L, accumulate, stream);
 }
 
 extern "C" int sell_wl_bf16(const int* group_ids, const int* slabs,
                             const int* packed, const __nv_bfloat16* as,
                             const float* x, float* y, int64_t n_groups, int NW,
-                            int L, void* stream) {
+                            int L, int accumulate, void* stream) {
   return sell::launch_wl<__nv_bfloat16>(group_ids, slabs, packed, as, x, y,
-                                        n_groups, NW, L, stream);
+                                        n_groups, NW, L, accumulate, stream);
 }

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-The sources in ``csrc/`` have a plain C interface. At first use they are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library under
-``build/kernels/`` at the root of the checkout, named by a hash of the sources
-and flags, and loaded with :mod:`ctypes`. Importing this module compiles
-nothing and needs no ``nvcc``; only :func:`load` does.
+The sources in ``csrc/`` have a plain C interface. At first use each is
+compiled with ``nvcc`` for ``sm_90a``, all at once in parallel processes, and
+the objects are linked into one shared library under ``build/kernels/`` at
+the root of the checkout, named by a hash of the sources and flags, and
+loaded with :mod:`ctypes`. Importing this module compiles nothing and needs
+no ``nvcc``; only :func:`load` does.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["load", "library_path", "build_log"]
@@ -23,21 +25,31 @@ __all__ = ["load", "library_path", "build_log"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _HEADERS = ("sell_common.cuh",)
-_SOURCES = ("sell_k_major.cu", "sell_wl.cu")
-_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 # C entry -> argument types; every entry returns cudaGetLastError() as an int
 _ENTRIES = {
-    # group_ids, ja, as, x, y, n_groups, K, stream
-    "sell_k_major_f32": (_P, _P, _P, _P, _P, _I64, _I32, _P),
-    "sell_k_major_bf16": (_P, _P, _P, _P, _P, _I64, _I32, _P),
-    # group_ids, slabs, packed, as, x, y, n_groups, NW, L, stream
-    "sell_wl_f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
-    "sell_wl_bf16": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
+    # group_ids, ja, as, x, y, n_groups, K, accumulate, stream
+    **{f"sell_k_major_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P)
+       for v in ("f32", "bf16")},
+    # group_ids, slabs, packed, as, x, y, n_groups, NW, L, accumulate, stream
+    **{f"sell_wl_{v}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P)
+       for v in ("f32", "bf16")},
+    # group_ids, table, ja, as, x, y, n_groups, K, ck, span, accumulate, stream
+    **{f"sell_{lay}_{v}_{i}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                               _I32, _P)
+       for lay in ("sb_major", "sb_list") for v in ("f32", "bf16")
+       for i in ("i32", "i16")},
+    # group_ids, table, counts, ja, as, x, y, n_groups, T, stride, slots,
+    # accumulate, stream
+    **{f"sell_sg_{v}": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                        _I32, _P)
+       for v in ("f32", "bf16")},
 }
 
 
@@ -71,26 +83,30 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run(cmd) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def _build(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name and rename: concurrent processes never load a
-    # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *_FLAGS, "-o", tmp,
-               *(str(_CSRC / s) for s in _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        target.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    # objects and the library are written under a private directory and
+    # renamed: concurrent processes never load a half-written library
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in _SOURCES]
+        with ThreadPoolExecutor(len(_SOURCES)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *_FLAGS, "-c", str(_CSRC / s), "-o", o]
+                       for s, o in zip(_SOURCES, objs)]))
+        lib = os.path.join(tmp, target.name)
+        _run([nvcc, *_ARCH, "-shared", "-o", lib, *objs])
+        target.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, target)
 
 
 @functools.cache

@@ -30,6 +30,8 @@ from sparsematrixvectormultiplication_tpu_torch.formats.sell import (
 from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
     banded,
     fem_3d,
+    random_general,
+    road_network,
 )
 from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
 from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
@@ -115,18 +117,28 @@ def test_wl_packing_pads_to_whole_words():
     assert got.shape == (2 * 2 * 8, 128) and (got >= 0).all()
 
 
+# matrix -> (generator, SellMatrix.from_csr keywords)
 MATRICES = {
-    "banded_k_major": lambda: banded(4096, 24, 512, seed=0),
-    "fem_mixed": lambda: fem_3d(8, 8, 8, dof=3, seed=0),
-    "fem_wl": lambda: fem_3d(10, 10, 10, dof=3, seed=0),
+    "banded_k_major": (lambda: banded(4096, 24, 512, seed=0), {}),
+    "fem_mixed": (lambda: fem_3d(8, 8, 8, dof=3, seed=0), {}),
+    "fem_wl": (lambda: fem_3d(10, 10, 10, dof=3, seed=0), {}),
+    "banded_sb_major": (lambda: banded(4096, 24, 512, seed=0),
+                        {"layout": "sb-major"}),
+    "banded_sb_list": (lambda: banded(4096, 24, 512, seed=0),
+                       {"layout": "sb-list"}),
+    "road_sg": (lambda: road_network(8000, seed=5), {"layout": "sg"}),
+    "road_sg_rows": (lambda: road_network(8000, seed=5),
+                     {"layout": "sg", "sg_slots": False}),
+    "uniform_auto": (lambda: random_general(20000, 20000, 2.5e-4, seed=8), {}),
 }
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("matrix", sorted(MATRICES))
 def test_spmv_against_fp64_oracle(matrix, dtype):
-    csr = CSRMatrix.from_coo(MATRICES[matrix]())
-    sell = SellMatrix.from_csr(csr)
+    make, kw = MATRICES[matrix]
+    csr = CSRMatrix.from_coo(make())
+    sell = SellMatrix.from_csr(csr, **kw)
     x = np.random.default_rng(4).standard_normal(csr.ncols)
     d = S.device_put_sell(sell, getattr(torch, dtype), device="cpu")
     y = S.sell_spmv(d, S.device_put_x(x, csr.ncols, device="cpu")).numpy()
@@ -161,36 +173,66 @@ def test_jax_host_sell_carries_across():
         assert torch.equal(y_mine, y_theirs)
 
 
-def _refused(kind):
-    csr = CSRMatrix.from_coo(banded(4096, 24, 512, seed=0))
-    if kind == "panels":
-        return PanelSellMatrix.from_csr(csr, max_panel_cols=1024)
-    if kind == "add_into":
-        return SellMatrix.from_csr(CSRMatrix.from_coo(
-            banded(4096, 40, 1000, seed=1)), layout="wl-shed")
-    return SellMatrix.from_csr(csr, layout=kind)
+def test_jax_host_sell_carries_across_sg():
+    """The JAX package's host SellMatrix with sg bins and add_into far bins
+    runs in the port exactly as the port's own conversion does."""
+    coo = road_network(8000, seed=5)
+    mine = SellMatrix.from_csr(CSRMatrix.from_coo(coo), layout="sg")
+    theirs = JSell.from_csr(JCSR.from_coo(jsyn.road_network(8000, seed=5)),
+                            layout="sg")
+    assert {b.layout for b in theirs.bins} == {"sg", "k-major"}
+    assert any(b.add_into for b in theirs.bins)
+    x = S.device_put_x(_x(coo.ncols), coo.ncols, device="cpu")
+    for dtype in (torch.float32, torch.bfloat16):
+        y_mine = S.sell_spmv(S.device_put_sell(mine, dtype, device="cpu"), x)
+        y_theirs = S.sell_spmv(S.device_put_sell(theirs, dtype, device="cpu"),
+                               x)
+        assert torch.equal(y_mine, y_theirs)
 
 
-@pytest.mark.parametrize("kind", ["sb-major", "sb-list", "sg", "add_into",
-                                  "panels"])
-def test_unsupported_layouts_refused(kind):
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        S.device_put_sell(_refused(kind), device="cpu")
+@pytest.mark.parametrize("where", ["device_put_sell", "sell_spmv"])
+def test_unknown_layout_refused(where):
+    sell = SellMatrix.from_csr(CSRMatrix.from_coo(banded(2048, 8, 64)))
+    if where == "device_put_sell":
+        bad = dataclasses.replace(sell, bins=[
+            dataclasses.replace(b, layout="hll") for b in sell.bins])
+        with pytest.raises(ValueError, match="unknown SELL bin layout 'hll'"):
+            S.device_put_sell(bad, device="cpu")
+        return
+    d = S.device_put_sell(sell, device="cpu")
+    d.bins[0].layout = "hll"
+    x = S.device_put_x(np.ones(sell.ncols), sell.ncols, device="cpu")
+    with pytest.raises(ValueError, match="unknown SELL bin layout 'hll'"):
+        S.sell_spmv(d, x)
 
 
 def test_cpu_tensors_run_plain_without_launching():
-    sell = SellMatrix.from_csr(CSRMatrix.from_coo(fem_3d(8, 8, 8, dof=3)))
-    d = S.device_put_sell(sell, device="cpu")
-    x = S.device_put_x(_x(sell.ncols), sell.ncols, device="cpu")
-    before = (S.k_major_bin.launches, S.wl_bin.launches)
-    assert torch.equal(S.sell_spmv(d, x), S.sell_spmv_plain(d, x))
-    assert (S.k_major_bin.launches, S.wl_bin.launches) == before
+    counts = lambda: [(w.launches, w.accumulating)  # noqa: E731
+                      for w in S._KERNEL.values()]
+    for coo in (fem_3d(8, 8, 8, dof=3), road_network(8000, seed=5)):
+        sell = SellMatrix.from_csr(CSRMatrix.from_coo(coo))
+        d = S.device_put_sell(sell, device="cpu")
+        x = S.device_put_x(_x(sell.ncols), sell.ncols, device="cpu")
+        before = counts()
+        assert torch.equal(S.sell_spmv(d, x), S.sell_spmv_plain(d, x))
+        assert counts() == before
 
 
-@pytest.mark.parametrize("wrapper", ["k_major_bin", "wl_bin"])
+# wrapper -> a matrix and layout whose conversion has such a bin
+WRAPPED = {
+    "k_major_bin": (lambda: fem_3d(8, 8, 8, dof=3), "k-major"),
+    "wl_bin": (lambda: fem_3d(8, 8, 8, dof=3), "wl"),
+    "sb_major_bin": (lambda: banded(2048, 8, 64), "sb-major"),
+    "sb_list_bin": (lambda: banded(2048, 8, 64), "sb-list"),
+    "sg_bin": (lambda: road_network(8000, seed=5), "sg"),
+}
+
+
+@pytest.mark.parametrize("wrapper", sorted(WRAPPED))
 def test_wrapper_raises_off_cpu_and_cuda(wrapper):
-    sell = SellMatrix.from_csr(CSRMatrix.from_coo(fem_3d(8, 8, 8, dof=3)))
-    layout = {"k_major_bin": "k-major", "wl_bin": "wl"}[wrapper]
+    make, layout = WRAPPED[wrapper]
+    kw = {} if layout in ("k-major", "wl") else {"layout": layout}
+    sell = SellMatrix.from_csr(CSRMatrix.from_coo(make()), **kw)
     b = next(b for b in S.device_put_sell(sell, device="meta").bins
              if b.layout == layout)
     x_tab = torch.zeros(slab_table_rows(sell.ncols) * 128, device="meta")
@@ -258,12 +300,17 @@ def test_build_compiles_for_sm90a_into_hashed_library(tmp_path, monkeypatch):
     target = _build.library_path()
     assert target.parent == tmp_path and target.suffix == ".so"
     _build._build(target)
-    (cmd,) = calls
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
-    assert [c for c in cmd if c.endswith(".cu")] == [
-        str(_build._CSRC / s) for s in _build._SOURCES]
-    assert target.exists() and _build.build_log() == "ptxas info: ok\n"
+    *compiles, link = calls  # one nvcc per source, then the link
+    assert sorted(c for cmd in compiles for c in cmd if c.endswith(".cu")) \
+        == sorted(str(_build._CSRC / s) for s in _build._SOURCES)
+    for cmd in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert {"-c", "-O3", "-std=c++17"} <= set(cmd)
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    assert sorted(c for c in link if c.endswith(".o")) == sorted(
+        cmd[cmd.index("-o") + 1] for cmd in compiles)
+    assert target.exists() and _build.build_log() == "ptxas info: ok\n" * len(
+        _build._SOURCES)
     assert set(tmp_path.iterdir()) == {target, target.with_suffix(".log")}
 
     def failing_run(cmd, **kw):

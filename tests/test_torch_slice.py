@@ -1,6 +1,7 @@
 """The port's main path as a whole, on the CPU: run_matrix end to end, the
 slice against the JAX package's own pipeline, and the import contract."""
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -94,11 +95,71 @@ def test_run_matrix_splits_heavy_rows():
     assert res.stages["sell"].diff.significant_diffs == 0
 
 
-def test_failing_stage_raises():
-    # scattered columns: the "auto" layout picks sg bins, which have no port
+def test_failing_stage_raises(monkeypatch):
+    """A stage's failure propagates: a conversion that yields a layout with
+    no kernel stops run_matrix instead of being skipped."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import harness
+
+    real = harness.SellMatrix.from_csr
+
+    def bogus(csr, **kw):
+        sell = real(csr, **kw)
+        return dataclasses.replace(sell, bins=[
+            dataclasses.replace(b, layout="hll") for b in sell.bins])
+
+    monkeypatch.setattr(harness.SellMatrix, "from_csr", bogus)
     coo = syn.random_general(4096, 65536, 8 / 65536, seed=0)
-    with pytest.raises(NotImplementedError, match="'sg'"):
+    with pytest.raises(ValueError, match="unknown SELL bin layout 'hll'"):
         run_matrix("sg", coo, log=lambda m: None, device="cpu")
+
+
+# matrix -> the layouts its "auto" conversion inside run_matrix must hold
+LAYOUTS = {
+    "banded_sb_major": (lambda: syn.banded(8192, 60, 2500, seed=1),
+                        {"sb-major"}),
+    "road": (lambda: syn.road_network(8000, seed=5),
+             {"sg", "sb-list", "k-major"}),
+    "uniform": (lambda: syn.random_general(20000, 20000, 2.5e-4, seed=8),
+                {"sg", "k-major"}),
+}
+
+
+@pytest.mark.parametrize("matrix", sorted(LAYOUTS))
+def test_run_matrix_runs_every_layout_on_cpu(matrix):
+    make, layouts = LAYOUTS[matrix]
+    coo = make()
+    res = run_matrix(matrix, coo, BenchConfig(iterations=1, skip=0),
+                     x=np.random.default_rng(6).standard_normal(coo.ncols),
+                     log=lambda m: None, device="cpu")
+    assert {b.layout for b in res.sell.bins} == layouts
+    assert res.sell.row_perm is None
+    if "sg" in layouts:
+        assert any(b.add_into for b in res.sell.bins)
+    for name in ("sell", "sell_bf16"):
+        assert res.stages[name].diff.significant_diffs == 0, name
+
+
+def test_run_matrix_falls_back_to_sigma_like_jax():
+    """A power-law matrix whose plain SELL pads more than 8x is rebuilt with
+    SELL-sigma row sorting, bin for bin as the JAX harness rebuilds it; the
+    kernel rows map back through the permutation and the segment map."""
+    coo = syn.power_law(4000, 2, seed=6)
+    logs = []
+    res = run_matrix("pl", coo, BenchConfig(iterations=1, skip=0),
+                     x=np.random.default_rng(7).standard_normal(coo.ncols),
+                     log=logs.append, device="cpu")
+    assert any("auto sigma" in m for m in logs)
+    assert res.sell.row_perm is not None
+    jcsr = JCSR.from_coo(jsyn.power_law(4000, 2, seed=6))
+    jcsr_k, seg = jcsr.split_heavy_rows(16, strided=True)
+    assert seg is not None and res.format_stats["heavy_row_segments"] > 0
+    assert JSell.from_csr(jcsr_k).padding_ratio > 8
+    want = JSell.from_csr(jcsr_k, sigma_sort=True)
+    assert [(b.layout, b.k, b.n_groups) for b in res.sell.bins] == [
+        (b.layout, b.k, b.n_groups) for b in want.bins]
+    assert np.array_equal(res.sell.row_perm, want.row_perm)
+    for name in ("sell", "sell_bf16"):
+        assert res.stages[name].diff.significant_diffs == 0, name
 
 
 def _run_python(code, cwd, env_extra=None):
