@@ -8,8 +8,14 @@ median time and GFLOPS = 2·nnz/t. Stages:
 * ``sell`` — f32 values on ``device``;
 * ``sell_bf16`` — bf16 values, x and sums in f32, validated against the fp64
   SpMV of the bf16-quantized matrix, so the check isolates the kernels from
-  the storage rounding.
+  the storage rounding;
+* ``sell_dd`` — fp64-class double-double (≙ the JAX harness's
+  ``pallas_sell_dd``): values and x split into f32 (hi, lo) pairs, y
+  combined and segment-summed in fp64 and validated against the fp64
+  oracle. The dd kernels refuse slot-packed sg bins, so a SELL that has
+  them is rebuilt in rows mode for this stage (``convert_sell_dd_s``).
 
+Every stage records its norm-scaled error ``max|y - y_ref| / max|y_ref|``.
 A stage that fails raises.
 """
 
@@ -24,7 +30,9 @@ import torch
 from ..formats.coo import COOMatrix
 from ..formats.csr import CSRMatrix
 from ..formats.sell import SellMatrix
+from ..ops.doubledouble import combine_f64
 from ..ops.sell import device_put_sell, device_put_x, sell_spmv
+from ..ops.sell_dd import device_put_sell_dd, device_put_x_dd, sell_spmv_dd
 from ..utils.metrics import calculate_flops
 from ..utils.timing import ITERATION_SKIP, time_fn
 from ..utils.validation import DiffMetrics, difference_metrics
@@ -45,6 +53,7 @@ class StageResult:
     seconds: float
     gflops: float
     diff: DiffMetrics
+    norm_err: float = 0.0   # max|y - y_ref| / max|y_ref|
 
 
 @dataclass
@@ -56,7 +65,9 @@ class MatrixResult:
     stages: dict            # stage -> StageResult
     format_stats: dict
     config: BenchConfig
-    sell: SellMatrix  # the host SELL the device stages ran
+    sell: SellMatrix     # the host SELL the sell and sell_bf16 stages ran
+    sell_dd: SellMatrix  # the one sell_dd ran (rows mode where sell has
+                         # slot-packed sg bins, else sell itself)
 
 
 def quantize_bf16(values: np.ndarray) -> np.ndarray:
@@ -75,7 +86,7 @@ def run_matrix(
     *,
     device,
 ) -> MatrixResult:
-    """Run the three stages on one matrix (≙ the per-matrix body of
+    """Run the four stages on one matrix (≙ the per-matrix body of
     main.c:39-459 / main_cuda.cu:52-729). SELL bins take the "auto" layout,
     rebuilt with SELL-sigma row order when the plain conversion is
     pathological; differences count at the default tolerances of
@@ -115,53 +126,84 @@ def run_matrix(
         log(f"[{name}] split {csr_k.nrows - M} heavy-row segments "
             f"(rows {M} -> {csr_k.nrows})")
 
-    t0 = time.perf_counter()
-    sell = SellMatrix.from_csr(csr_k)
-    # pathological plain conversions (power-law heads: bins with k > 1024
-    # or padding above 8x) fall back to SELL-sigma row sorting, as the JAX
-    # harness's build_sell does
-    if any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8:
-        log(f"[{name}] plain SELL pathological "
-            f"(pad {sell.padding_ratio:.1f}, kmax "
-            f"{max((b.k for b in sell.bins), default=0)}) -> auto sigma")
-        sell = SellMatrix.from_csr(csr_k, sigma_sort=True)
-    fstats["convert_sell_s"] = time.perf_counter() - t0
+    def build_sell(**kw):
+        sell = SellMatrix.from_csr(csr_k, **kw)
+        # pathological plain conversions (power-law heads: bins with k >
+        # 1024 or padding above 8x) fall back to SELL-sigma row sorting, as
+        # the JAX harness's build_sell does
+        if any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8:
+            log(f"[{name}] plain SELL pathological "
+                f"(pad {sell.padding_ratio:.1f}, kmax "
+                f"{max((b.k for b in sell.bins), default=0)}) -> auto sigma")
+            sell = SellMatrix.from_csr(csr_k, sigma_sort=True, **kw)
+        return sell
 
-    # kernel output slot -> original row: the sigma permutation picks the
-    # segment, the segment map its row
-    ids = None
-    if seg_map is not None or sell.row_perm is not None:
+    def kernel_ids(sell):
+        """Kernel output slot -> original row (None: the identity): the
+        sigma permutation picks the segment, the segment map its row."""
+        if seg_map is None and sell.row_perm is None:
+            return None
         ids = seg_map if seg_map is not None else np.arange(csr_k.nrows)
         if sell.row_perm is not None:
             ids = np.asarray(ids)[sell.row_perm]
-        ids = torch.from_numpy(np.asarray(ids, np.int64)).to(device)
+        return np.asarray(ids, np.int64)
 
-    def spmv_rows(d, xt):
-        y = sell_spmv(d, xt)
-        if ids is not None:
-            y = torch.zeros(M, dtype=y.dtype, device=device).index_add_(
-                0, ids, y)
-        return y
+    t0 = time.perf_counter()
+    sell = build_sell()
+    fstats["convert_sell_s"] = time.perf_counter() - t0
     fstats["sell"] = sell.memory_stats()
+
+    def record(stage, sec, ref, y, what):
+        dm = difference_metrics(ref, y)
+        scale = float(np.abs(ref).max()) if ref.size else 0.0
+        err = float(np.abs(y - ref).max()) / scale if scale else 0.0
+        stages[stage] = StageResult(stage, sec,
+                                    calculate_flops(nnz, sec) / 1e9, dm, err)
+        log(f"[{name}] {stage}: {sec*1e3:.3f} ms = "
+            f"{stages[stage].gflops:.3f} GFLOPS{what} on {device}, "
+            f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}"
+            f", norm_err={err:.2e}")
+
+    ids = kernel_ids(sell)
+    if ids is not None:
+        ids = torch.from_numpy(ids).to(device)
     xt = device_put_x(x, N, device=device)
 
     def run_stage(stage, dtype, ref):
         d = device_put_sell(sell, dtype, device=device)
-        y = spmv_rows(d, xt).cpu().numpy()
-        dm = difference_metrics(ref, y.astype(np.float64))
+        y = sell_spmv(d, xt)
+        if ids is not None:
+            y = torch.zeros(M, dtype=y.dtype, device=device).index_add_(
+                0, ids, y)
         # the timed call is the SpMV itself; the segment reduction is an
         # epilogue the JAX harness also keeps out of the timed path
         sec = time_fn(sell_spmv, d, xt, device=device, reps=cfg.iterations,
                       skip=cfg.skip)
-        stages[stage] = StageResult(stage, sec,
-                                    calculate_flops(nnz, sec) / 1e9, dm)
-        log(f"[{name}] {stage}: {sec*1e3:.3f} ms = "
-            f"{stages[stage].gflops:.3f} GFLOPS on {device}, "
-            f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}")
+        record(stage, sec, ref, y.cpu().numpy().astype(np.float64), "")
 
     run_stage("sell", torch.float32, y_ref)
     csr_q = CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
                       quantize_bf16(csr.values))
     run_stage("sell_bf16", torch.bfloat16, csr_q.spmv(x))
 
-    return MatrixResult(name, M, N, nnz, stages, fstats, cfg, sell)
+    # fp64-class: slot-packed sg bins sum several slots onto one row, which
+    # the dd kernels refuse, so such a SELL is rebuilt in rows mode (the
+    # same sigma rule; run_matrix builds no column panels)
+    sell_dd = sell
+    if any(b.sg_slots for b in sell.bins):
+        t0 = time.perf_counter()
+        sell_dd = build_sell(sg_slots=False)
+        fstats["convert_sell_dd_s"] = time.perf_counter() - t0
+        log(f"[{name}] slot-packed sg bins -> rows-mode SELL for sell_dd "
+            f"in {fstats['convert_sell_dd_s']:.2f} s")
+    d = device_put_sell_dd(sell_dd, device=device)
+    xh, xl = device_put_x_dd(x, N, device=device)
+    y64 = combine_f64(*sell_spmv_dd(d, xh, xl)).cpu().numpy()
+    ids_dd = kernel_ids(sell_dd)
+    if ids_dd is not None:  # host-exact f64 segment reduction
+        y64 = np.bincount(ids_dd, weights=y64, minlength=M)[:M]
+    sec = time_fn(sell_spmv_dd, d, xh, xl, device=device,
+                  reps=cfg.iterations, skip=cfg.skip)
+    record("sell_dd", sec, y_ref, y64, " (fp64-class)")
+
+    return MatrixResult(name, M, N, nnz, stages, fstats, cfg, sell, sell_dd)

@@ -34,6 +34,7 @@ __all__ = [
     "road_network",
     "diagonal_dominant",
     "dense_rows_mix",
+    "cancelling_pairs",
     "BENCH_SUITE",
     "generate_suite",
     "write_suite",
@@ -225,6 +226,44 @@ def dense_rows_mix(n: int, seed: int = 0) -> COOMatrix:
     col = np.concatenate([base.col.astype(np.int64), hcol])
     val = np.concatenate([base.val, rng.standard_normal(hrow.size)])
     return _dedup(n, n, row.astype(np.int32), col.astype(np.int32), val)
+
+
+def cancelling_pairs(n: int, pairs: int = 4, bandwidth: int = 64,
+                     seed: int = 0):
+    """A banded matrix whose rows cancel, and the x it is meant for (this
+    port's own; the JAX package has no counterpart): the accuracy check of
+    the double-double kernels.
+
+    Every value and x entry is an integer multiple of 2^-12 (x in (0.75,
+    1.25), values about as large, either sign), so every product is an
+    integer multiple of 2^-24 of magnitude about 1 with up to 26 significant
+    bits: exact in fp64 and as a double-double pair, rounded in f32. Row i
+    holds ``pairs`` pairs ``v1*x[c1] - v2*x[c2]`` on distinct columns within
+    ``bandwidth`` of i (wrapping), with v2 chosen so that each pair sums to a
+    few units of 2^-24: each row sums to about 1e-7 of its terms. A dd SpMV
+    then returns the fp64 product exactly, while an f32 SpMV misses by about
+    |y| itself. Returns ``(COOMatrix, x)``."""
+    rng = np.random.default_rng(seed)
+    X = 4096 + rng.integers(-1024, 1025, n)                  # x = X / 4096
+    offs = np.argsort(rng.random((n, 2 * bandwidth + 1)), axis=1)[:, :2 * pairs]
+    cols = (np.arange(n)[:, None] + offs - bandwidth) % n    # distinct per row
+    X1, X2 = X[cols[:, 0::2]], X[cols[:, 1::2]]
+    # V1 * X1 - V2 * X2 with V2 = round(V1 * X1 / X2): keep the V1 of 512
+    # tries whose pair residual is smallest
+    best_v1 = np.zeros_like(X1)
+    best_res = np.full(X1.shape, np.iinfo(np.int64).max)
+    for v1 in 4096 + rng.permutation(np.arange(-1024, 1025))[:512]:
+        res = np.abs(v1 * X1 - np.rint(v1 * X1 / X2).astype(np.int64) * X2)
+        better = res < best_res
+        best_v1[better], best_res[better] = v1, res[better]
+    V2 = np.rint(best_v1 * X1 / X2).astype(np.int64)
+    sign = rng.choice(np.array([-1, 1]), X1.shape)
+    vals = np.empty(cols.shape, np.float64)
+    vals[:, 0::2] = sign * best_v1 / 4096.0
+    vals[:, 1::2] = -sign * V2 / 4096.0
+    row = np.repeat(np.arange(n), 2 * pairs)
+    return (COOMatrix(n, n, row, cols.reshape(-1), vals.reshape(-1)),
+            X / 4096.0)
 
 
 def kkt_saddle(grid: int = 89, constraint_frac: float = 0.5,

@@ -24,7 +24,7 @@ __all__ = ["load", "library_path", "build_log"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_HEADERS = ("sell_common.cuh",)
+_HEADERS = ("sell_common.cuh", "dd.cuh")
 _SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,24 +32,33 @@ _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
-# C entry -> argument types; every entry returns cudaGetLastError() as an int
+# C entry -> argument types; every entry returns cudaGetLastError() as an int.
+# The dd entries take, in place of (as, x, y), the hi/lo pairs (as_hi,
+# as_lo, x_hi, x_lo, y_hi, y_lo); sg dd refuses `slots` (rows mode only).
+_DD = (_P,) * 6
 _ENTRIES = {
     # group_ids, ja, as, x, y, n_groups, K, accumulate, stream
     **{f"sell_k_major_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P)
        for v in ("f32", "bf16")},
+    "sell_k_major_dd": (_P, _P, *_DD, _I64, _I32, _I32, _P),
     # group_ids, slabs, packed, as, x, y, n_groups, NW, L, accumulate, stream
     **{f"sell_wl_{v}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P)
        for v in ("f32", "bf16")},
+    "sell_wl_dd": (_P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _P),
     # group_ids, table, ja, as, x, y, n_groups, K, ck, span, accumulate, stream
     **{f"sell_{lay}_{v}_{i}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                                _I32, _P)
        for lay in ("sb_major", "sb_list") for v in ("f32", "bf16")
        for i in ("i32", "i16")},
+    **{f"sell_{lay}_dd_{i}": (_P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32,
+                              _P)
+       for lay in ("sb_major", "sb_list") for i in ("i32", "i16")},
     # group_ids, table, counts, ja, as, x, y, n_groups, T, stride, slots,
     # accumulate, stream
     **{f"sell_sg_{v}": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                         _I32, _P)
        for v in ("f32", "bf16")},
+    "sell_sg_dd": (_P, _P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32, _P),
 }
 
 

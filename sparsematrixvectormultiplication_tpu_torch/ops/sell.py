@@ -37,11 +37,11 @@ from ..formats.sell import CHUNK_K, GROUP_ROWS, LANES, SUBLANES, slab_table_rows
 from . import _build
 
 __all__ = [
-    "DeviceSellBin", "DeviceSell", "DevicePanelSell", "device_put_sell",
-    "device_put_x", "pack_x_table", "k_major_bin", "wl_bin", "sb_major_bin",
-    "sb_list_bin", "sg_bin", "k_major_bin_plain", "wl_bin_plain",
-    "sb_major_bin_plain", "sb_list_bin_plain", "sg_bin_plain", "sell_spmv",
-    "sell_spmv_plain", "panel_sell_spmv", "panel_sell_spmv_plain",
+    "DeviceBinIndex", "DeviceSellBin", "DeviceSell", "DevicePanelSell",
+    "device_put_sell", "device_put_x", "pack_x_table", "k_major_bin",
+    "wl_bin", "sb_major_bin", "sb_list_bin", "sg_bin", "k_major_bin_plain",
+    "wl_bin_plain", "sb_major_bin_plain", "sb_list_bin_plain", "sg_bin_plain",
+    "sell_spmv", "sell_spmv_plain", "panel_sell_spmv", "panel_sell_spmv_plain",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -49,11 +49,12 @@ _SB_LAYOUTS = ("sb-major", "sb-list")
 _SB_I16_MAX_SPAN = 255  # the int16 planes hold dq or js in 8 bits
 
 
-@dataclass
-class DeviceSellBin:
-    """One rectangular bin on a device.
+@dataclass(kw_only=True)
+class DeviceBinIndex:
+    """The index side of one rectangular bin on a device, shared by the f32
+    bins here and the double-double bins of :mod:`.sell_dd`.
 
-    Every layout's value plane ``as_`` is ``(n_groups*k*8, 128)``.
+    Every layout's value plane is ``(n_groups*k*8, 128)``.
 
     * ``k-major``: ``ja`` holds absolute columns; entry e of row i*128+j of
       group g at row ``(g*k + e)*8 + i``. ``slab_list`` is not read.
@@ -77,7 +78,6 @@ class DeviceSellBin:
     n_groups: int
     group_ids: torch.Tensor   # (n_groups,) int32
     ja: torch.Tensor          # int32 | int16 (sb layouts)
-    as_: torch.Tensor         # float32 | bfloat16
     slab_list: torch.Tensor   # int32, layout's table (see above)
     slab_count: torch.Tensor  # (n_groups,) int32
     span: int = 0
@@ -94,6 +94,13 @@ class DeviceSellBin:
     def L(self) -> int:
         """wl: layer tiles per window."""
         return self.span
+
+
+@dataclass(kw_only=True)
+class DeviceSellBin(DeviceBinIndex):
+    """One rectangular bin on a device with f32 or bf16 values."""
+
+    as_: torch.Tensor         # (n_groups*k*8, 128) float32 | bfloat16
 
 
 @dataclass
@@ -196,7 +203,9 @@ def _ints(a, device, dtype=np.int32) -> torch.Tensor:
         np.ascontiguousarray(np.asarray(a, dtype))).to(device)
 
 
-def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
+def _put_bin_index(b, device, sb_i16: bool) -> dict:
+    """The :class:`DeviceBinIndex` fields of host bin ``b`` on ``device``
+    (wl planes packed; sb planes int16 with ``sb_i16`` where the span fits)."""
     if b.layout not in _KERNEL:
         raise ValueError(f"unknown SELL bin layout {b.layout!r}; the port "
                          f"runs {', '.join(_KERNEL)}")
@@ -217,11 +226,10 @@ def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
         if sb_i16 and span <= _SB_I16_MAX_SPAN:
             pack = _pack_sb_i16 if b.layout == "sb-major" else _pack_sl_i16
             ja = pack(ja, table, ng, k, ck, span)
-    return DeviceSellBin(
+    return dict(
         layout=b.layout, k=k, n_groups=ng,
         group_ids=_ints(b.group_ids, device),
         ja=_ints(ja, device, np.int16 if ja.dtype == np.int16 else np.int32),
-        as_=_values(b.as_, dtype, device),
         slab_list=_ints(table.reshape(-1), device),
         slab_count=_ints(np.asarray(b.slab_count).reshape(-1), device),
         span=span, chunk_k=ck, add_into=bool(getattr(b, "add_into", False)),
@@ -250,7 +258,9 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
     device = torch.device(device)
     return DeviceSell(int(sell.nrows), int(sell.ncols), int(sell.nnz),
                       int(sell.num_groups),
-                      [_put_bin(b, dtype, device, sb_i16) for b in sell.bins])
+                      [DeviceSellBin(**_put_bin_index(b, device, sb_i16),
+                                     as_=_values(b.as_, dtype, device))
+                       for b in sell.bins])
 
 
 def pack_x_table(x: torch.Tensor, ncols: int) -> torch.Tensor:
@@ -268,19 +278,19 @@ def device_put_x(x, ncols: int, *, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# plain PyTorch versions: (n_groups, 8, 128) row sums of one bin
+# column decode: each slot's plane position and x index, shared by the plain
+# f32 versions here and the plain dd versions of .sell_dd
 # ---------------------------------------------------------------------------
 
 
-def k_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, i, j] = sum_k as[(g*K+k)*8+i, j] * x[ja[(g*K+k)*8+i, j]]``."""
-    ng, K = b.n_groups, b.k
-    cols = b.ja.view(ng, K, SUBLANES, LANES).long()
-    vals = b.as_.view(ng, K, SUBLANES, LANES).float()
-    return (vals * x_tab[cols]).sum(dim=1)
+def _k_major_slots(b: DeviceBinIndex):
+    """Entry k of row i*128+j of group g at plane row ``(g*K + k)*8 + i``
+    gathers ``x[ja]``."""
+    shape = (b.n_groups, b.k, SUBLANES, LANES)
+    return shape, b.ja.view(shape).long(), None, (1,)
 
 
-def _unpack_wl_ja(b: DeviceSellBin) -> torch.Tensor:
+def _unpack_wl_ja(b: DeviceBinIndex) -> torch.Tensor:
     """Packed plane -> lane indices m, shaped (ng, 8 rb, NW, L, 8 s, 128)."""
     ng, Tn = b.n_groups, SUBLANES * b.nw * b.L
     Tp = -(-Tn // 4)
@@ -291,32 +301,16 @@ def _unpack_wl_ja(b: DeviceSellBin) -> torch.Tensor:
         ng, SUBLANES, b.nw, b.L, 8, LANES)
 
 
-def wl_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, rb, j] = sum_{w,l,s} as * x[128*slab[g,rb,w,s] + m]`` over the
-    tiles ``t = (rb*NW + w)*L + l`` of group g."""
+def _wl_slots(b: DeviceBinIndex):
+    """Slot s of tile ``t = (rb*NW + w)*L + l`` of group g, row rb*128+j,
+    gathers ``x[128*slab[g,rb,w,s] + m]``."""
     ng, nw, L = b.n_groups, b.nw, b.L
-    m = _unpack_wl_ja(b)
     slab = b.slab_list.view(ng, SUBLANES, nw, 1, 8, 1).long()
-    vals = b.as_.view(ng, SUBLANES, nw, L, 8, LANES).float()
-    return (vals * x_tab[slab * LANES + m]).sum(dim=(2, 3, 4))
+    return ((ng, SUBLANES, nw, L, 8, LANES), slab * LANES + _unpack_wl_ja(b),
+            None, (2, 3, 4))
 
 
-def _sb_planes(b: DeviceSellBin):
-    """(values, index words), both shaped (ng, 8 sb, K, 128)."""
-    shape = (b.n_groups, SUBLANES, b.k, LANES)
-    return b.as_.view(shape).float(), b.ja.view(shape).long()
-
-
-def _sb_sum(vals, x_tab, cols, keep=None) -> torch.Tensor:
-    """Sum over the K entries of each row; ``keep=False`` entries (int16
-    pads) contribute nothing."""
-    if keep is None:
-        return (vals * x_tab[cols]).sum(dim=2)
-    prod = vals * x_tab[torch.where(keep, cols, 0)]
-    return torch.where(keep, prod, 0.0).sum(dim=2)
-
-
-def _chunk_table(b: DeviceSellBin, per_chunk: int) -> torch.Tensor:
+def _chunk_table(b: DeviceBinIndex, per_chunk: int) -> torch.Tensor:
     """The bin's per-chunk table repeated for each of the chunk's entries:
     (ng, 8, K, per_chunk)."""
     nchunks = b.k // b.chunk_k
@@ -324,55 +318,103 @@ def _chunk_table(b: DeviceSellBin, per_chunk: int) -> torch.Tensor:
         .repeat_interleave(b.chunk_k, dim=2).long()
 
 
-def sb_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, sb, j] = sum_k as * x[col]`` over entries ``g*8K + sb*K + k``
-    of lane j. int32 planes hold col; int16 planes hold ``(dq<<7)|m`` with
-    ``col = 128*(qbase+dq) + m``, ``qbase = slab_list[g, sb*nchunks +
-    k//chunk_k]``; ``dq < 0`` is a pad."""
-    vals, v = _sb_planes(b)
+def _sb_slots(b: DeviceBinIndex):
+    """Entry k of row sb*128+j of group g at plane row ``g*8K + sb*K + k``.
+    int32 planes hold the column (both layouts). int16 sb-major planes hold
+    ``(dq<<7)|m``: ``col = 128*(qbase+dq) + m``, ``qbase = slab_list[g,
+    sb*nchunks + k//chunk_k]``; int16 sb-list planes hold ``(js<<7)|m``:
+    ``col = 128*slab_list[g, (sb*nchunks + k//chunk_k)*span + js] + m``. A
+    negative dq or js is a pad: it contributes nothing and reads x[0]."""
+    shape = (b.n_groups, SUBLANES, b.k, LANES)
+    v = b.ja.view(shape).long()
     if b.ja.dtype == torch.int32:
-        return _sb_sum(vals, x_tab, v)
-    dq = v >> 7
-    qbase = _chunk_table(b, 1)
-    return _sb_sum(vals, x_tab, (qbase + dq) * LANES + (v & (LANES - 1)),
-                   dq >= 0)
+        return shape, v, None, (2,)
+    hi, m = v >> 7, v & (LANES - 1)
+    if b.layout == "sb-major":
+        slab = _chunk_table(b, 1) + hi
+    else:
+        slab = torch.gather(_chunk_table(b, b.span), 3, hi.clamp(min=0))
+    keep = hi >= 0
+    return shape, torch.where(keep, slab * LANES + m, 0), keep, (2,)
 
 
-def sb_list_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """sb-major data layout; int16 planes hold ``(js<<7)|m`` with
-    ``col = 128*slab_list[g, (sb*nchunks + k//chunk_k)*span + js] + m``;
-    ``js < 0`` is a pad. int32 planes hold col, as in sb-major."""
-    vals, v = _sb_planes(b)
-    if b.ja.dtype == torch.int32:
-        return _sb_sum(vals, x_tab, v)
-    js = v >> 7
-    slab = torch.gather(_chunk_table(b, b.span), 3, js.clamp(min=0))
-    return _sb_sum(vals, x_tab, slab * LANES + (v & (LANES - 1)), js >= 0)
-
-
-def sg_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """Slot (p, j) of tile t < slab_count[g] holds ``md``; its product
-    ``as * x[128*(w0 + (md>>10)) + (md & 127)]``, ``w0 = slab_list[g,
-    t*stride]``, lands on row ``sigma*128 + j`` with ``sigma = (md>>7)&7``
-    (slots mode) or ``sigma = p`` (rows mode).
+def _sg_slots(b: DeviceBinIndex):
+    """Slot (p, j) of tile t < slab_count[g] holds ``md``; it gathers
+    ``x[128*(w0 + (md>>10)) + (md & 127)]``, ``w0 = slab_list[g,
+    t*stride]``, and lands on row p*128+j (rows mode). Tiles past
+    slab_count are padding and contribute nothing.
 
     On the GPU the static span V and the dynamic pass counts do not change
     what an entry computes: they only bounded the TPU kernel's masked
     passes over the window, so neither version reads them."""
     ng, T = b.n_groups, b.k
     stride = 2 if b.span == 0 else 1
-    md = b.ja.view(ng, T, SUBLANES, LANES).long()
-    vals = b.as_.view(ng, T, SUBLANES, LANES).float()
+    shape = (ng, T, SUBLANES, LANES)
+    md = b.ja.view(shape).long()
     w0 = b.slab_list.view(ng, T, stride)[:, :, 0].long()
     cols = (w0[:, :, None, None] + (md >> 10)) * LANES + (md & (LANES - 1))
     real = torch.arange(T, device=md.device)[None, :] \
         < b.slab_count.long()[:, None]
-    prod = torch.where(real[:, :, None, None], vals * x_tab[cols], 0.0)
+    return shape, cols, real[:, :, None, None], (1,)
+
+
+_SLOTS = {"k-major": _k_major_slots, "wl": _wl_slots, "sb-major": _sb_slots,
+         "sb-list": _sb_slots, "sg": _sg_slots}
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions: (n_groups, 8, 128) row sums of one bin
+# ---------------------------------------------------------------------------
+
+
+def _products(b: DeviceSellBin, x_tab: torch.Tensor):
+    """f32 product of each slot (0 where it contributes nothing) and the
+    axes that sum them into rows."""
+    shape, cols, keep, dims = _SLOTS[b.layout](b)
+    prod = b.as_.view(shape).float() * x_tab[cols]
+    if keep is not None:
+        prod = torch.where(keep, prod, 0.0)
+    return prod, dims
+
+
+def _row_sums(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    prod, dims = _products(b, x_tab)
+    return prod.sum(dim=dims)
+
+
+def k_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """``out[g, i, j] = sum_k as[(g*K+k)*8+i, j] * x[ja[(g*K+k)*8+i, j]]``."""
+    return _row_sums(b, x_tab)
+
+
+def wl_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """``out[g, rb, j] = sum_{w,l,s} as * x[128*slab[g,rb,w,s] + m]`` over the
+    tiles ``t = (rb*NW + w)*L + l`` of group g."""
+    return _row_sums(b, x_tab)
+
+
+def sb_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """``out[g, sb, j] = sum_k as * x[col]`` over entries ``g*8K + sb*K + k``
+    of lane j, col decoded as :func:`_sb_slots` says (int16 pads skipped)."""
+    return _row_sums(b, x_tab)
+
+
+def sb_list_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """sb-major data layout, sb-list int16 decode (:func:`_sb_slots`)."""
+    return _row_sums(b, x_tab)
+
+
+def sg_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """Each real slot's product ``as * x[col]`` (:func:`_sg_slots`) lands on
+    row ``sigma*128 + j`` with ``sigma = (md>>7)&7`` (slots mode) or
+    ``sigma = p`` (rows mode)."""
+    prod, dims = _products(b, x_tab)
     if not b.sg_slots:
-        return prod.sum(dim=1)
-    sigma = (md >> 7) & (SUBLANES - 1)
+        return prod.sum(dim=dims)
+    ng, T = b.n_groups, b.k
+    sigma = (b.ja.view(ng, T, SUBLANES, LANES).long() >> 7) & (SUBLANES - 1)
     out = torch.zeros(ng, SUBLANES, LANES, dtype=torch.float32,
-                      device=md.device)
+                      device=prod.device)
     return out.scatter_add_(1, sigma.view(ng, T * SUBLANES, LANES),
                             prod.view(ng, T * SUBLANES, LANES))
 
@@ -387,16 +429,20 @@ _PLAIN = {"k-major": k_major_bin_plain, "wl": wl_bin_plain,
 # ---------------------------------------------------------------------------
 
 
-def _check_launch(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor):
-    if x_tab.device.type != "cuda":
+def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
+                 value_types: tuple):
+    """Check what a kernel launch reads and writes: every tensor on the
+    device of the first x and contiguous, int32 tables, the layout's index
+    type, f32 x and y, ``value_types`` values, and matching sizes."""
+    x0 = next(iter(xs.values()))
+    if x0.device.type != "cuda":
         raise RuntimeError(
-            f"SELL kernels run on CUDA or CPU tensors, not {x_tab.device}")
-    tensors = {"group_ids": b.group_ids, "ja": b.ja, "as_": b.as_,
-               "slab_list": b.slab_list, "slab_count": b.slab_count,
-               "x": x_tab, "y": y}
+            f"SELL kernels run on CUDA or CPU tensors, not {x0.device}")
+    tensors = {"group_ids": b.group_ids, "ja": b.ja, "slab_list": b.slab_list,
+               "slab_count": b.slab_count, **values, **xs, **ys}
     for name, t in tensors.items():
-        if t.device != x_tab.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x_tab.device}")
+        if t.device != x0.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x0.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     for name in ("group_ids", "slab_list", "slab_count"):
@@ -407,32 +453,90 @@ def _check_launch(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor):
     if b.ja.dtype not in ja_types:
         raise ValueError(f"{b.layout} index plane must be "
                          f"{' or '.join(map(str, ja_types))}, got {b.ja.dtype}")
-    if x_tab.dtype != torch.float32 or y.dtype != torch.float32:
+    if any(t.dtype != torch.float32 for t in (*xs.values(), *ys.values())):
         raise ValueError("x and y must be float32")
-    if b.as_.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"values must be float32 or bfloat16, got {b.as_.dtype}")
-    if b.as_.numel() != b.n_groups * b.k * SUBLANES * LANES:
-        raise ValueError("value plane does not match the bin's shape")
-    if b.layout != "wl" and b.ja.numel() != b.as_.numel():
+    plane = b.n_groups * b.k * SUBLANES * LANES
+    for name, t in values.items():
+        if t.dtype not in value_types:
+            raise ValueError(f"{name} must be "
+                             f"{' or '.join(map(str, value_types))}, got "
+                             f"{t.dtype}")
+        if t.numel() != plane:
+            raise ValueError(f"{name} does not match the bin's shape")
+    if b.layout != "wl" and b.ja.numel() != plane:
         raise ValueError("index plane does not match the value plane")
-    if x_tab.numel() > _INT32_MAX or b.n_groups * SUBLANES > _INT32_MAX:
+    if x0.numel() > _INT32_MAX or b.n_groups * SUBLANES > _INT32_MAX:
         raise ValueError("x or the bin's grid is beyond 32-bit indexing")
-    if y.numel() % GROUP_ROWS:
+    y0 = next(iter(ys.values()))
+    if y0.numel() % GROUP_ROWS or any(t.numel() != y0.numel()
+                                      for t in ys.values()):
         raise ValueError("y must hold whole groups of 1024 rows")
 
 
-def _check_table(b: DeviceSellBin, numel: int, what: str):
+def _check_table(b: DeviceBinIndex, numel: int, what: str):
     if b.slab_list.numel() != numel:
         raise ValueError(f"{b.layout} {what} holds {b.slab_list.numel()} "
                          f"entries, the bin needs {numel}")
 
 
-def _ptr(t: torch.Tensor):
-    return t.data_ptr()
+def _k_major_call(b):
+    return "sell_k_major", "", (b.group_ids, b.ja), (b.n_groups, b.k)
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _wl_call(b):
+    Tp = -(-SUBLANES * b.nw * b.L // 4)
+    if b.ja.numel() != b.n_groups * Tp * 8 * LANES:
+        raise ValueError("wl index plane does not match the bin")
+    _check_table(b, b.n_groups * SUBLANES * b.nw * 8, "slab table")
+    return ("sell_wl", "", (b.group_ids, b.slab_list, b.ja),
+            (b.n_groups, b.nw, b.L))
+
+
+def _sb_call(b):
+    if b.k % b.chunk_k:
+        raise ValueError(f"k={b.k} is not a multiple of chunk_k={b.chunk_k}")
+    i16 = b.ja.dtype == torch.int16
+    if i16:
+        per_chunk = b.span if b.layout == "sb-list" else 1
+        _check_table(b, b.n_groups * SUBLANES * b.k // b.chunk_k * per_chunk,
+                     "chunk table")
+    return ("sell_" + b.layout.replace("-", "_"), "_i16" if i16 else "_i32",
+            (b.group_ids, b.slab_list, b.ja),
+            (b.n_groups, b.k, b.chunk_k, b.span))
+
+
+def _sg_call(b):
+    stride = 2 if b.span == 0 else 1
+    _check_table(b, b.n_groups * b.k * stride, "window table")
+    if b.slab_count.numel() != b.n_groups:
+        raise ValueError("sg tile counts do not match the bin's groups")
+    return ("sell_sg", "", (b.group_ids, b.slab_list, b.slab_count, b.ja),
+            (b.n_groups, b.k, stride, int(b.sg_slots)))
+
+
+# layout -> (entry stem, entry suffix, pointer arguments before the value/x/y
+# operands, scalar arguments after them), after the layout's own checks
+_CALL = {"k-major": _k_major_call, "wl": _wl_call, "sb-major": _sb_call,
+         "sb-list": _sb_call, "sg": _sg_call}
+
+
+def _launch(wrapper, b: DeviceBinIndex, precision: str, operands: tuple,
+           accumulate: bool):
+    """Call C entry ``<stem>_<precision><suffix>`` for bin ``b`` with its
+    layout's arguments around ``operands`` (value planes, x tables, y;
+    device pointers), then ``accumulate`` and the current stream; count the
+    launch on ``wrapper``."""
+    stem, suffix, before, after = _CALL[b.layout](b)
+    name = f"{stem}_{precision}{suffix}"
+    device = operands[0].device
+    with torch.cuda.device(device):
+        fn = getattr(_build.load(), name)
+        err = fn(*(a.data_ptr() for a in (*before, *operands)), *after,
+                 int(accumulate), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    wrapper.accumulating += bool(accumulate)
 
 
 def _write_plain(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
@@ -443,89 +547,44 @@ def _write_plain(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
     rows[idx] = rows[idx] + out if accumulate else out
 
 
-def _launch(wrapper, entry: str, b: DeviceSellBin, x_tab: torch.Tensor,
-            accumulate: bool, *args):
-    """Call C entry ``entry``_{f32|bf16}; tensors pass as device pointers,
-    ``accumulate`` and the current stream go last."""
-    value = "bf16" if b.as_.dtype == torch.bfloat16 else "f32"
-    name = entry.format(value=value)
-    with torch.cuda.device(x_tab.device):
-        fn = getattr(_build.load(), name)
-        err = fn(*(_ptr(a) if isinstance(a, torch.Tensor) else a
-                   for a in args), int(accumulate), _stream(x_tab))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    wrapper.launches += 1
-    wrapper.accumulating += bool(accumulate)
+def _bin(wrapper, b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
+         accumulate: bool):
+    if x_tab.device.type == "cpu":
+        return _write_plain(b, x_tab, y, accumulate)
+    _check_launch(b, {"as_": b.as_}, {"x": x_tab}, {"y": y},
+                 (torch.float32, torch.bfloat16))
+    _launch(wrapper, b, "bf16" if b.as_.dtype == torch.bfloat16 else "f32",
+           (b.as_, x_tab, y), accumulate)
 
 
 def k_major_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
                 accumulate: bool = False):
     """Write (or add) bin ``b``'s rows ``gid*1024 + i*128 + j`` of ``y``."""
-    if x_tab.device.type == "cpu":
-        return _write_plain(b, x_tab, y, accumulate)
-    _check_launch(b, x_tab, y)
-    _launch(k_major_bin, "sell_k_major_{value}", b, x_tab, accumulate,
-            b.group_ids, b.ja, b.as_, x_tab, y, b.n_groups, b.k)
+    _bin(k_major_bin, b, x_tab, y, accumulate)
 
 
 def wl_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
            accumulate: bool = False):
     """Write (or add) bin ``b``'s rows ``gid*1024 + rb*128 + j`` of ``y``."""
-    if x_tab.device.type == "cpu":
-        return _write_plain(b, x_tab, y, accumulate)
-    _check_launch(b, x_tab, y)
-    Tp = -(-SUBLANES * b.nw * b.L // 4)
-    if b.ja.numel() != b.n_groups * Tp * 8 * LANES:
-        raise ValueError("wl index plane does not match the bin")
-    _check_table(b, b.n_groups * SUBLANES * b.nw * 8, "slab table")
-    _launch(wl_bin, "sell_wl_{value}", b, x_tab, accumulate,
-            b.group_ids, b.slab_list, b.ja, b.as_, x_tab, y, b.n_groups,
-            b.nw, b.L)
-
-
-def _sb_bin(wrapper, b, x_tab, y, accumulate):
-    if x_tab.device.type == "cpu":
-        return _write_plain(b, x_tab, y, accumulate)
-    _check_launch(b, x_tab, y)
-    if b.k % b.chunk_k:
-        raise ValueError(f"k={b.k} is not a multiple of chunk_k={b.chunk_k}")
-    i16 = b.ja.dtype == torch.int16
-    if i16:
-        per_chunk = b.span if b.layout == "sb-list" else 1
-        _check_table(b, b.n_groups * SUBLANES * b.k // b.chunk_k * per_chunk,
-                     "chunk table")
-    entry = "sell_" + b.layout.replace("-", "_") + "_{value}_" \
-        + ("i16" if i16 else "i32")
-    _launch(wrapper, entry, b, x_tab, accumulate, b.group_ids, b.slab_list,
-            b.ja, b.as_, x_tab, y, b.n_groups, b.k, b.chunk_k, b.span)
+    _bin(wl_bin, b, x_tab, y, accumulate)
 
 
 def sb_major_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
                  accumulate: bool = False):
     """Write (or add) bin ``b``'s rows ``gid*1024 + sb*128 + j`` of ``y``."""
-    return _sb_bin(sb_major_bin, b, x_tab, y, accumulate)
+    _bin(sb_major_bin, b, x_tab, y, accumulate)
 
 
 def sb_list_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
                 accumulate: bool = False):
     """Write (or add) bin ``b``'s rows ``gid*1024 + sb*128 + j`` of ``y``."""
-    return _sb_bin(sb_list_bin, b, x_tab, y, accumulate)
+    _bin(sb_list_bin, b, x_tab, y, accumulate)
 
 
 def sg_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
            accumulate: bool = False):
     """Write (or add) bin ``b``'s rows ``gid*1024 + sigma*128 + j`` of ``y``."""
-    if x_tab.device.type == "cpu":
-        return _write_plain(b, x_tab, y, accumulate)
-    _check_launch(b, x_tab, y)
-    stride = 2 if b.span == 0 else 1
-    _check_table(b, b.n_groups * b.k * stride, "window table")
-    if b.slab_count.numel() != b.n_groups:
-        raise ValueError("sg tile counts do not match the bin's groups")
-    _launch(sg_bin, "sell_sg_{value}", b, x_tab, accumulate, b.group_ids,
-            b.slab_list, b.slab_count, b.ja, b.as_, x_tab, y, b.n_groups,
-            b.k, stride, int(b.sg_slots))
+    _bin(sg_bin, b, x_tab, y, accumulate)
 
 
 _KERNEL = {"k-major": k_major_bin, "wl": wl_bin, "sb-major": sb_major_bin,
@@ -541,7 +600,7 @@ def _run_kernel(b: DeviceSellBin, x_tab, y, accumulate: bool):
     _KERNEL[b.layout](b, x_tab, y, accumulate)
 
 
-def _check_x_table(dsell: DeviceSell, x_tab: torch.Tensor):
+def _check_x_table(dsell, x_tab: torch.Tensor):
     n = slab_table_rows(dsell.ncols) * LANES
     if x_tab.dtype != torch.float32 or tuple(x_tab.shape) != (n,):
         raise ValueError(
@@ -550,21 +609,27 @@ def _check_x_table(dsell: DeviceSell, x_tab: torch.Tensor):
             f"{tuple(x_tab.shape)}")
 
 
+def _assemble(dsell, xs: tuple, write) -> tuple:
+    """One y per x table: the core bins store their own groups' rows, then
+    every ``add_into`` bin adds onto them, on one stream; returns each
+    ``y[:nrows]``. ``write(b, *xs, *ys, accumulate)`` runs one bin."""
+    for x_tab in xs:
+        _check_x_table(dsell, x_tab)
+    ys = tuple(torch.zeros(dsell.num_groups * GROUP_ROWS, dtype=torch.float32,
+                           device=xs[0].device) for _ in xs)
+    for accumulate in (False, True):
+        for b in dsell.bins:
+            if b.add_into == accumulate:
+                write(b, *xs, *ys, accumulate)
+    return tuple(y[: dsell.nrows] for y in ys)
+
+
 def _spmv(dsell: DeviceSell, x_tab: torch.Tensor, write) -> torch.Tensor:
     if not isinstance(dsell, DeviceSell):
         raise TypeError(f"sell_spmv takes a DeviceSell, got "
                         f"{type(dsell).__name__} (column panels: "
-                        "panel_sell_spmv)")
-    _check_x_table(dsell, x_tab)
-    y = torch.zeros(dsell.num_groups * GROUP_ROWS, dtype=torch.float32,
-                    device=x_tab.device)
-    for b in dsell.bins:
-        if not b.add_into:
-            write(b, x_tab, y, False)
-    for b in dsell.bins:
-        if b.add_into:
-            write(b, x_tab, y, True)
-    return y[: dsell.nrows]
+                        "panel_sell_spmv; dd: sell_spmv_dd)")
+    return _assemble(dsell, (x_tab,), write)[0]
 
 
 def sell_spmv(dsell: DeviceSell, x_tab: torch.Tensor) -> torch.Tensor:
@@ -583,21 +648,31 @@ def sell_spmv_plain(dsell: DeviceSell, x_tab: torch.Tensor) -> torch.Tensor:
     return _spmv(dsell, x_tab, _write_plain)
 
 
+def _assemble_panels(dps, xs: tuple, write) -> tuple:
+    """One y per unpadded x vector; each panel packs its own x tables for
+    its columns and every bin adds onto the same rows."""
+    ys = tuple(torch.zeros(dps.num_groups * GROUP_ROWS, dtype=torch.float32,
+                           device=xs[0].device) for _ in xs)
+    for p, dsell in enumerate(dps.panels):
+        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
+        tabs = tuple(pack_x_table(x[c0:c1], c1 - c0) for x in xs)
+        for b in dsell.bins:
+            write(b, *tabs, *ys, True)
+    return tuple(y[: dps.nrows] for y in ys)
+
+
+def _check_panel_x(dps, x: torch.Tensor):
+    if x.dtype != torch.float32 or tuple(x.shape) != (dps.ncols,):
+        raise ValueError(f"x must be an f32 vector of {dps.ncols} entries, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+
+
 def _panel_spmv(dps: DevicePanelSell, x: torch.Tensor, write) -> torch.Tensor:
     if not isinstance(dps, DevicePanelSell):
         raise TypeError(f"panel_sell_spmv takes a DevicePanelSell, got "
                         f"{type(dps).__name__}")
-    if x.dtype != torch.float32 or tuple(x.shape) != (dps.ncols,):
-        raise ValueError(f"x must be an f32 vector of {dps.ncols} entries, "
-                         f"got {x.dtype} {tuple(x.shape)}")
-    y = torch.zeros(dps.num_groups * GROUP_ROWS, dtype=torch.float32,
-                    device=x.device)
-    for p, dsell in enumerate(dps.panels):
-        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
-        x_tab = pack_x_table(x[c0:c1], c1 - c0)
-        for b in dsell.bins:
-            write(b, x_tab, y, True)  # panels add onto the same rows
-    return y[: dps.nrows]
+    _check_panel_x(dps, x)
+    return _assemble_panels(dps, (x,), write)[0]
 
 
 def panel_sell_spmv(dps: DevicePanelSell, x: torch.Tensor) -> torch.Tensor:

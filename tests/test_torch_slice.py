@@ -33,7 +33,7 @@ from sparsematrixvectormultiplication_tpu_torch.io.mmio import write_matrix_mark
 from sparsematrixvectormultiplication_tpu_torch.models import synthetic as syn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STAGES = ("serial_csr", "sell", "sell_bf16")
+STAGES = ("serial_csr", "sell", "sell_bf16", "sell_dd")
 
 
 def test_slice_matches_jax_pipeline():
@@ -135,7 +135,7 @@ def test_run_matrix_runs_every_layout_on_cpu(matrix):
     assert res.sell.row_perm is None
     if "sg" in layouts:
         assert any(b.add_into for b in res.sell.bins)
-    for name in ("sell", "sell_bf16"):
+    for name in ("sell", "sell_bf16", "sell_dd"):
         assert res.stages[name].diff.significant_diffs == 0, name
 
 
@@ -158,7 +158,7 @@ def test_run_matrix_falls_back_to_sigma_like_jax():
     assert [(b.layout, b.k, b.n_groups) for b in res.sell.bins] == [
         (b.layout, b.k, b.n_groups) for b in want.bins]
     assert np.array_equal(res.sell.row_perm, want.row_perm)
-    for name in ("sell", "sell_bf16"):
+    for name in ("sell", "sell_bf16", "sell_dd"):
         assert res.stages[name].diff.significant_diffs == 0, name
 
 
