@@ -25,7 +25,8 @@ __all__ = ["load", "library_path", "build_log"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _HEADERS = ("sell_common.cuh", "dd.cuh")
-_SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu")
+_SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu",
+            "pr.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -59,6 +60,9 @@ _ENTRIES = {
                         _I32, _P)
        for v in ("f32", "bf16")},
     "sell_sg_dd": (_P, _P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32, _P),
+    # bins, n_bins, route, md, row_slab, val, x, y, n_groups, stream
+    "pr_spmv_f32": (_P, _I32, _P, _P, _P, _P, _P, _P, _I64, _P),
+    "pr_spmv_dd": (_P, _I32, _P, _P, _P, *_DD, _I64, _P),
 }
 
 
@@ -87,7 +91,7 @@ def _nvcc() -> str:
     path = Path(home) / "bin" / "nvcc"
     if not path.exists():
         raise RuntimeError(
-            f"nvcc not found on PATH or at {path}: the SELL CUDA kernels "
+            f"nvcc not found on PATH or at {path}: the CUDA kernels "
             "cannot be built")
     return str(path)
 

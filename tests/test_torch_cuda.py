@@ -4,8 +4,12 @@ Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false. Run on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``.
 Tolerance: rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order); the
 double-double kernels 1e-12*max|y| on the fp64-combined result (dd sums in
-another order), and exact on rows whose terms cancel.
+another order), and exact on rows whose terms cancel. The PR kernels are
+also held to the fp64 oracle at the JAX tests' ``max|Δ| / max(1, |ref|) <
+5e-6`` (f32) and 1e-12*max|y| (dd).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -13,8 +17,12 @@ import torch
 
 from sparsematrixvectormultiplication_tpu_torch import (
     CSRMatrix,
+    PanelPRMatrix,
     PanelSellMatrix,
+    PRMatrix,
     SellMatrix,
+    SplitMatrix,
+    pr_from_csr,
     run_matrix,
 )
 from sparsematrixvectormultiplication_tpu_torch.bench.harness import BenchConfig
@@ -22,10 +30,15 @@ from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
     banded,
     cancelling_pairs,
     fem_3d,
+    power_law,
+    random_general,
     road_network,
 )
+from sparsematrixvectormultiplication_tpu_torch.ops import pr as PRo
+from sparsematrixvectormultiplication_tpu_torch.ops import pr_dd as PRD
 from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
 from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+from sparsematrixvectormultiplication_tpu_torch.ops import split as SPL
 from sparsematrixvectormultiplication_tpu_torch.ops.doubledouble import (
     combine_f64,
     dd_add_dd,
@@ -289,3 +302,154 @@ def test_dd_kernel_exact_where_f32_cancels(layout, dev):
                       S.device_put_x(x, csr.ncols, device=dev)).cpu().numpy()
     assert np.abs(y_dd - y_ref).max() < 1e-12 * scale
     assert np.abs(y32 - y_ref).max() >= 1e-6 * scale
+
+
+# ---- the PR kernels and the locality split ----
+
+# tests/test_pr.py's cases, and the panel case (several problems)
+PR_CASES = {
+    "random": (lambda: random_general(500, 400, 0.01, seed=2), None),
+    "powerlaw": (lambda: power_law(1500, 3, seed=3), None),
+    "banded": (lambda: banded(800, 5, 50, seed=4), None),
+    "road": (lambda: road_network(1200, seed=5), None),
+    "panels": (lambda: random_general(3000, 2500, 0.01, seed=11), 512),
+}
+
+
+def _pr_host(case):
+    make, target = PR_CASES[case]
+    csr = CSRMatrix.from_coo(make())
+    if target is None:
+        return csr, PRMatrix.from_csr(csr)
+    pr = PanelPRMatrix.from_csr(csr, target_rows=target)
+    assert len(pr.panels) >= 3
+    return csr, pr
+
+
+def _problems(d):
+    return getattr(d, "panels", (d,))
+
+
+@pytest.mark.parametrize("case", sorted(PR_CASES))
+def test_pr_kernel_matches_plain(case, dev):
+    """Each problem through the kernel against the plain version, which runs
+    the Beneš stages themselves (so the composed route is under test), then
+    the whole SpMV against the fp64 oracle (tests/test_pr.py:156)."""
+    csr, pr = _pr_host(case)
+    d = PRo.device_put_pr(pr, device=dev)
+    x = np.random.default_rng(5).standard_normal(csr.ncols)
+    x_tab = S.device_put_x(x, csr.ncols, device=dev)
+    for p in _problems(d):
+        before = PRo.pr_problem.launches
+        y = PRo.pr_problem(p, x_tab)
+        torch.cuda.synchronize()
+        assert PRo.pr_problem.launches == before + 1
+        _close(y, PRo.pr_problem_plain(p, x_tab))
+    y = pr.unpermute(PRo.pr_spmv(d, x_tab).cpu().numpy().astype(np.float64))
+    ref = csr.spmv(x)
+    assert (np.abs(y - ref) / np.maximum(1.0, np.abs(ref))).max() < 5e-6
+
+
+@pytest.mark.parametrize("case", ["powerlaw", "road", "panels"])
+def test_pr_dd_kernel_matches_plain(case, dev):
+    csr, pr = _pr_host(case)
+    d = PRD.device_put_pr_dd(pr, device=dev)
+    x = np.random.default_rng(6).standard_normal(csr.ncols)
+    xh, xl = D.device_put_x_dd(x, csr.ncols, device=dev)
+    for p in _problems(d):
+        before = PRD.pr_problem_dd.launches
+        got = PRD.pr_problem_dd(p, xh, xl)
+        torch.cuda.synchronize()
+        assert PRD.pr_problem_dd.launches == before + 1
+        _dd_close(got, PRD.pr_problem_plain_dd(p, xh, xl))
+    _dd_close(PRD.pr_spmv_dd(d, xh, xl), PRD.pr_spmv_dd_plain(d, xh, xl))
+    y = pr.unpermute(combine_f64(*PRD.pr_spmv_dd(d, xh, xl)).cpu().numpy())
+    ref = csr.spmv(x)
+    assert np.abs(y - ref).max() < 1e-12 * np.abs(ref).max()
+
+
+def test_pr_dd_kernel_exact_where_f32_cancels(dev):
+    """Cancelling rows (see test_dd_kernel_exact_where_f32_cancels) through
+    the PR kernels: dd returns the fp64 oracle, f32 misses it."""
+    coo, x = cancelling_pairs(5 * 1024, seed=0)
+    csr = CSRMatrix.from_coo(coo)
+    pr = pr_from_csr(csr)
+    y_ref = csr.spmv(x)
+    scale = np.abs(y_ref).max()
+    before = PRD.pr_problem_dd.launches
+    y_dd = combine_f64(*PRD.pr_spmv_dd(
+        PRD.device_put_pr_dd(pr, device=dev),
+        *D.device_put_x_dd(x, csr.ncols, device=dev))).cpu().numpy()
+    assert PRD.pr_problem_dd.launches > before
+    y32 = PRo.pr_spmv(PRo.device_put_pr(pr, device=dev),
+                      S.device_put_x(x, csr.ncols, device=dev)).cpu().numpy()
+    assert np.abs(pr.unpermute(y_dd) - y_ref).max() < 1e-12 * scale
+    assert np.abs(pr.unpermute(y32.astype(np.float64)) - y_ref).max() \
+        >= 1e-6 * scale
+
+
+def test_split_kernels_match_plain(dev):
+    """The split composite (k-major near side, one-entry PR far side) in
+    f32 and dd against its plain versions and the oracle."""
+    csr = CSRMatrix.from_coo(road_network(20_000, seed=1))
+    sm = SplitMatrix.from_csr(csr)
+    assert {b.layout for b in sm.near.bins} == {"k-major"}
+    x = np.random.default_rng(7).standard_normal(csr.ncols)
+    x_tab = S.device_put_x(x, csr.ncols, device=dev)
+    ds = SPL.device_put_split(sm, device=dev)
+    before = (PRo.pr_problem.launches, S.k_major_bin.launches)
+    y = SPL.split_spmv(ds, x_tab)
+    torch.cuda.synchronize()
+    assert PRo.pr_problem.launches > before[0]
+    assert S.k_major_bin.launches > before[1]
+    _close(y, SPL.split_spmv_plain(ds, x_tab))
+    ref = csr.spmv(x)
+    xh, xl = D.device_put_x_dd(x, csr.ncols, device=dev)
+    dsd = SPL.device_put_split_dd(sm, device=dev)
+    before = (PRD.pr_problem_dd.launches, D.k_major_bin_dd.launches)
+    got = SPL.split_spmv_dd(dsd, xh, xl)
+    torch.cuda.synchronize()
+    assert PRD.pr_problem_dd.launches > before[0]
+    assert D.k_major_bin_dd.launches > before[1]
+    _dd_close(got, SPL.split_spmv_dd_plain(dsd, xh, xl))
+    assert np.abs(combine_f64(*got).cpu().numpy() - ref).max() \
+        < 1e-12 * np.abs(ref).max()
+
+
+def _bad_inputs(d, x_tab):
+    """(what, problem, x) triples that the PR wrapper must refuse."""
+    n = x_tab.numel()
+    return [
+        ("x must be float32", d, x_tab.double()),
+        ("x is not contiguous",
+         d, torch.zeros(2 * n, device=x_tab.device)[::2]),
+        ("route is not contiguous",
+         dataclasses.replace(d, route=d.route.t().contiguous().t()), x_tab),
+        ("md must be int32", dataclasses.replace(d, md=d.md.long()), x_tab),
+        ("val must be float32",
+         dataclasses.replace(d, val=d.val.double()), x_tab),
+        ("at least", d, x_tab[: 128 * d.max_slab]),
+        ("is on cpu", dataclasses.replace(d, route=d.route.cpu()), x_tab),
+    ]
+
+
+def test_pr_kernels_refuse_bad_inputs(dev):
+    """A wrongly typed, non-contiguous, short or misplaced input raises on
+    CUDA tensors; nothing falls back to the plain version."""
+    csr, pr = _pr_host("powerlaw")
+    d = PRo.device_put_pr(pr, device=dev)
+    x_tab = S.device_put_x(np.ones(csr.ncols), csr.ncols, device=dev)
+    before = PRo.pr_problem.launches
+    for what, p, x in _bad_inputs(d, x_tab):
+        with pytest.raises(ValueError, match=what):
+            PRo.pr_problem(p, x)
+    assert PRo.pr_problem.launches == before
+    dd = PRD.device_put_pr_dd(pr, device=dev)
+    xh, xl = D.device_put_x_dd(np.ones(csr.ncols), csr.ncols, device=dev)
+    before = PRD.pr_problem_dd.launches
+    with pytest.raises(ValueError, match="x_lo must be float32"):
+        PRD.pr_problem_dd(dd, xh, xl.double())
+    with pytest.raises(ValueError, match="val_l is not contiguous"):
+        PRD.pr_problem_dd(dataclasses.replace(
+            dd, val_l=dd.val_l.t().contiguous().t()), xh, xl)
+    assert PRD.pr_problem_dd.launches == before
