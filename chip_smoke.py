@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port's main paths on one GPU: SELL SpMV
 (f32, bf16 and double-double), the PR layout and the locality split (f32
-and double-double), and ``auto_device_op``.
+and double-double), ``auto_device_op``, and multi-RHS SpMM (SELL k-major and
+wl, 128x128 BSR).
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``csrc/`` and the PR router from
-``native/``, then drives the main path (generate or read a matrix -> CSR ->
-layout -> upload -> SpMV, validated against the fp64 oracle) through
-``run_matrix`` on eight phases, each of which must convert to exactly the
-SELL bin layouts named beside it:
+It builds the CUDA kernels from ``csrc/`` and the PR router and BSR blocker
+from ``native/``, then drives the main path (generate or read a matrix ->
+CSR -> layout -> upload -> SpMV or SpMM, validated against the fp64 oracle)
+through ``run_matrix`` on nine phases, each of which must convert to exactly
+the SELL bin layouts named beside it:
 
-* entry:              banded(8192, 24, 512): k-major;
-* mixed:              fem_3d(20, 20, 20, dof=3): k-major and wl in one matrix;
+* entry:              banded(8192, 24, 512): k-major; also ``sell_spmm``
+                      (R=16, heavy-row segments reduced by index_add_);
+* mixed:              fem_3d(20, 20, 20, dof=3): k-major and wl in one
+                      matrix; also ``sell_spmm``;
 * mtx:                a banded matrix written as Matrix Market and read back;
 * headline:           fem_3d(60, 60, 60, dof=3), bench.py's fem3d_cube: wl;
-* banded_adversarial: banded(250_000, 60, 2500), bench.py's: sb-major;
+                      then ``sell_spmm`` on its own wl SELL at R=8 and R=16
+                      (the wl SpMM kernel; every bin must be wl);
+* banded_adversarial: banded(250_000, 60, 2500), bench.py's: sb-major; also
+                      ``sell_spmm`` (R=16 on a SELL forced to k-major) and
+                      ``bsr_spmm``, which must be skipped: its 128x128
+                      blocks exceed the 2 GiB budget;
+* band64_250k:        banded(250_000, 64, 64, seed=11), the BSR case of
+                      probes/bsr_spmm_tpu.py: ``bsr_spmm`` (B=128) and
+                      ``sell_spmm`` only (k-major); then ``bsr_spmm`` on its
+                      blocks in f32 and bf16, at B=128 and B=512, by both
+                      routes, each validated against the fp64 oracle (bf16:
+                      the oracle of the bf16-rounded blocks and X, at abs
+                      1e-2 / rel 0.02);
 * road_scattered:     road_network(1_200_000), bench.py's road: sb-list; also
                       the ``split`` and ``split_dd`` stages, which must give
                       slab_dist 1, a far side of one 16,384-row PR problem
@@ -31,20 +46,23 @@ SELL bin layouts named beside it:
                       stages on 2 PR panels of 16,384 Beneš rows;
 
 and then a panel phase: fem_3d(10, 10, 10, dof=3) split into 1024-column
-panels (k-major and wl bins) through ``panel_sell_spmv``, every bin
-accumulating; and ``auto_device_op`` on the mixed and road_scattered
-matrices and on power_law(200_000, 3), which must pick "sell", "split" and
-"pr" and whose ``matvec`` must launch the kernels of what it picked.
+panels (k-major and wl bins) through ``panel_sell_spmv`` and ``sell_spmm``
+(R=8), every bin accumulating; and ``auto_device_op`` on the mixed and
+road_scattered matrices and on power_law(200_000, 3), which must pick
+"sell", "split" and "pr" and whose ``matvec`` must launch the kernels of
+what it picked.
 
 Every stage and every ``matvec`` must show no significant difference from
-the fp64 oracle (bf16: the oracle of the bf16-quantized matrix); the dd
-stages also a norm-scaled error ``max|y - y_ref| / max|y_ref|`` below
-1e-12. The SELL phases run f32, bf16 and dd (``sell_dd``; scattered_uniform's
-slot-packed sg bins are rebuilt in rows mode for it), webbase_pr only f32.
-The kernels' launch counters are reset before the phases and read after
-them and the panel phase, before ``auto_device_op``; every kernel and every
-dd kernel, and the k-major kernel of both precisions in accumulate mode,
-must have been launched.
+the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
+sampled columns); the dd stages also a norm-scaled error ``max|y - y_ref| /
+max|y_ref|`` below 1e-12. The SELL phases run f32, bf16 and dd
+(``sell_dd``; scattered_uniform's slot-packed sg bins are rebuilt in rows
+mode for it), webbase_pr only f32. The kernels' launch counters are reset
+before the phases and read after them and the panel phase, before
+``auto_device_op``; every kernel and every dd kernel, the k-major kernel of
+both precisions in accumulate mode, every SpMM kernel (both BSR routes
+among them) and both SELL SpMM kernels in accumulate mode must have been
+launched.
 
 Then every bin of every phase, banded_adversarial and road_scattered also
 with int16 sb index planes, is run through its kernel, storing and
@@ -52,25 +70,37 @@ accumulating, and through its plain PyTorch version on the card; they must
 agree within rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order), or
 for the dd kernels within 1e-12*max|y| on the fp64-combined result (dd sums
 in another order). So are webbase_pr's PR panels through the PR and
-PR-dd kernels, and road_scattered's split (its K=1 far problem through the
-PR kernels, and the composite). Kernel and plain version are each timed
-twice: device time (CUDA events around calls queued back to back behind a
-spin kernel, per call) and call time (CUDA events around each call, host
-included). Beside each phase's SpMV, the
+PR-dd kernels, road_scattered's split (its K=1 far problem through the
+PR kernels, and the composite), every bin of the SELL SpMM runs (the
+sell_spmm SELLs at R=16, the headline's wl bins at R=8 and 16; f32, and
+bf16 values on the headline and banded_adversarial, at the same
+tolerance: the plain versions widen bf16 exactly as the kernels do, so
+only the order of the f32 sums differs), and band64_250k's blocks through
+both BSR routes (f32 and bf16, B=128 and 512, the same tolerance for the
+same reason). Column j of each SELL SpMM result must equal the SpMV kernel
+on X[:, j] bit for bit on the headline and banded_adversarial. Kernel and
+plain version are each timed twice: device time (CUDA events around calls
+queued back to back behind a spin kernel, per call) and call time (CUDA
+events around each call, host included). Beside each phase's SpMV, the
 device time of cuSPARSE's CSR SpMV (``torch.sparse_csr_tensor @ x``) on the
 phase's whole matrix, f32 values beside the f32/bf16 kernels and fp64
-beside the dd kernels, is printed; it is a yardstick only, which no module
-of the port calls.
+beside the dd kernels, is printed, and beside each SpMM kernel cuSPARSE's
+CSR SpMM (``torch.sparse_csr_tensor @ X``, f32, the same X); they are
+yardsticks only, which no module of the port calls.
 
 The JSON summary's ``ms`` and ``plain_ms`` are device times, at each
-kernel's main-path bin with the most entries (PR: webbase_pr's panel 0) with f32 (or dd)
-values and int32 index planes; ``bound_ms`` is the least time the card could
-take for the function that bin computes: its real entries' values and 4 B
-columns, each distinct x entry (per x table) they read and each y row they
-write, moved once, over 3.35 TB/s (SpMV does ~2 FLOP per entry f32, ~20 dd,
-so bytes bind). Padding, index tables and the layout's own planes are not
-counted; the bytes the layout's planes hold are printed beside it.
-``library_ms`` is the cuSPARSE time of the bin's phase.
+kernel's main-path bin with the most entries (PR: webbase_pr's panel 0;
+SELL SpMM at R=16; BSR: band64_250k at B=128) with f32 (or dd) values and
+int32 index planes; ``bound_ms`` is the least time the card could take for
+the function that bin computes: the larger of its bytes over 3.35 TB/s
+(its real entries' values and 4 B columns, each distinct x entry (per x
+table or right-hand side) they read and each y entry they write, moved
+once) and its useful FLOP (2 per entry and right-hand side) over the 67
+TFLOP/s f32 rate; ``bound_by`` says which. SpMV does ~2 FLOP per entry f32
+and ~20 dd, so bytes bind; the BSR kernel's dense-block FLOP (every stored
+block multiplied whole) is printed beside it. Padding, index tables and the
+layout's own planes are not counted; the bytes the layout's planes hold are
+printed beside it. ``library_ms`` is the cuSPARSE time of the bin's phase.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before them;
@@ -102,7 +132,16 @@ DD_TOL = 1e-12   # dd: kernel vs plain, times max|y|; norm-scaled error
 PLAIN_DD_REPS = 3
 PLAIN_PR_REPS = 2
 PLAIN_PR_DD_REPS = 1
+# a plain SELL SpMM call on the headline's main bin at R=16 queues ~220
+# kernels in 22 chunks of groups, a plain BSR call at B=512 ~70
+PLAIN_SPMM_REPS = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
+F32_FLOP_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
+BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
+SPMM_RHS = 16              # R of the SELL SpMM runs (the sell_spmm stage's)
+HEADLINE_RHS = (8, 16)
+BSR_RHS = (128, 512)       # B of the direct bsr_spmm calls
+BSR_BF16_TOL = (1e-2, 0.02)  # abs, rel: probes/bsr_spmm_tpu.py:110
 PKG = "sparsematrixvectormultiplication_tpu_torch"
 TPU = "sparsematrixvectormultiplication_tpu/ops/pallas_sell.py"
 KERNELS = {
@@ -129,8 +168,22 @@ PR_KERNELS = {
     "pr_dd": ("pr_spmv_dd", f"{PKG}/csrc/pr.cu",
               "sparsematrixvectormultiplication_tpu/ops/pallas_pr_dd.py:114"),
 }
+TPU_SPMM = "sparsematrixvectormultiplication_tpu/ops"
+SPMM_KERNELS = {
+    # wrapper key: (name, source, TPU kernel replaced)
+    "k-major": ("sell_k_major_spmm", f"{PKG}/csrc/sell_spmm.cu",
+                f"{TPU_SPMM}/pallas_sell_spmm.py:85"),
+    "wl": ("sell_wl_spmm", f"{PKG}/csrc/sell_spmm.cu",
+           f"{TPU_SPMM}/pallas_sell_spmm.py:152"),
+    "blockspec": ("bsr_spmm_blockspec", f"{PKG}/csrc/bsr.cu",
+                  f"{TPU_SPMM}/pallas_bsr.py:102"),
+    "dma": ("bsr_spmm_dma", f"{PKG}/csrc/bsr.cu",
+            f"{TPU_SPMM}/pallas_bsr.py:124"),
+}
 SB_I16_PHASES = ("banded_adversarial", "road_scattered")
 SELL_STAGES = ("sell", "sell_bf16", "sell_dd")
+# phase -> {stage: a word its skip reason must hold}
+SKIPS = {"banded_adversarial": {"bsr_spmm": "budget"}}
 DD_STAGES = ("sell_dd", "pr_dd", "split_dd")
 PR_ROWS = 1 << 14  # the host PR problems' Beneš rows (a TPU VMEM cap)
 
@@ -174,10 +227,12 @@ def main() -> int:
     from sparsematrixvectormultiplication_tpu_torch.native import (
         build as native_build)
     from sparsematrixvectormultiplication_tpu_torch.ops import _build
+    from sparsematrixvectormultiplication_tpu_torch.ops import bsr as BSR
     from sparsematrixvectormultiplication_tpu_torch.ops import pr as PR
     from sparsematrixvectormultiplication_tpu_torch.ops import pr_dd as PRD
     from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
     from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_spmm as SM
     from sparsematrixvectormultiplication_tpu_torch.ops import split as SPL
     from sparsematrixvectormultiplication_tpu_torch.ops.doubledouble import (
         combine_f64, dd_add_dd, split_f64)
@@ -186,7 +241,7 @@ def main() -> int:
     from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
         device_time_fn, time_fn)
     from sparsematrixvectormultiplication_tpu_torch.utils.validation import (
-        difference_metrics)
+        difference_metrics, sampled_spmm_metrics)
 
     if "jax" in sys.modules:
         fail("the port imported jax")
@@ -204,6 +259,10 @@ def main() -> int:
     native_build.load_fast_route()
     print(f"PR router built and loaded in {time.perf_counter() - t0:.1f} s: "
           f"{native_build.library_path().name}")
+    t0 = time.perf_counter()
+    native_build.load_fast_bsr()
+    print(f"BSR blocker built and loaded in {time.perf_counter() - t0:.1f} "
+          f"s: {native_build.library_path('fastbsr').name}")
 
     def need_ms(nnz, value_bytes, n_x, n_y, tables):
         """The least time of an SpMV piece: ``nnz`` entries of
@@ -212,6 +271,19 @@ def main() -> int:
         rate."""
         moved = nnz * (value_bytes + 4) + (n_x + n_y) * 4 * tables
         return moved / HBM_BYTES_PER_S * 1e3
+
+    def spmm_need(nnz, value_bytes, n_x, n_y, rhs, x_bytes=4,
+                  flop_rate=F32_FLOP_PER_S):
+        """``(ms, bound_by)``, the least time of an SpMM piece: ``nnz``
+        entries of ``value_bytes`` plus a 4 B column, ``n_x`` distinct x rows
+        of ``rhs`` values of ``x_bytes`` and ``n_y`` f32 y rows of ``rhs``
+        over the HBM rate, or its 2 FLOP per entry and right-hand side over
+        ``flop_rate``, whichever is longer."""
+        moved = nnz * (value_bytes + 4) + rhs * (n_x * x_bytes + n_y * 4)
+        by_bytes = moved / HBM_BYTES_PER_S * 1e3
+        by_ops = 2 * nnz * rhs / flop_rate * 1e3
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (
+            by_ops, "operations")
 
     used_cols = {}
 
@@ -226,9 +298,9 @@ def main() -> int:
     # name, matrix, the SELL layouts its conversion must hold, stages
     phases = [
         ("entry", lambda: banded(8192, 24, 512, seed=0), {"k-major"},
-         SELL_STAGES),
+         (*SELL_STAGES, "sell_spmm")),
         ("mixed", lambda: fem_3d(20, 20, 20, dof=3, seed=1),
-         {"k-major", "wl"}, SELL_STAGES),
+         {"k-major", "wl"}, (*SELL_STAGES, "sell_spmm")),
         ("mtx", lambda: mtx_roundtrip(lambda: banded(6000, 16, 400, seed=2),
                                       COOMatrix.from_mtx,
                                       write_matrix_market), {"k-major"},
@@ -236,7 +308,10 @@ def main() -> int:
         ("headline", lambda: fem_3d(60, 60, 60, dof=3, seed=1), {"wl"},
          SELL_STAGES),
         ("banded_adversarial", lambda: banded(250_000, 60, 2500, seed=1),
-         {"sb-major"}, SELL_STAGES),
+         {"sb-major"}, (*SELL_STAGES, "sell_spmm", "bsr_spmm")),
+        # no SELL stage: the layouts are those of the sell_spmm SELL
+        ("band64_250k", lambda: banded(250_000, 64, 64, seed=11),
+         {"k-major"}, ("sell_spmm", "bsr_spmm")),
         ("road_scattered", lambda: road_network(1_200_000, seed=1),
          {"sb-list"}, (*SELL_STAGES, "split", "split_dd")),
         ("scattered_uniform",
@@ -281,26 +356,92 @@ def main() -> int:
                 f"{sm.far_frac:.4f}, far {far.n_rows} rows bins {far.bins}, "
                 f"near bins {near_bins}")
 
+    spmm_wrappers = {"k-major": SM.k_major_spmm_bin, "wl": SM.wl_spmm_bin,
+                     **BSR.ROUTES}
+
+    def check_spmm(tag, csr, X, Y, tols=()):
+        """SpMM result ``Y`` against the fp64 oracle on sampled columns."""
+        dm = sampled_spmm_metrics(csr, X, Y, *tols)
+        if dm.significant_diffs:
+            fail(f"{tag}: {dm.significant_diffs} significant diffs vs the "
+                 "oracle")
+        return dm
+
+    def headline_spmm(res):
+        """``sell_spmm`` on the headline's own wl SELL at R = 8 and 16."""
+        d = S.device_put_sell(res.sell, device=dev)
+        if {b.layout for b in d.bins} != {"wl"} or res.sell.row_perm \
+                is not None or res.sell.nrows != res.nrows:
+            fail("headline: the SELL for the wl SpMM is not all wl bins in "
+                 "the matrix's row order")
+        for rhs in HEADLINE_RHS:
+            X = np.random.default_rng(SEED).standard_normal(
+                (res.ncols, rhs), dtype=np.float32)
+            Y = SM.sell_spmm(d, SM.device_put_x_multi(X, res.ncols,
+                                                      device=dev))
+            dm = check_spmm(f"headline sell_spmm R={rhs}", res.csr, X,
+                            Y.cpu().numpy().astype(np.float64))
+            print(f"[headline] sell_spmm R={rhs} on the wl SELL: sig_diffs "
+                  f"0, max_rel {dm.max_rel_err:.2e}", flush=True)
+        return d
+
+    def bsr_inputs(csr, dtype, rhs):
+        """X (N, rhs) f32 from the seed, its padded table in ``dtype``, and
+        the CSR and X of the oracle (bf16: the bf16-rounded operands)."""
+        X = np.random.default_rng(SEED).standard_normal((csr.ncols, rhs),
+                                                        dtype=np.float32)
+        xp = BSR.pad_rhs(X, csr.ncols, dtype, device=dev)
+        if dtype == torch.float32:
+            return X, xp, csr, X
+        q = type(csr)(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
+                      quantize_bf16(csr.values.astype(np.float32)))
+        return X, xp, q, quantize_bf16(X)
+
+    def band64_bsr(res):
+        """``bsr_spmm`` on band64's blocks: f32 and bf16, B = 128 and 512,
+        both routes, each against the fp64 oracle."""
+        for dtype in (torch.float32, torch.bfloat16):
+            d = BSR.device_put_bsr(res.bsr, dtype, device=dev)
+            for rhs in BSR_RHS:
+                _, xp, ocsr, oX = bsr_inputs(res.csr, dtype, rhs)
+                tols = BSR_BF16_TOL if dtype == torch.bfloat16 else ()
+                for route in BSR.ROUTES:
+                    Y = BSR.bsr_spmm(d, xp, route=route)[:, :rhs]
+                    dm = check_spmm(f"band64_250k bsr_spmm {dtype} B={rhs} "
+                                    f"{route}", ocsr, oX,
+                                    Y.cpu().numpy().astype(np.float64), tols)
+                    print(f"[band64_250k] bsr_spmm {str(dtype)[6:]} B={rhs} "
+                          f"{route}: sig_diffs 0, max_rel "
+                          f"{dm.max_rel_err:.2e}", flush=True)
+            del d
+            torch.cuda.empty_cache()
+
     # ---- the main path; the launch counts are read from this run only ----
     for w in (*wrappers.values(), *dd_wrappers.values(),
-              *pr_wrappers.values()):
+              *pr_wrappers.values(), *spmm_wrappers.values()):
         w.launches = 0
         w.accumulating = 0
     runs = []
+    spmm_runs = []  # (phase, the k-major SELL of its sell_spmm stage, csr)
     phase_csr = {}
-    web = road = None
+    web = road = band64 = headline = None
     for name, make, layouts, stages in phases:
         t0 = time.perf_counter()
         coo = make()
         x = np.random.default_rng(SEED).standard_normal(coo.ncols)
-        before = (counts(), counts(dd_wrappers), counts(pr_wrappers))
+        before = (counts(), counts(dd_wrappers), counts(pr_wrappers),
+                  counts(spmm_wrappers))
         res = run_matrix(name, coo, BenchConfig(stages=stages), x=x,
                          device=dev, log=lambda m: print(m, flush=True))
-        bins = res.sell.bins
+        sell = res.sell if res.sell is not None else res.sell_spmm
+        bins = sell.bins
         got = {b.layout for b in bins}
         if got != layouts:
             fail(f"{name}: the conversion gave layouts {sorted(got)}, "
                  f"the phase exists to run {sorted(layouts)}")
+        if "sell_spmm" in stages and {
+                b.layout for b in res.sell_spmm.bins} != {"k-major"}:
+            fail(f"{name}: the sell_spmm SELL is not k-major")
         got_dd = set()
         if "sell_dd" in stages:
             # sell_dd runs the same SELL, or its rows-mode rebuild where the
@@ -319,47 +460,73 @@ def main() -> int:
                 == {True, False}):
             fail(f"{name}: no add_into far bins, or not both static and "
                  "dynamic sg bins")
-        if tuple(res.stages) != ("serial_csr", *stages):
+        skips = SKIPS.get(name, {})
+        if set(res.skipped) != set(skips) or any(
+                word not in res.skipped[st] for st, word in skips.items()):
+            fail(f"{name}: skipped {res.skipped}, the phase expects "
+                 f"{skips}")
+        ran = tuple(st for st in stages if st not in skips)
+        if tuple(res.stages) != ("serial_csr", *ran):
             fail(f"{name}: ran {tuple(res.stages)} ({res.skipped})")
-        for stage in stages:
+        for stage in ran:
             sig = res.stages[stage].diff.significant_diffs
             if sig:
                 fail(f"{name} {stage}: {sig} significant diffs vs the oracle")
-        dd_errs = {s: res.stages[s].norm_err for s in stages
+        dd_errs = {s: res.stages[s].norm_err for s in ran
                    if s in DD_STAGES}
         for stage, err in dd_errs.items():
             if not err < DD_TOL:
                 fail(f"{name} {stage}: norm-scaled error {err:.3e} >= "
                      f"{DD_TOL}")
-        now = (counts(), counts(dd_wrappers), counts(pr_wrappers))
-        # the SELL layouts of f32 (and dd) and, for the PR and split
-        # stages, the PR kernels and the split's k-major near side
-        want = [(0, lay) for lay in layouts] + [(1, lay) for lay in got_dd]
+        extra = ""
+        if name == "headline":
+            headline = (headline_spmm(res), res.csr)
+        if name == "band64_250k":
+            band64_bsr(res)
+            band64 = res
+            st = res.format_stats["bsr"]
+            extra += (f"; BSR {st['blocks']} blocks, kb {st['kb']}, fill "
+                      f"{st['fill']:.4f}, {st['bytes']} B")
+        now = (counts(), counts(dd_wrappers), counts(pr_wrappers),
+               counts(spmm_wrappers))
+        # the SELL layouts of f32 (and dd), for the PR and split stages the
+        # PR kernels and the split's k-major near side, and the SpMM kernels
+        want = [(0, lay) for lay in (layouts if res.sell is not None
+                                     else ())]
+        want += [(1, lay) for lay in got_dd]
         if "pr" in stages:
             check_pr(name, res)
             want += [(2, "pr"), (2, "pr_dd")]
-        extra = ""
         if "split" in stages:
-            extra = check_split(name, res)
+            extra += check_split(name, res)
             want += [(2, "pr"), (2, "pr_dd"), (0, "k-major"), (1, "k-major")]
+        if "sell_spmm" in stages:
+            want.append((3, "k-major"))
+        if "bsr_spmm" in ran:
+            want += [(3, "blockspec"), (3, "dma")]
+        if name == "headline":
+            want.append((3, "wl"))
         for which, lay in want:
             if now[which][lay] <= before[which][lay]:
-                fail(f"{name}: the {lay}{' dd' if which == 1 else ''} "
-                     "kernel was not launched")
+                kind = ("", " dd", "", " SpMM")[which]
+                fail(f"{name}: the {lay}{kind} kernel was not launched")
         if res.pr is not None:
             extra += (f"; PR panels {[p.n_rows for p in res.pr.panels]} "
                       f"bins {[p.bins for p in res.pr.panels]}, padding "
                       f"{res.pr.padding_ratio:.3f}")
         shapes = [[(b.layout, b.k, b.n_groups, b.span) for b in s.bins]
-                  for s in (res.sell, res.sell_dd) if s is not None]
-        per_call = {s: round(res.stages[s].seconds * 1e3, 4)
-                    for s in stages}
+                  for s in (res.sell, res.sell_dd, res.sell_spmm)
+                  if s is not None]
+        per_call = {s: round(res.stages[s].seconds * 1e3, 4) for s in ran}
         print(f"[{name}] {coo.nrows} rows, {coo.nnz} nnz, bins {shapes}, "
-              f"padding {res.sell.padding_ratio:.3f}; ms per call "
+              f"padding {sell.padding_ratio:.3f}; ms per call "
               f"{per_call}; norm-scaled errors "
               f"{ {s: f'{e:.3e}' for s, e in dd_errs.items()} }{extra}; "
               f"phase {time.perf_counter() - t0:.1f} s", flush=True)
-        runs.append((name, res.sell, res.sell_dd, x, res.csr))
+        if res.sell is not None:
+            runs.append((name, res.sell, res.sell_dd, x, res.csr))
+        if res.sell_spmm is not None:
+            spmm_runs.append((name, res.sell_spmm, res.csr))
         phase_csr[name] = res.csr
         if name == "webbase_pr":
             web = (res.pr, x, res.csr)
@@ -396,11 +563,20 @@ def main() -> int:
     if sig or not dd_err < DD_TOL:
         fail(f"panels dd: {sig} significant diffs, norm-scaled error "
              f"{dd_err:.3e}")
+    before_mm = {lay: spmm_wrappers[lay].accumulating for lay in got}
+    Xp = np.random.default_rng(SEED).standard_normal((csr.ncols, 8),
+                                                      dtype=np.float32)
+    Y = SM.sell_spmm(S.device_put_sell(psell, device=dev),
+                     torch.from_numpy(Xp).to(dev))
+    check_spmm("panels sell_spmm", csr, Xp,
+               Y.cpu().numpy().astype(np.float64))
     for lay in got:
         if wrappers[lay].accumulating <= before[lay]:
             fail(f"panels: the {lay} kernel did not accumulate")
         if dd_wrappers[lay].accumulating <= before_dd[lay]:
             fail(f"panels: the {lay} dd kernel did not accumulate")
+        if spmm_wrappers[lay].accumulating <= before_mm[lay]:
+            fail(f"panels: the {lay} SpMM kernel did not accumulate")
     print(f"[panels] {csr.nrows} rows, {csr.nnz} nnz, "
           f"{len(psell.panels)} panels, bins "
           f"{[[(b.layout, b.k, b.n_groups) for b in p.bins] for p in psell.panels]}, "
@@ -424,6 +600,17 @@ def main() -> int:
         if n == 0:
             fail(f"the {kind} kernel was never launched on the main path")
     print(f"main-path PR launches {launches_pr}", flush=True)
+    launches_mm = counts(spmm_wrappers)
+    for kind, n in launches_mm.items():
+        if n == 0:
+            fail(f"the {kind} SpMM kernel was never launched on the main "
+                 "path")
+    for lay in ("k-major", "wl"):
+        if spmm_wrappers[lay].accumulating == 0:
+            fail(f"the {lay} SpMM kernel never accumulated on the main path")
+    print(f"main-path SpMM launches {launches_mm}, accumulating "
+          f"{ {k: spmm_wrappers[k].accumulating for k in ('k-major', 'wl')} }",
+          flush=True)
 
     # auto_device_op: one call from a CSR to a validated matvec, which must
     # launch the kernels of the layout it picked
@@ -509,12 +696,11 @@ def main() -> int:
         return planes + sum(t.numel() * t.element_size()
                             for t in (b.slab_list, b.slab_count, b.group_ids))
 
-    def bound_ms(b, xs):
-        """The least time of the bin's function: its real entries (a value
-        that is not 0, in a slot its layout does not mask), the distinct x
-        entries they read and the y rows they write (those the plain version
-        sums from a value plane of 1s at 1s of x); returns it and the bin's
-        real entries."""
+    def bin_counts(b, x_rows):
+        """The bin's real entries (a value that is not 0, in a slot its
+        layout does not mask), the distinct x entries they read and the y
+        rows they write (those the plain version sums from a value plane of
+        1s at 1s of an ``x_rows``-entry x)."""
         shape, cols, keep, _ = S._SLOTS[b.layout](b)
         vals = value_planes(b)
         real = vals[0].view(shape) != 0
@@ -525,10 +711,16 @@ def main() -> int:
                  for f in dataclasses.fields(S.DeviceBinIndex)}
         ones = S.DeviceSellBin(**index,
                                as_=real.float().reshape(vals[0].shape))
-        n_y = int((plains[b.layout](ones, torch.ones_like(xs[0])) > 0).sum())
-        nnz = int(real.sum())
-        return need_ms(nnz, sum(v.element_size() for v in vals), n_x, n_y,
-                       len(xs)), nnz
+        n_y = int((plains[b.layout](ones, torch.ones(x_rows, device=dev))
+                   > 0).sum())
+        return int(real.sum()), n_x, n_y
+
+    def bound_ms(b, xs):
+        """The least time of the bin's function (:func:`bin_counts`' bytes
+        over the HBM rate); returns it and the bin's real entries."""
+        nnz, n_x, n_y = bin_counts(b, xs[0].numel())
+        return need_ms(nnz, sum(v.element_size() for v in value_planes(b)),
+                       n_x, n_y, len(xs)), nnz
 
     def check_bin(tag, b, xt, y0, phase):
         want = plains[b.layout](b, xt)
@@ -823,6 +1015,194 @@ def main() -> int:
         del ds
     torch.cuda.empty_cache()
 
+    # ---- the SpMM kernels against their plain versions, on the card ----
+    mm_stats = {k: {"max_abs_err": 0.0, "best": None} for k in spmm_wrappers}
+    cusparse_mm = {}
+
+    def cusparse_spmm(name, csr, X):
+        """Device ms of ``torch.sparse_csr_tensor(...) @ X`` (cuSPARSE SpMM,
+        f32 values and X, int32 indices) on the phase's whole matrix; timed
+        once per phase and width."""
+        key = (name, X.shape[1])
+        if key not in cusparse_mm:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                A = torch.sparse_csr_tensor(
+                    torch.from_numpy(csr.row_ptr.astype(np.int32)),
+                    torch.from_numpy(csr.col_idx.astype(np.int32)),
+                    torch.from_numpy(csr.values).float(), size=csr.shape,
+                    device=dev, check_invariants=False)
+                Xd = torch.from_numpy(np.ascontiguousarray(X)).float().to(dev)
+                cusparse_mm[key] = device_time_fn(lambda: A @ Xd,
+                                                  device=dev) * 1e3
+            del A, Xd
+        return cusparse_mm[key]
+
+    def rhs_copy(y0):
+        """A copy of a SpMM y in the kernels' layout (padded rows)."""
+        y = SM._rhs_buffer(y0.shape[0], y0.shape[1], dev)
+        y.copy_(y0)
+        return y
+
+    def check_spmm_bin(tag, b, xt, y0, phase):
+        """A bin through its SpMM kernel, storing and adding onto ``y0``,
+        against its plain version; timed (and a candidate for the JSON row)
+        when ``phase`` is given."""
+        rhs = xt.shape[1]
+        kernel, plain = spmm_wrappers[b.layout], SM._PLAIN[b.layout]
+        want = plain(b, xt)
+        atol = ATOL_REL * float(want.abs().max())
+        rows = b.group_ids.long()
+        err = 0.0
+        for accumulate in (False, True):
+            y = rhs_copy(y0)
+            kernel(b, xt, y, accumulate=accumulate)
+            got = y.view(-1, 8, 128, rhs)[rows]
+            if accumulate:
+                got = got - y0.view(-1, 8, 128, rhs)[rows]
+            e = (got - want).abs().max().item()
+            if not torch.allclose(got, want, rtol=RTOL, atol=atol):
+                fail(f"{tag} ({b.layout} SpMM, accumulate={accumulate}): "
+                     f"max|k-p| = {e}")
+            err = max(err, e)
+        st = mm_stats[b.layout]
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        if phase is None:
+            return
+        y = rhs_copy(y0)
+        ms_k = device_time_fn(kernel, b, xt, y, device=dev) * 1e3
+        ms_p = device_time_fn(plain, b, xt, device=dev,
+                              reps=PLAIN_SPMM_REPS) * 1e3
+        call_k = time_fn(kernel, b, xt, y, device=dev) * 1e3
+        nnz, n_x, n_y = bin_counts(b, xt.shape[0])
+        bound, by = spmm_need(nnz, b.as_.element_size(), n_x, n_y, rhs)
+        planes = nbytes(b.ja, b.as_) + (n_x + n_y) * rhs * 4
+        print(f"{tag} {b.layout} SpMM R={rhs} k={b.k} groups={b.n_groups}: "
+              f"device kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; call "
+              f"kernel {call_k:.4f} ms; planes, x and y rows {planes} B "
+              f"({planes / ms_k / 1e9:.3f} TB/s); "
+              f"{2 * nnz * rhs / ms_k / 1e6:.1f} GFLOPS; bound {bound:.4f} "
+              f"ms ({by}, {nnz} entries); max|k-p| {err:.3e}", flush=True)
+        if rhs == SPMM_RHS and (st["best"] is None or nnz > st["best"][0]):
+            st["best"] = (nnz, ms_k, ms_p, tag, b.k, b.n_groups, bound, by,
+                          phase)
+
+    def columns_equal_spmv(tag, d, X):
+        """Column j of the SpMM is the SpMV kernel on X[:, j], bit for
+        bit."""
+        Y = SM.sell_spmm(d, SM.device_put_x_multi(X, d.ncols, device=dev))
+        for j in range(X.shape[1]):
+            y = S.sell_spmv(d, S.device_put_x(X[:, j], d.ncols, device=dev))
+            if not torch.equal(Y[:, j], y):
+                fail(f"{tag}: SpMM column {j} differs from the SpMV kernel "
+                     f"by up to {(Y[:, j] - y).abs().max().item()}")
+        print(f"{tag}: the {X.shape[1]} SpMM columns equal the SpMV kernel "
+              "bit for bit", flush=True)
+
+    def spmm_phase(name, d, csr, rhs, phase, bf16=None):
+        """Every bin of ``d`` at ``rhs`` right-hand sides, the whole SpMM
+        against its plain assembly, its device time beside cuSPARSE SpMM;
+        ``bf16``: the same host SELL, checked with bf16 values."""
+        X = np.random.default_rng(SEED).standard_normal((csr.ncols, rhs),
+                                                        dtype=np.float32)
+        xt = SM.device_put_x_multi(X, d.ncols, device=dev)
+        y0 = rhs_copy(torch.randn(d.num_groups * 1024, rhs, device=dev))
+        for i, b in enumerate(d.bins):
+            check_spmm_bin(f"[{name}] bin {i}", b, xt, y0, phase)
+        Y = SM.sell_spmm(d, xt)
+        Yp = SM.sell_spmm_plain(d, xt)
+        if not torch.allclose(Y, Yp, rtol=RTOL,
+                              atol=ATOL_REL * float(Yp.abs().max())):
+            fail(f"[{name}] sell_spmm R={rhs}: the kernels disagree with "
+                 "the plain versions")
+        ms = device_time_fn(SM.sell_spmm, d, xt, device=dev) * 1e3
+        lib = cusparse_spmm(name, csr, X)
+        print(f"[{name}] sell_spmm R={rhs} device time {ms:.4f} ms "
+              f"({2 * csr.nnz * rhs / ms / 1e6:.1f} GFLOPS); cuSPARSE SpMM "
+              f"{lib:.4f} ms", flush=True)
+        if bf16 is not None:
+            db = S.device_put_sell(bf16, torch.bfloat16, device=dev)
+            for i, b in enumerate(db.bins):
+                check_spmm_bin(f"[{name}] bf16 bin {i}", b, xt, y0, None)
+            del db
+
+    for name, sell_mm, csr in spmm_runs:
+        d = S.device_put_sell(sell_mm, device=dev)
+        big = name == "banded_adversarial"
+        spmm_phase(name, d, csr, SPMM_RHS, name, sell_mm if big else None)
+        if big:
+            columns_equal_spmv(f"[{name}] k-major", d, np.random.default_rng(
+                SEED).standard_normal((csr.ncols, SPMM_RHS),
+                                      dtype=np.float32))
+        del d
+        torch.cuda.empty_cache()
+    d, csr = headline
+    for rhs in HEADLINE_RHS:
+        hsell = runs[[r[0] for r in runs].index("headline")][1]
+        spmm_phase("headline", d, csr, rhs, "headline",
+                   hsell if rhs == SPMM_RHS else None)
+    columns_equal_spmv("[headline] wl", d, np.random.default_rng(
+        SEED).standard_normal((csr.ncols, SPMM_RHS), dtype=np.float32))
+    del d, headline
+    torch.cuda.empty_cache()
+    dps = S.device_put_sell(psell, device=dev)
+    Xd = torch.from_numpy(Xp).to(dev)
+    for p, dsell in enumerate(dps.panels):
+        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
+        xt = SM.pack_x_multi(Xd[c0:c1], c1 - c0)
+        y0 = rhs_copy(torch.randn(dps.num_groups * 1024, 8, device=dev))
+        for i, b in enumerate(dsell.bins):
+            check_spmm_bin(f"[panels] spmm panel {p} bin {i}", b, xt, y0,
+                           None)
+
+    # band64_250k's blocks through both BSR routes against the plain version
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("torch.backends.cuda.matmul.allow_tf32 is on: the plain BSR "
+             "version would not be IEEE f32")
+    bsr_rows = {}
+    csr, bsr = band64.csr, band64.bsr
+    n_x = int(np.unique(csr.col_idx).size)
+    n_slots = bsr.n_block_rows * bsr.kb
+    for dtype in (torch.float32, torch.bfloat16):
+        d = BSR.device_put_bsr(bsr, dtype, device=dev)
+        elem = d.blocks.element_size()
+        for rhs in BSR_RHS:
+            X, xp, _, _ = bsr_inputs(csr, dtype, rhs)
+            want = BSR.bsr_spmm_plain(d, xp)
+            atol = ATOL_REL * float(want.abs().max())
+            ms_p = device_time_fn(BSR.bsr_spmm_plain, d, xp, device=dev,
+                                  reps=PLAIN_SPMM_REPS) * 1e3
+            lib = cusparse_spmm("band64_250k", csr, X)
+            need, by = spmm_need(
+                csr.nnz, elem, n_x, csr.nrows, rhs, elem,
+                F32_FLOP_PER_S if dtype == torch.float32 else BF16_FLOP_PER_S)
+            dense = n_slots * 2 * 128 * 128 * rhs / F32_FLOP_PER_S * 1e3
+            for route, kernel in BSR.ROUTES.items():
+                got = BSR.bsr_spmm(d, xp, route=route)
+                e = (got - want).abs().max().item()
+                if not torch.allclose(got, want, rtol=RTOL, atol=atol):
+                    fail(f"[band64_250k] {route} {dtype} B={rhs}: the kernel "
+                         f"disagrees with the plain version, max|k-p| = {e}")
+                y = torch.empty(bsr.n_block_rows * 128, rhs, device=dev)
+                ms_k = device_time_fn(kernel, d, xp, y, device=dev) * 1e3
+                call_k = time_fn(kernel, d, xp, y, device=dev) * 1e3
+                st = mm_stats[route]
+                st["max_abs_err"] = max(st["max_abs_err"], e)
+                print(f"[band64_250k] bsr {route} {str(dtype)[6:]} B={rhs}: "
+                      f"device kernel {ms_k:.4f} ms "
+                      f"({2 * csr.nnz * rhs / ms_k / 1e6:.1f} useful "
+                      f"GFLOPS, "
+                      f"{2 * n_slots * 128 * 128 * rhs / ms_k / 1e9:.2f} "
+                      f"dense TFLOP/s), call {call_k:.4f} ms; plain "
+                      f"{ms_p:.4f} ms; cuSPARSE SpMM (f32) {lib:.4f} ms; "
+                      f"bound {need:.4f} ms ({by}); dense-block FLOP at "
+                      f"the f32 rate {dense:.4f} ms; max|k-p| "
+                      f"{e:.3e}", flush=True)
+                if dtype == torch.float32 and rhs == BSR_RHS[0]:
+                    bsr_rows[route] = (ms_k, ms_p, need, by, lib)
+        del d
+        torch.cuda.empty_cache()
+
     summary = []
     for table, kernels, run_stats, launched, lib_dtype in (
             ("", KERNELS, stats, launches, torch.float32),
@@ -848,6 +1228,23 @@ def main() -> int:
             "bound_ms": bound, "bound_by": "bytes",
             "library_ms": library["webbase_pr", torch.float64
                                   if kind == "pr_dd" else torch.float32][0]})
+    for key, (kname, source, replaces) in SPMM_KERNELS.items():
+        if key in BSR.ROUTES:
+            ms_k, ms_p, bound, by, lib = bsr_rows[key]
+            where = f"band64_250k f32, B={BSR_RHS[0]}"
+        else:
+            nnz, ms_k, ms_p, tag, k, ng, bound, by, phase = \
+                mm_stats[key]["best"]
+            lib = cusparse_mm[phase, SPMM_RHS]
+            where = f"{tag}, k={k}, {ng} groups, {nnz} entries, R={SPMM_RHS}"
+        print(f"{kname}: device times at its largest main-path run "
+              f"({where}, f32 values)")
+        summary.append({
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches_mm[key],
+            "max_abs_err": mm_stats[key]["max_abs_err"], "ms": ms_k,
+            "plain_ms": ms_p, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib})
     print(f"smoke ran {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": summary}))

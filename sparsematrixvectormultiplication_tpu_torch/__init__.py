@@ -1,4 +1,5 @@
-"""sparsematrixvectormultiplication_tpu_torch — SELL SpMV on PyTorch and CUDA.
+"""sparsematrixvectormultiplication_tpu_torch — sparse SpMV and SpMM on PyTorch
+and CUDA.
 
 The port of ``sparsematrixvectormultiplication_tpu`` (JAX/Pallas, the
 reference) to PyTorch with hand-written CUDA kernels for NVIDIA Hopper
@@ -8,23 +9,30 @@ SELL SpMV on every bin layout (k-major, window-layered, sb-major, sb-list,
 sg) and over column panels, f32 or bf16 values with f32 x and sums, or
 fp64-class double-double values, x and sums; the scattered regime through
 the PR (permutation-routed) layout and the locality split (near SELL plus a
-PR far side), f32 and double-double; and ``auto_device_op``, which picks
-one of the three layouts. It never imports JAX.
+PR far side), f32 and double-double; ``auto_device_op``, which picks
+one of the three layouts; and multi-RHS SpMM: ``sell_spmm`` over k-major and
+wl SELL bins (R <= 32 right-hand sides, each entry read once for all) and
+``bsr_spmm`` over 128x128 dense blocks (``BSRMatrix``), f32 or bf16 values
+with f32 sums. It never imports JAX.
 """
 
 from .bench.harness import run_matrix
+from .formats.bsr import BSRMatrix
 from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
 from .formats.pr import PanelPRMatrix, PRMatrix, pr_from_csr
 from .formats.sell import PanelSellMatrix, SellMatrix
 from .formats.split import SplitMatrix
 from .ops.auto import AutoOp, auto_device_op, choose_format
+from .ops.bsr import DeviceBSR, bsr_spmm, device_put_bsr, pad_rhs
 from .ops.pr import device_put_pr, pr_spmv
 from .ops.pr_dd import device_put_pr_dd, pr_spmv_dd
 from .ops.sell import (device_put_sell, device_put_x, panel_sell_spmv,
                        sell_spmv)
 from .ops.sell_dd import (device_put_sell_dd, device_put_x_dd,
                           panel_sell_spmv_dd, sell_spmv_dd, sell_spmv_dd_f64)
+from .ops.sell_spmm import (MAX_RHS, device_put_x_multi, pack_x_multi,
+                            sell_spmm)
 from .ops.split import (device_put_split, device_put_split_dd, split_spmv,
                         split_spmv_dd)
 
@@ -59,6 +67,15 @@ __all__ = [
     "choose_format",
     "auto_device_op",
     "AutoOp",
+    "MAX_RHS",
+    "pack_x_multi",
+    "device_put_x_multi",
+    "sell_spmm",
+    "BSRMatrix",
+    "DeviceBSR",
+    "device_put_bsr",
+    "pad_rhs",
+    "bsr_spmm",
     "run_matrix",
     "__version__",
 ]

@@ -23,10 +23,22 @@ report median time and GFLOPS = 2·nnz/t. Stages:
 * ``split`` / ``split_dd`` — the locality split (near SELL + PR far side,
   ≙ ``pallas_split`` / ``pallas_split_dd``). A matrix with no profitable
   near threshold (``SplitMatrix.from_csr`` raises ``ValueError``) records
-  the stage as skipped, with the reason, in ``MatrixResult.skipped``.
+  the stage as skipped, with the reason, in ``MatrixResult.skipped``;
+* ``sell_spmm`` — multi-RHS SELL SpMM (≙ ``pallas_sell_spmm``) with
+  ``BenchConfig.sell_spmm_rhs`` right-hand sides over a SELL forced to
+  k-major, built from the heavy-row-split CSR; the segments' rows are
+  reduced onto their rows with ``index_add_``;
+* ``bsr_spmm`` — 128x128 block-sparse SpMM (≙ ``pallas_bsr_spmm``) with
+  ``BenchConfig.spmm_rhs`` right-hand sides, on the original rows, route
+  "blockspec". A matrix whose blocks exceed ``BSRMatrix.from_csr``'s byte
+  budget records the stage as skipped, with the reason.
 
-Every stage records its norm-scaled error ``max|y - y_ref| / max|y_ref|``.
-Any other failure of a stage raises.
+Both SpMM stages draw X from ``default_rng(0)`` in f32, validate a few
+sampled columns against the fp64 oracle (``sampled_spmm_metrics``) and
+report GFLOPS = 2·nnz·R/t.
+
+Every stage records its norm-scaled error ``max|y - y_ref| / max|y_ref|``
+(SpMM: over the sampled columns). Any other failure of a stage raises.
 """
 
 from __future__ import annotations
@@ -37,26 +49,31 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..formats.bsr import BSRMatrix
 from ..formats.coo import COOMatrix
 from ..formats.csr import CSRMatrix
 from ..formats.pr import PANEL_TARGET_ROWS, max_pr_rows, pr_from_csr
 from ..formats.sell import SellMatrix
 from ..formats.split import SplitMatrix
+from ..ops.bsr import bsr_spmm, device_put_bsr, pad_rhs
 from ..ops.doubledouble import combine_f64
 from ..ops.pr import device_put_pr, pr_spmv
 from ..ops.pr_dd import DD_PANEL_TARGET_ROWS, device_put_pr_dd, pr_spmv_dd
 from ..ops.sell import device_put_sell, device_put_x, sell_spmv
 from ..ops.sell_dd import device_put_sell_dd, device_put_x_dd, sell_spmv_dd
+from ..ops.sell_spmm import device_put_x_multi, sell_spmm
 from ..ops.split import (device_put_split, device_put_split_dd, split_spmv,
                          split_spmv_dd)
 from ..utils.metrics import calculate_flops
 from ..utils.timing import ITERATION_SKIP, time_fn
-from ..utils.validation import DiffMetrics, difference_metrics
+from ..utils.validation import (DiffMetrics, difference_metrics,
+                                sampled_spmm_metrics)
 
 __all__ = ["BenchConfig", "StageResult", "MatrixResult", "run_matrix",
            "quantize_bf16", "STAGES"]
 
-STAGES = ("sell", "sell_bf16", "sell_dd", "pr", "pr_dd", "split", "split_dd")
+STAGES = ("sell", "sell_bf16", "sell_dd", "pr", "pr_dd", "split", "split_dd",
+          "sell_spmm", "bsr_spmm")
 _SELL_STAGES = ("sell", "sell_bf16", "sell_dd")
 
 
@@ -65,6 +82,8 @@ class BenchConfig:
     iterations: int = 20          # measured reps; the median is reported
     skip: int = ITERATION_SKIP    # warm-up calls (≙ utility.h:7)
     stages: tuple = _SELL_STAGES  # device stages, in STAGES order
+    sell_spmm_rhs: int = 16       # R of the sell_spmm stage (<= MAX_RHS)
+    spmm_rhs: int = 128           # B of the bsr_spmm stage
 
 
 @dataclass
@@ -74,6 +93,7 @@ class StageResult:
     gflops: float
     diff: DiffMetrics
     norm_err: float = 0.0   # max|y - y_ref| / max|y_ref|
+    rhs: int = 1            # right-hand sides per call (GFLOPS counts all)
 
 
 @dataclass
@@ -91,6 +111,8 @@ class MatrixResult:
                                        # where sell has slot-packed sg bins)
     pr: object = None       # PRMatrix | PanelPRMatrix the pr stage ran
     split: object = None    # SplitMatrix the split stage ran
+    sell_spmm: SellMatrix | None = None  # the k-major SELL sell_spmm ran
+    bsr: BSRMatrix | None = None         # the blocks bsr_spmm ran
     skipped: dict = field(default_factory=dict)  # stage -> reason
 
 
@@ -250,7 +272,34 @@ def run_matrix(
         sec = timed(split_spmv_dd, d, xh, xl)
         record("split_dd", sec, y_ref, to_rows(y64), " (fp64-class)")
         del d
+    if want & {"sell_spmm", "bsr_spmm"}:
+        _spmm_stages(res, csr, csr_k, seg_map, want, timed, log, device)
     return res
+
+
+def _build_sell(csr_k, name, log, **kw) -> SellMatrix:
+    """``SellMatrix.from_csr(csr_k, **kw)``; pathological plain conversions
+    (power-law heads: bins with k > 1024 or padding above 8x) fall back to
+    SELL-sigma row sorting, as the JAX harness's build_sell does."""
+    sell = SellMatrix.from_csr(csr_k, **kw)
+    if any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8:
+        log(f"[{name}] plain SELL pathological "
+            f"(pad {sell.padding_ratio:.1f}, kmax "
+            f"{max((b.k for b in sell.bins), default=0)}) -> auto sigma")
+        sell = SellMatrix.from_csr(csr_k, sigma_sort=True, **kw)
+    return sell
+
+
+def _kernel_ids(sell, seg_map, n_rows: int):
+    """Kernel output slot -> original row (None: the identity): the sigma
+    permutation picks the segment of the ``n_rows``-row split CSR, the
+    segment map its row."""
+    if seg_map is None and sell.row_perm is None:
+        return None
+    ids = seg_map if seg_map is not None else np.arange(n_rows)
+    if sell.row_perm is not None:
+        ids = np.asarray(ids)[sell.row_perm]
+    return np.asarray(ids, np.int64)
 
 
 def _sell_stages(res, csr, csr_k, seg_map, x, y_ref, xt, xh, xl, want,
@@ -258,34 +307,12 @@ def _sell_stages(res, csr, csr_k, seg_map, x, y_ref, xt, xh, xl, want,
     """The SELL stages: ``sell``, ``sell_bf16`` and ``sell_dd``."""
     name, M, fstats = res.name, res.nrows, res.format_stats
 
-    def build_sell(**kw):
-        sell = SellMatrix.from_csr(csr_k, **kw)
-        # pathological plain conversions (power-law heads: bins with k >
-        # 1024 or padding above 8x) fall back to SELL-sigma row sorting, as
-        # the JAX harness's build_sell does
-        if any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8:
-            log(f"[{name}] plain SELL pathological "
-                f"(pad {sell.padding_ratio:.1f}, kmax "
-                f"{max((b.k for b in sell.bins), default=0)}) -> auto sigma")
-            sell = SellMatrix.from_csr(csr_k, sigma_sort=True, **kw)
-        return sell
-
-    def kernel_ids(sell):
-        """Kernel output slot -> original row (None: the identity): the
-        sigma permutation picks the segment, the segment map its row."""
-        if seg_map is None and sell.row_perm is None:
-            return None
-        ids = seg_map if seg_map is not None else np.arange(csr_k.nrows)
-        if sell.row_perm is not None:
-            ids = np.asarray(ids)[sell.row_perm]
-        return np.asarray(ids, np.int64)
-
     t0 = time.perf_counter()
-    sell = res.sell = build_sell()
+    sell = res.sell = _build_sell(csr_k, name, log)
     fstats["convert_sell_s"] = time.perf_counter() - t0
     fstats["sell"] = sell.memory_stats()
 
-    ids = kernel_ids(sell)
+    ids = _kernel_ids(sell, seg_map, csr_k.nrows)
     if ids is not None:
         ids = torch.from_numpy(ids).to(device)
 
@@ -315,15 +342,77 @@ def _sell_stages(res, csr, csr_k, seg_map, x, y_ref, xt, xh, xl, want,
     sell_dd = sell
     if any(b.sg_slots for b in sell.bins):
         t0 = time.perf_counter()
-        sell_dd = build_sell(sg_slots=False)
+        sell_dd = _build_sell(csr_k, name, log, sg_slots=False)
         fstats["convert_sell_dd_s"] = time.perf_counter() - t0
         log(f"[{name}] slot-packed sg bins -> rows-mode SELL for sell_dd "
             f"in {fstats['convert_sell_dd_s']:.2f} s")
     res.sell_dd = sell_dd
     d = device_put_sell_dd(sell_dd, device=device)
     y64 = combine_f64(*sell_spmv_dd(d, xh, xl)).cpu().numpy()
-    ids_dd = kernel_ids(sell_dd)
+    ids_dd = _kernel_ids(sell_dd, seg_map, csr_k.nrows)
     if ids_dd is not None:  # host-exact f64 segment reduction
         y64 = np.bincount(ids_dd, weights=y64, minlength=M)[:M]
     sec = timed(sell_spmv_dd, d, xh, xl)
     record("sell_dd", sec, y_ref, y64, " (fp64-class)")
+
+
+def _spmm_stages(res, csr, csr_k, seg_map, want, timed, log, device):
+    """The SpMM stages: ``sell_spmm`` and ``bsr_spmm``."""
+    name, M, N, fstats = res.name, res.nrows, res.ncols, res.format_stats
+    cfg, stages = res.config, res.stages
+
+    def record(stage, sec, X, Y, rhs, what=""):
+        """Validate ``Y`` against the fp64 oracle on sampled columns."""
+        dm = sampled_spmm_metrics(csr, X, Y)
+        cols = np.unique(np.linspace(0, rhs - 1, min(4, rhs)).astype(int))
+        refs = [csr.spmv(X[:, c].astype(np.float64)) for c in cols]
+        scale = max((float(np.abs(r).max()) for r in refs if r.size),
+                    default=0.0)
+        err = max((float(np.abs(Y[:M, c] - r).max())
+                   for c, r in zip(cols, refs) if r.size), default=0.0)
+        stages[stage] = StageResult(
+            stage, sec, calculate_flops(csr.nnz * rhs, sec) / 1e9, dm,
+            err / scale if scale else 0.0, rhs)
+        log(f"[{name}] {stage}: {sec*1e3:.3f} ms = "
+            f"{stages[stage].gflops:.3f} GFLOPS (R={rhs}{what}) on {device}, "
+            f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}"
+            f", norm_err={stages[stage].norm_err:.2e}")
+
+    if "sell_spmm" in want:
+        R = int(cfg.sell_spmm_rhs)
+        t0 = time.perf_counter()
+        sm = res.sell_spmm = _build_sell(csr_k, name, log, layout="k-major")
+        fstats["convert_sell_spmm_s"] = time.perf_counter() - t0
+        d = device_put_sell(sm, torch.float32, device=device)
+        X = np.random.default_rng(0).standard_normal((N, R), dtype=np.float32)
+        xt = device_put_x_multi(X, N, device=device)
+        y = sell_spmm(d, xt)
+        ids = _kernel_ids(sm, seg_map, csr_k.nrows)
+        if ids is not None:
+            y = torch.zeros(M, R, device=device).index_add_(
+                0, torch.from_numpy(ids).to(device), y)
+        # the segment reduction stays out of the timed call, as in sell
+        sec = timed(sell_spmm, d, xt)
+        record("sell_spmm", sec, X, y.cpu().numpy().astype(np.float64), R)
+        del d, xt
+    if "bsr_spmm" in want:
+        B = int(cfg.spmm_rhs)
+        t0 = time.perf_counter()
+        try:
+            bsr = BSRMatrix.from_csr(csr)
+        except ValueError as e:  # the byte budget: too scattered for blocks
+            res.skipped["bsr_spmm"] = str(e)
+            log(f"[{name}] bsr_spmm skipped: {e}")
+            return
+        fstats["convert_bsr_s"] = time.perf_counter() - t0
+        fstats["bsr"] = {"blocks": bsr.n_real_blocks, "kb": bsr.kb,
+                         "fill": bsr.fill, "pad_ratio": bsr.pad_ratio,
+                         "bytes": bsr.nbytes}
+        res.bsr = bsr
+        d = device_put_bsr(bsr, device=device)
+        X = np.random.default_rng(0).standard_normal((N, B), dtype=np.float32)
+        xp = pad_rhs(X, N, device=device)
+        y = bsr_spmm(d, xp)[:, :B]
+        sec = timed(bsr_spmm, d, xp)
+        record("bsr_spmm", sec, X, y.cpu().numpy().astype(np.float64), B,
+               f", fill {bsr.fill:.3f}, kb {bsr.kb}")

@@ -9,8 +9,9 @@
 // its x column, and hands both to a sum policy, which holds the value, x and
 // y pointers, loads the slot's value and x, and adds their product onto the
 // row's accumulator. One decode serves both precisions:
-//   F32Sum<T>: values T (f32 or bf16), x, sums and y in f32; nvcc may
-//     contract each multiply-add into an FMA;
+//   F32Sum<T>: values T (f32 or bf16), x, sums and y in f32; each slot
+//     adds onto the row's sum with one fmaf, in entry order (the SpMM
+//     kernels of sell_spmm.cu repeat it, so their columns equal SpMV);
 //   DDSum: double-double (hi, lo) f32 planes of values, x and y; each slot's
 //     product by dd::mul_dd, the row's sum by dd::add_dd (dd.cuh), which
 //     nvcc cannot contract. With `accumulate` the row's sum is added onto y
@@ -45,7 +46,7 @@ struct F32Sum {
     return widen(__ldg(as + off)) * __ldg(x + col);
   }
   __device__ __forceinline__ void add(Acc& acc, int64_t off, int col) const {
-    acc += product(off, col);
+    acc = fmaf(widen(__ldg(as + off)), __ldg(x + col), acc);
   }
   __device__ __forceinline__ void store(Acc acc, int64_t row,
                                         int accumulate) const {

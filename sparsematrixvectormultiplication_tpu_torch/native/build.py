@@ -1,13 +1,18 @@
-"""Build and load the native PR router (``fast_route.cpp``, ctypes).
+"""Build and load the native host components (ctypes).
 
-The router computes the PR layout's routing at conversion time
-(:mod:`..formats.pr`): a 128-edge-colouring, the per-lane Beneš masks and
-the final lane gather. At first use ``fast_route.cpp`` is compiled with
-``g++ -O3 -std=c++17 -shared -fPIC -pthread`` into ``build/native/`` at the
-root of the checkout, under a name hashed from the source and the flags,
-and loaded with :mod:`ctypes`. Importing this module compiles nothing. A
-router that cannot be built, or that fails, raises: there is no silent
-fallback to the Python router, which takes minutes on millions of elements.
+* ``fast_route.cpp`` — the PR router, which computes the PR layout's routing
+  at conversion time (:mod:`..formats.pr`): a 128-edge-colouring, the
+  per-lane Beneš masks and the final lane gather;
+* ``fast_bsr.cpp`` — the CSR -> 128x128 BSR blocker (:mod:`..formats.bsr`):
+  distinct blocks per block-row, then the dense tiles.
+
+At first use each source is compiled with ``g++ -O3 -std=c++17 -shared
+-fPIC -pthread`` into ``build/native/`` at the root of the checkout, under a
+name hashed from the source and the flags, and loaded with :mod:`ctypes`.
+Importing this module compiles nothing. A library that cannot be built, or
+that fails, raises: there is no silent fallback to the Python router or the
+numpy blocker, which take minutes (router, millions of elements) or tens of
+seconds (blocker, tens of millions of entries).
 """
 
 from __future__ import annotations
@@ -23,47 +28,61 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["load_fast_route", "run_fast_route", "library_path"]
+__all__ = ["load_fast_route", "run_fast_route", "load_fast_bsr",
+           "csr_to_bsr_native", "library_path"]
 
-_SRC = Path(__file__).resolve().parent / "fast_route.cpp"
+_DIR = Path(__file__).resolve().parent
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# library stem -> (source, what it is, for messages)
+_LIBS = {"fastroute": ("fast_route.cpp", "the PR router"),
+         "fastbsr": ("fast_bsr.cpp", "the BSR blocker")}
 _P32 = ctypes.POINTER(ctypes.c_int32)
+_P64 = ctypes.POINTER(ctypes.c_int64)
+_BLOCK = 128
+# each blocker thread carries a 4*n_bc-byte stamp array: cap them at 256 MiB
+_STAMP_BYTES = 256 << 20
 
 
-def library_path() -> Path:
-    """Where the router library for the current source and flags lives."""
+def library_path(stem: str = "fastroute") -> Path:
+    """Where library ``stem`` ("fastroute" or "fastbsr") for the current
+    source and flags lives."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return _BUILD_DIR / f"libfastroute_{h.hexdigest()[:16]}.so"
+    h.update((_DIR / _LIBS[stem][0]).read_bytes())
+    return _BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
+def _build(stem: str, target: Path) -> None:
+    src, what = _LIBS[stem]
     name = os.environ.get("CXX") or "g++"
     cxx = shutil.which(name)
     if not cxx:
-        raise RuntimeError(f"C++ compiler {name!r} not found: the PR router "
+        raise RuntimeError(f"C++ compiler {name!r} not found: {what} "
                            "cannot be built")
     target.parent.mkdir(parents=True, exist_ok=True)
     # written under a private name and renamed: concurrent processes never
     # load a half-written library
     with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         lib = os.path.join(tmp, target.name)
-        proc = subprocess.run([cxx, *_FLAGS, str(_SRC), "-o", lib],
+        proc = subprocess.run([cxx, *_FLAGS, str(_DIR / src), "-o", lib],
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
-            raise RuntimeError(f"building the PR router failed "
+            raise RuntimeError(f"building {what} failed "
                                f"({proc.returncode}):\n{proc.stderr}")
         os.replace(lib, target)
+
+
+def _load(stem: str) -> ctypes.CDLL:
+    path = library_path(stem)
+    if not path.exists():
+        _build(stem, path)
+    return ctypes.CDLL(str(path))
 
 
 @functools.cache
 def load_fast_route():
     """Build the router if needed and return its ``pr_route`` entry."""
-    path = library_path()
-    if not path.exists():
-        _build(path)
-    fn = ctypes.CDLL(str(path)).pr_route
+    fn = _load("fastroute").pr_route
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int64, ctypes.c_int64, _P32, _P32, _P32, _P32,
                    _P32, _P32]
@@ -89,3 +108,65 @@ def run_fast_route(src_row, dst_row, dst_lane, n_rows: int):
         raise RuntimeError(f"pr_route failed with code {rc} (n={n}, "
                            f"n_rows={n_rows})")
     return src_lane, packed, final_lane
+
+
+@functools.cache
+def load_fast_bsr():
+    """Build the blocker if needed and return its ``(fast_bsr_count,
+    fast_bsr_fill)`` entries."""
+    lib = _load("fastbsr")
+    cnt = lib.fast_bsr_count
+    cnt.restype = ctypes.c_int64
+    cnt.argtypes = [_P64, _P32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                    _P64]
+    fil = lib.fast_bsr_fill
+    fil.restype = ctypes.c_int64
+    fil.argtypes = [_P64, _P32, ctypes.POINTER(ctypes.c_double),
+                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, _P32]
+    return cnt, fil
+
+
+def csr_to_bsr_native(row_ptr, col_idx, values, nrows: int, n_bc: int,
+                      value_dtype, max_bytes: int, num_threads: int = 0):
+    """Native CSR -> BSR(128x128) blocking: returns ``(blocks, bcols, kb,
+    n_real_blocks)``, the products of the numpy path of
+    :meth:`..formats.bsr.BSRMatrix.from_csr`. Raises ``ValueError`` on a
+    blown byte budget (the numpy path's message) or a value type other than
+    float32/float64, and ``RuntimeError`` when the blocker fails."""
+    from ..formats.bsr import _budget_message
+
+    value_dtype = np.dtype(value_dtype)
+    if value_dtype not in (np.float32, np.float64):
+        raise ValueError(f"the native blocker fills float32 or float64 "
+                         f"blocks, not {value_dtype}")
+    cnt, fil = load_fast_bsr()
+    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int64)
+    col_idx = np.ascontiguousarray(col_idx, dtype=np.int32)
+    values = np.ascontiguousarray(values, dtype=np.float64)
+    if num_threads <= 0:
+        num_threads = min(os.cpu_count() or 1, 16)
+    num_threads = min(num_threads,
+                      max(1, _STAMP_BYTES // (4 * max(n_bc, 1))))
+    n_br = -(-nrows // _BLOCK)
+    counts = np.zeros(n_br, dtype=np.int64)
+    kb = cnt(row_ptr.ctypes.data_as(_P64), col_idx.ctypes.data_as(_P32),
+             nrows, n_bc, num_threads, counts.ctypes.data_as(_P64))
+    if kb < 0:
+        raise RuntimeError(f"fast_bsr_count failed with code {kb} "
+                           f"(nrows={nrows}, n_bc={n_bc})")
+    n_real = int(counts.sum())
+    stored = n_br * kb * _BLOCK * _BLOCK * value_dtype.itemsize
+    if stored > max_bytes:
+        raise ValueError(_budget_message(stored, n_real, int(kb),
+                                         int(col_idx.size), max_bytes))
+    blocks = np.zeros((n_br * kb, _BLOCK, _BLOCK), dtype=value_dtype)
+    bcols = np.zeros(n_br * kb, dtype=np.int32)
+    rc = fil(row_ptr.ctypes.data_as(_P64), col_idx.ctypes.data_as(_P32),
+             values.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+             nrows, n_bc, kb, num_threads, int(value_dtype == np.float64),
+             blocks.ctypes.data_as(ctypes.c_void_p),
+             bcols.ctypes.data_as(_P32))
+    if rc != 0:
+        raise RuntimeError(f"fast_bsr_fill failed with code {rc}")
+    return blocks, bcols, int(kb), n_real

@@ -26,7 +26,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _HEADERS = ("sell_common.cuh", "dd.cuh")
 _SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu",
-            "pr.cu")
+            "pr.cu", "sell_spmm.cu", "bsr.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +63,19 @@ _ENTRIES = {
     # bins, n_bins, route, md, row_slab, val, x, y, n_groups, stream
     "pr_spmv_f32": (_P, _I32, _P, _P, _P, _P, _P, _P, _I64, _P),
     "pr_spmv_dd": (_P, _I32, _P, _P, _P, *_DD, _I64, _P),
+    # SpMM, x and y row-major with row strides ldx, ldy; W columns computed
+    # group_ids, ja, as, x, y, n_groups, K, W, ldx, ldy, accumulate, stream
+    **{f"sell_k_major_spmm_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
+                                  _I64, _I32, _P)
+       for v in ("f32", "bf16")},
+    # group_ids, slabs, packed, as, x, y, n_groups, NW, L, W, ldx, ldy,
+    # accumulate, stream
+    **{f"sell_wl_spmm_{v}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
+                             _I64, _I64, _I32, _P)
+       for v in ("f32", "bf16")},
+    # block_cols, blocks, x, y, n_block_rows, kb, B, ldx, ldy, stream
+    **{f"bsr_spmm_{r}_{v}": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I64, _P)
+       for r in ("blockspec", "dma") for v in ("f32", "bf16")},
 }
 
 

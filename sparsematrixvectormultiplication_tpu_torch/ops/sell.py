@@ -429,20 +429,16 @@ _PLAIN = {"k-major": k_major_bin_plain, "wl": wl_bin_plain,
 # ---------------------------------------------------------------------------
 
 
-def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
-                 value_types: tuple):
-    """Check what a kernel launch reads and writes: every tensor on the
-    device of the first x and contiguous, int32 tables, the layout's index
-    type, f32 x and y, ``value_types`` values, and matching sizes."""
-    x0 = next(iter(xs.values()))
-    if x0.device.type != "cuda":
-        raise RuntimeError(
-            f"SELL kernels run on CUDA or CPU tensors, not {x0.device}")
+def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
+               value_types: tuple):
+    """Check a bin's own tensors for a launch on ``device`` (x's): there and
+    contiguous, int32 tables, the layout's index type, ``value_types``
+    values, and matching sizes."""
     tensors = {"group_ids": b.group_ids, "ja": b.ja, "slab_list": b.slab_list,
-               "slab_count": b.slab_count, **values, **xs, **ys}
+               "slab_count": b.slab_count, **values}
     for name, t in tensors.items():
-        if t.device != x0.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x0.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
     for name in ("group_ids", "slab_list", "slab_count"):
@@ -453,8 +449,6 @@ def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
     if b.ja.dtype not in ja_types:
         raise ValueError(f"{b.layout} index plane must be "
                          f"{' or '.join(map(str, ja_types))}, got {b.ja.dtype}")
-    if any(t.dtype != torch.float32 for t in (*xs.values(), *ys.values())):
-        raise ValueError("x and y must be float32")
     plane = b.n_groups * b.k * SUBLANES * LANES
     for name, t in values.items():
         if t.dtype not in value_types:
@@ -465,8 +459,29 @@ def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
             raise ValueError(f"{name} does not match the bin's shape")
     if b.layout != "wl" and b.ja.numel() != plane:
         raise ValueError("index plane does not match the value plane")
-    if x0.numel() > _INT32_MAX or b.n_groups * SUBLANES > _INT32_MAX:
-        raise ValueError("x or the bin's grid is beyond 32-bit indexing")
+    if b.n_groups * SUBLANES > _INT32_MAX:
+        raise ValueError("the bin's grid is beyond 32-bit indexing")
+
+
+def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
+                 value_types: tuple):
+    """Check what a kernel launch reads and writes: every tensor on the
+    device of the first x and contiguous, the bin's tensors as
+    :func:`_check_bin` says, f32 x and y, and matching sizes."""
+    x0 = next(iter(xs.values()))
+    if x0.device.type != "cuda":
+        raise RuntimeError(
+            f"SELL kernels run on CUDA or CPU tensors, not {x0.device}")
+    for name, t in {**xs, **ys}.items():
+        if t.device != x0.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x0.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    _check_bin(b, values, x0.device, value_types)
+    if any(t.dtype != torch.float32 for t in (*xs.values(), *ys.values())):
+        raise ValueError("x and y must be float32")
+    if x0.numel() > _INT32_MAX:
+        raise ValueError("x is beyond 32-bit indexing")
     y0 = next(iter(ys.values()))
     if y0.numel() % GROUP_ROWS or any(t.numel() != y0.numel()
                                       for t in ys.values()):

@@ -6,7 +6,11 @@ Tolerance: rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order); the
 double-double kernels 1e-12*max|y| on the fp64-combined result (dd sums in
 another order), and exact on rows whose terms cancel. The PR kernels are
 also held to the fp64 oracle at the JAX tests' ``max|Δ| / max(1, |ref|) <
-5e-6`` (f32) and 1e-12*max|y| (dd).
+5e-6`` (f32) and 1e-12*max|y| (dd). The SpMM kernels: rtol=1e-5,
+atol=1e-5*max|Y| against their plain versions in both value types (the
+plain versions widen bf16 exactly as the kernels do, so only the order of
+the f32 sums differs), the SELL SpMM columns equal to the SpMV kernel bit
+for bit, and f32 BSR within 1e-5*max|Y| of the fp64 oracle.
 """
 
 import dataclasses
@@ -16,6 +20,7 @@ import pytest
 import torch
 
 from sparsematrixvectormultiplication_tpu_torch import (
+    BSRMatrix,
     CSRMatrix,
     PanelPRMatrix,
     PanelSellMatrix,
@@ -34,10 +39,12 @@ from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
     random_general,
     road_network,
 )
+from sparsematrixvectormultiplication_tpu_torch.ops import bsr as BSR
 from sparsematrixvectormultiplication_tpu_torch.ops import pr as PRo
 from sparsematrixvectormultiplication_tpu_torch.ops import pr_dd as PRD
 from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
 from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+from sparsematrixvectormultiplication_tpu_torch.ops import sell_spmm as SM
 from sparsematrixvectormultiplication_tpu_torch.ops import split as SPL
 from sparsematrixvectormultiplication_tpu_torch.ops.doubledouble import (
     combine_f64,
@@ -453,3 +460,166 @@ def test_pr_kernels_refuse_bad_inputs(dev):
         PRD.pr_problem_dd(dataclasses.replace(
             dd, val_l=dd.val_l.t().contiguous().t()), xh, xl)
     assert PRD.pr_problem_dd.launches == before
+
+
+# ---- multi-RHS SpMM: the SELL SpMM kernels and the BSR kernels ----
+
+SPMM_WRAPPERS = {"k-major": (SM.k_major_spmm_bin, SM.k_major_spmm_bin_plain),
+                 "wl": (SM.wl_spmm_bin, SM.wl_spmm_bin_plain)}
+SPMM_MATRICES = {"k-major": (lambda: banded(5 * 1024, 24, 512, seed=0),
+                             {"layout": "k-major"}),
+                 "wl": (lambda: fem_3d(20, 20, 20, dof=3, seed=1), {})}
+
+
+def _spmm_sell(layout, dtype, dev):
+    make, kw = SPMM_MATRICES[layout]
+    csr = CSRMatrix.from_coo(make())
+    d = S.device_put_sell(SellMatrix.from_csr(csr, **kw), dtype, device=dev)
+    assert any(b.layout == layout for b in d.bins)
+    return csr, d
+
+
+@pytest.mark.parametrize("rhs", [3, 6, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", sorted(SPMM_WRAPPERS))
+def test_spmm_kernel_matches_plain(layout, dtype, rhs, dev):
+    """Every bin of the layout through its SpMM kernel, storing and adding
+    onto a y that already holds values, against its plain version; R
+    covers each accumulator count (4, 8, 16, 32) and a width that is not a
+    multiple of 4."""
+    csr, d = _spmm_sell(layout, dtype, dev)
+    X = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (csr.ncols, rhs))).to(dev)
+    x_tab = SM.pack_x_multi(X, csr.ncols)
+    kernel, plain = SPMM_WRAPPERS[layout]
+    y0 = torch.randn(d.num_groups * 1024, 32, device=dev)[:, :rhs]
+    for b in (b for b in d.bins if b.layout == layout):
+        want = plain(b, x_tab)
+        rows = b.group_ids.long()
+        for accumulate in (False, True):
+            y = torch.zeros(d.num_groups * 1024, 32, device=dev)[:, :rhs]
+            y.copy_(y0)
+            before = (kernel.launches, kernel.accumulating)
+            kernel(b, x_tab, y, accumulate=accumulate)
+            torch.cuda.synchronize()
+            assert (kernel.launches, kernel.accumulating) == (
+                before[0] + 1, before[1] + accumulate)
+            got = y.view(-1, 8, 128, rhs)[rows]
+            base = y0.reshape(-1, 8, 128, rhs)[rows]
+            _close(got - base if accumulate else got, want)
+    _close(SM.sell_spmm(d, X), SM.sell_spmm_plain(d, X))
+
+
+@pytest.mark.parametrize("layout", sorted(SPMM_WRAPPERS))
+def test_spmm_columns_equal_spmv_bit_for_bit(layout, dev):
+    """Column j of the SpMM kernel is the SpMV kernel on X[:, j], to the
+    bit: the same entries in the same order, each added with one fmaf."""
+    csr, d = _spmm_sell(layout, torch.float32, dev)
+    X = np.random.default_rng(9).standard_normal((csr.ncols, 5))
+    Y = SM.sell_spmm(d, SM.device_put_x_multi(X, csr.ncols, device=dev))
+    for j in range(X.shape[1]):
+        y = S.sell_spmv(d, S.device_put_x(X[:, j], csr.ncols, device=dev))
+        assert torch.equal(Y[:, j], y), j
+
+
+def test_panel_spmm_matches_plain_and_oracle(dev):
+    csr = CSRMatrix.from_coo(fem_3d(10, 10, 10, dof=3, seed=0))
+    dps = S.device_put_sell(PanelSellMatrix.from_csr(csr, max_panel_cols=1024),
+                            device=dev)
+    X = np.random.default_rng(10).standard_normal((csr.ncols, 8))
+    Xd = torch.from_numpy(X).float().to(dev)
+    before = (SM.k_major_spmm_bin.accumulating, SM.wl_spmm_bin.accumulating)
+    Y = SM.sell_spmm(dps, Xd)
+    assert SM.k_major_spmm_bin.accumulating > before[0]
+    assert SM.wl_spmm_bin.accumulating > before[1]
+    _close(Y, SM.sell_spmm_plain(dps, Xd))
+    ref = np.column_stack([csr.spmv(X[:, j]) for j in range(8)])
+    assert np.abs(Y.cpu().numpy() - ref).max() < 1e-5 * np.abs(ref).max()
+
+
+def _bsr(dtype, dev, make=lambda: banded(700, 9, 40, seed=3)):
+    csr = CSRMatrix.from_coo(make())
+    return csr, BSR.device_put_bsr(BSRMatrix.from_csr(csr), dtype, device=dev)
+
+
+@pytest.mark.parametrize("rhs", [9, 128, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", sorted(BSR.ROUTES))
+def test_bsr_kernel_matches_plain(route, dtype, rhs, dev):
+    """Both routes, f32 and bf16, B below, at and past the 128-column tile
+    (300: a ragged third tile), raw and padded X, against the plain
+    version; 700 rows leave a ragged last block row."""
+    csr, d = _bsr(dtype, dev)
+    X = np.random.default_rng(11).standard_normal((csr.ncols, rhs))
+    wrapper = BSR.ROUTES[route]
+    for xin in (torch.from_numpy(X).to(dev),
+                BSR.pad_rhs(X, csr.ncols, dtype, device=dev)):
+        before = wrapper.launches
+        y = BSR.bsr_spmm(d, xin, route=route)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert y.shape == (csr.nrows, xin.shape[1])
+        _close(y, BSR.bsr_spmm_plain(d, xin))
+
+
+def test_bsr_f32_is_not_tf32(dev):
+    """Full-mantissa values on a dense-ish matrix: f32 BSR must stay within
+    1e-5 of max|y| of the fp64 oracle on both routes. Inputs cut to TF32's
+    10-bit mantissa miss it by far more: the check shows it on X alone."""
+    csr, d = _bsr(torch.float32, dev,
+                  lambda: random_general(384, 384, 0.5, seed=12))
+    X = np.random.default_rng(13).standard_normal((csr.ncols, 64))
+    ref = np.column_stack([csr.spmv(X[:, j]) for j in range(64)])
+    for route in BSR.ROUTES:
+        y = BSR.bsr_spmm(d, torch.from_numpy(X).to(dev), route=route)
+        err = np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max()
+        assert err < 1e-5, (route, err)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tf32 = torch.from_numpy(X).float().to(dev)
+    tf32 = (tf32.view(torch.int32) & ~0x1FFF).view(torch.float32)
+    y_tf32 = BSR.bsr_spmm(d, tf32)
+    err_tf32 = np.abs(y_tf32.cpu().numpy() - ref).max() / np.abs(ref).max()
+    assert err_tf32 > 1e-5  # the trap springs on TF32-rounded inputs
+
+
+def test_spmm_wrappers_refuse_bad_inputs(dev):
+    """Wrong dtype, device or shape raise on CUDA tensors; nothing falls
+    back to the plain version and nothing is counted."""
+    csr, d = _spmm_sell("k-major", torch.float32, dev)
+    b = d.bins[0]
+    x_tab = SM.pack_x_multi(torch.ones(csr.ncols, 4, device=dev), csr.ncols)
+    y = SM._rhs_buffer(d.num_groups * 1024, 4, dev)
+    before = SM.k_major_spmm_bin.launches
+    bad = [
+        ("x must be torch.float32", x_tab.double(), y),
+        ("row-major buffer", x_tab.t().contiguous().t(), y),
+        ("y is on cpu", x_tab, y.cpu()),
+        ("shape", x_tab, y[:, :3]),
+        ("whole groups", x_tab, y[:1000]),
+    ]
+    for what, x, yy in bad:
+        with pytest.raises(ValueError, match=what):
+            SM.k_major_spmm_bin(b, x, yy)
+    with pytest.raises(ValueError, match="as_ must be"):
+        SM.k_major_spmm_bin(dataclasses.replace(b, as_=b.as_.double()),
+                            x_tab, y)
+    assert SM.k_major_spmm_bin.launches == before
+    csr, dbsr = _bsr(torch.float32, dev)
+    xp = BSR.pad_rhs(np.ones((csr.ncols, 8)), csr.ncols, device=dev)[:, :8]
+    yb = torch.empty(dbsr.n_block_rows * 128, 8, device=dev)
+    before = BSR.bsr_blockspec.launches
+    bad = [
+        ("x must be torch.float32", xp.to(torch.bfloat16), yb),
+        ("x has shape", xp[:-128], yb),
+        ("y is on cpu", xp, yb.cpu()),
+        ("y must be torch.float32", xp, yb.double()),
+        ("row-major buffer", xp, torch.empty(8, yb.shape[0],
+                                             device=dev).t()),
+    ]
+    for what, x, yy in bad:
+        with pytest.raises(ValueError, match=what):
+            BSR.bsr_blockspec(dbsr, x, yy)
+    with pytest.raises(ValueError, match="blocks must be"):
+        BSR.bsr_dma(dataclasses.replace(dbsr, blocks=dbsr.blocks.double()),
+                    xp, yb)
+    assert BSR.bsr_blockspec.launches == before
