@@ -13,18 +13,23 @@ PR far side), f32 and double-double; ``auto_device_op``, which picks
 one of the three layouts; and multi-RHS SpMM: ``sell_spmm`` over k-major and
 wl SELL bins (R <= 32 right-hand sides, each entry read once for all) and
 ``bsr_spmm`` over 128x128 dense blocks (``BSRMatrix``), f32 or bf16 values
-with f32 sums. It never imports JAX.
+with f32 sums. Beside them: HLL (``HLLMatrix``, on the SELL kernels), plain
+PyTorch CSR and ELL SpMV, RCM reordering, the benchmark harness
+``run_matrix`` and the card's bandwidth probe (``bench.bw_probe``). It never
+imports JAX.
 """
 
 from .bench.harness import run_matrix
 from .formats.bsr import BSRMatrix
 from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
+from .formats.hll import HLLMatrix
 from .formats.pr import PanelPRMatrix, PRMatrix, pr_from_csr
 from .formats.sell import PanelSellMatrix, SellMatrix
 from .formats.split import SplitMatrix
 from .ops.auto import AutoOp, auto_device_op, choose_format
 from .ops.bsr import DeviceBSR, bsr_spmm, device_put_bsr, pad_rhs
+from .ops.hll import hll_to_sell
 from .ops.pr import device_put_pr, pr_spmv
 from .ops.pr_dd import device_put_pr_dd, pr_spmv_dd
 from .ops.sell import (device_put_sell, device_put_x, panel_sell_spmv,
@@ -35,6 +40,7 @@ from .ops.sell_spmm import (MAX_RHS, device_put_x_multi, pack_x_multi,
                             sell_spmm)
 from .ops.split import (device_put_split, device_put_split_dd, split_spmv,
                         split_spmv_dd)
+from .ops.xla import device_put_csr, device_put_ell
 
 __version__ = "0.1.0"
 
@@ -76,6 +82,10 @@ __all__ = [
     "device_put_bsr",
     "pad_rhs",
     "bsr_spmm",
+    "HLLMatrix",
+    "hll_to_sell",
+    "device_put_csr",
+    "device_put_ell",
     "run_matrix",
     "__version__",
 ]

@@ -1,29 +1,39 @@
 """Benchmark harness — stage runner with validation (≙ main.c / main_cuda.cu).
 
-Per matrix: convert to CSR, then run the configured stages, validate every
-stage against the serial fp64 CSR oracle (≙ main.c:145,207,260,310,362) and
-report median time and GFLOPS = 2·nnz/t. Stages:
+Per matrix: convert to CSR (optionally RCM-reordered), then run the
+configured stages, validate every stage against the serial fp64 CSR oracle
+(≙ main.c:145,207,260,310,362) and report its time and GFLOPS = 2·nnz/t.
+Stages, in the order they run:
 
 * ``serial_csr`` — the host fp64 oracle itself; always runs;
-* ``sell`` — SELL "auto", f32 values on ``device``;
-* ``sell_bf16`` — bf16 values, x and sums in f32, validated against the fp64
-  SpMV of the bf16-quantized matrix, so the check isolates the kernels from
-  the storage rounding;
-* ``sell_dd`` — fp64-class double-double (≙ the JAX harness's
-  ``pallas_sell_dd``): values and x split into f32 (hi, lo) pairs, y
-  combined and segment-summed in fp64 and validated against the fp64
-  oracle. The dd kernels refuse slot-packed sg bins, so a SELL that has
-  them is rebuilt in rows mode for this stage (``convert_sell_dd_s``);
-* ``pr`` / ``pr_dd`` — the PR permutation-routed layout, f32 and dd
-  (≙ ``pallas_pr`` / ``pallas_pr_dd``), built from the heavy-row-split CSR
-  with ``target_rows=PANEL_TARGET_ROWS``; ``pr_dd`` reuses the f32
+* ``serial_hll`` — the host HLL SpMV (≙ the reference's spmv_hll_serial);
+* ``csr`` / ``ell`` — plain PyTorch CSR (``index_select`` + ``index_add_``)
+  and padded-ELL SpMV over the HLL rectangle (≙ the JAX ``xla_csr`` /
+  ``xla_ell``); an ELL rectangle past ``ELL_MAX_ELEMENTS`` or an upload
+  past ``ops.xla.MAX_UPLOAD_BYTES`` records the stage as skipped;
+* ``sell`` — SELL, ``sell_layout`` bins (default "auto"), on ``device``;
+* ``sell_bf16`` — bf16 values, x and sums in f32, validated against the
+  fp64 SpMV of the bf16-quantized matrix, so the check isolates the kernels
+  from the storage rounding;
+* ``sell_dd`` — fp64-class double-double (≙ ``pallas_sell_dd``): values
+  and x split into f32 (hi, lo) pairs, y combined and segment-summed in
+  fp64 and validated against the fp64 oracle. The dd kernels refuse
+  slot-packed sg bins, so a SELL that has them is rebuilt in rows mode for
+  this stage (``convert_sell_dd_s``);
+* ``hll`` — the HLL matrix, padding slots kept, on the SELL kernels
+  (≙ ``pallas_hll``); skipped past ``ELL_MAX_ELEMENTS`` padded entries or a
+  block MAXNZ above 256, as the JAX harness skips it;
+* ``sell_sigma`` — SELL-C-sigma (rows sorted by length, ≙
+  ``pallas_sell_sigma``); its rows map back through the permutation;
+* ``pr`` / ``pr_dd`` — the PR permutation-routed layout, f32 (or bf16)
+  and dd (≙ ``pallas_pr`` / ``pallas_pr_dd``), built from the heavy-row-split
+  CSR with ``target_rows=PANEL_TARGET_ROWS``; ``pr_dd`` reuses the f32
   conversion when every problem is within the dd cap. Their y is in sigma
   order and goes back to rows through ``unpermute`` or, after a heavy-row
   split, ``seg_map[pr.row_perm]`` and an fp64 ``np.bincount``;
 * ``split`` / ``split_dd`` — the locality split (near SELL + PR far side,
   ≙ ``pallas_split`` / ``pallas_split_dd``). A matrix with no profitable
-  near threshold (``SplitMatrix.from_csr`` raises ``ValueError``) records
-  the stage as skipped, with the reason, in ``MatrixResult.skipped``;
+  near threshold records the stage as skipped, with the reason;
 * ``sell_spmm`` — multi-RHS SELL SpMM (≙ ``pallas_sell_spmm``) with
   ``BenchConfig.sell_spmm_rhs`` right-hand sides over a SELL forced to
   k-major, built from the heavy-row-split CSR; the segments' rows are
@@ -36,6 +46,36 @@ report median time and GFLOPS = 2·nnz/t. Stages:
 Both SpMM stages draw X from ``default_rng(0)`` in f32, validate a few
 sampled columns against the fp64 oracle (``sampled_spmm_metrics``) and
 report GFLOPS = 2·nnz·R/t.
+
+``BenchConfig.dtype`` is the value (and x) type of the stages the JAX
+harness uploads in it: ``csr``, ``ell``, ``sell``, ``hll``, ``sell_sigma``,
+``pr``, ``split``, ``sell_spmm`` and ``bsr_spmm``. "bfloat16" rounds their
+values and x to bf16 as the JAX uploads do; the port sums in f32 where the
+JAX kernels sum in bf16, so those stages validate against the oracle of the
+bf16-rounded values and x, as ``sell_bf16`` does. "float64" runs ``csr`` and
+``ell`` in fp64; the port's kernels take f32 or bf16 values (fp64-class is
+``sell_dd`` / ``pr_dd`` / ``split_dd``), so its kernel stages are recorded
+as skipped.
+
+The JAX config's other knobs keep its defaults here, as no caller of the
+port sets another value: HLL blocks of ``DEFAULT_HACK_SIZE`` rows,
+``ELL_MAX_ELEMENTS``, the default K-bin ladder, merged bins and chunk
+height of ``SellMatrix.from_csr``, ``difference_metrics``' default
+tolerances, validation always on and the flush before every stage.
+
+Timing (``StageResult``): before each device stage's correctness pass,
+:func:`flush_hbm` scrubs the cache, as the JAX harness does.
+``seconds`` on a CUDA device is the best of ``rounds`` device
+times of ``iterations`` calls back to back (``utils.timing.
+device_time_fn``; ≙ the JAX ``time_device_fn_slope``, chained calls with no
+host in between); ``per_call_s`` is the median of ``iterations`` calls each
+bracketed by CUDA events, host dispatch included. On the CPU ``seconds`` is
+the best of ``rounds`` host medians. The flush removes what one stage left
+in the cache for the next; it does not make the timed reps cold (they run
+back to back, so x stays in the L2 between them). ``device_validate`` adds
+``run_device_validated``'s check of every rep against the first to
+``StageResult.extra``, with its time per rep against ``per_call_s`` (both
+bracket calls that the host dispatches in between).
 
 Every stage records its norm-scaled error ``max|y - y_ref| / max|y_ref|``
 (SpMM: over the sampled columns). Any other failure of a stage raises.
@@ -52,11 +92,14 @@ import torch
 from ..formats.bsr import BSRMatrix
 from ..formats.coo import COOMatrix
 from ..formats.csr import CSRMatrix
+from ..formats.hll import DEFAULT_HACK_SIZE, HLLMatrix
 from ..formats.pr import PANEL_TARGET_ROWS, max_pr_rows, pr_from_csr
+from ..formats.reorder import reorder_rcm
 from ..formats.sell import SellMatrix
 from ..formats.split import SplitMatrix
 from ..ops.bsr import bsr_spmm, device_put_bsr, pad_rhs
 from ..ops.doubledouble import combine_f64
+from ..ops.hll import hll_to_sell
 from ..ops.pr import device_put_pr, pr_spmv
 from ..ops.pr_dd import DD_PANEL_TARGET_ROWS, device_put_pr_dd, pr_spmv_dd
 from ..ops.sell import device_put_sell, device_put_x, sell_spmv
@@ -64,24 +107,46 @@ from ..ops.sell_dd import device_put_sell_dd, device_put_x_dd, sell_spmv_dd
 from ..ops.sell_spmm import device_put_x_multi, sell_spmm
 from ..ops.split import (device_put_split, device_put_split_dd, split_spmv,
                          split_spmv_dd)
+from ..ops.xla import device_put_csr, device_put_ell
 from ..utils.metrics import calculate_flops
-from ..utils.timing import ITERATION_SKIP, time_fn
+from ..utils.timing import (ITERATION_SKIP, device_time_fn,
+                            run_device_validated, time_fn)
 from ..utils.validation import (DiffMetrics, difference_metrics,
                                 sampled_spmm_metrics)
 
 __all__ = ["BenchConfig", "StageResult", "MatrixResult", "run_matrix",
-           "quantize_bf16", "STAGES"]
+           "quantize_bf16", "flush_hbm", "STAGES", "DTYPES",
+           "ELL_MAX_ELEMENTS"]
 
-STAGES = ("sell", "sell_bf16", "sell_dd", "pr", "pr_dd", "split", "split_dd",
-          "sell_spmm", "bsr_spmm")
+STAGES = ("serial_hll", "csr", "ell", "sell", "sell_bf16", "sell_dd", "hll",
+          "sell_sigma", "pr", "pr_dd", "split", "split_dd", "sell_spmm",
+          "bsr_spmm")
 _SELL_STAGES = ("sell", "sell_bf16", "sell_dd")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+# stages that run a kernel of the port, which takes f32 or bf16 values
+_KERNEL_DT_STAGES = ("sell", "hll", "sell_sigma", "pr", "split", "sell_spmm",
+                     "bsr_spmm")
+_HLL_MAX_MAXNZ = 256  # the JAX harness's pallas_hll skip (harness.py:525)
+_FLUSH_MIN_BYTES = 64 << 20  # the JAX flush_hbm's 64 MB
+# the ELL rectangle / HLL padded-area cap (the JAX ell_max_elements default)
+ELL_MAX_ELEMENTS = 1 << 27
 
 
 @dataclass
 class BenchConfig:
-    iterations: int = 20          # measured reps; the median is reported
+    iterations: int = 20          # calls per timing round
     skip: int = ITERATION_SKIP    # warm-up calls (≙ utility.h:7)
+    rounds: int = 3               # timing rounds; the best one is reported
     stages: tuple = _SELL_STAGES  # device stages, in STAGES order
+    dtype: str = "float32"        # value/x type of the stages the JAX harness
+                                  # uploads in its dtype (see module doc)
+    sell_layout: str = "auto"     # "auto" | "k-major" | "sb-major" | "sb-list"
+                                  # ... (SellMatrix.from_csr's layouts)
+    reorder: str = "none"         # "none" | "rcm" | "auto": P A Pᵀ bandwidth
+                                  # reduction before the oracle
+    device_validate: bool = False  # check every timed rep against the first
+                                   # on the device, one readback
     sell_spmm_rhs: int = 16       # R of the sell_spmm stage (<= MAX_RHS)
     spmm_rhs: int = 128           # B of the bsr_spmm stage
 
@@ -89,11 +154,13 @@ class BenchConfig:
 @dataclass
 class StageResult:
     stage: str
-    seconds: float
+    seconds: float          # the stage statistic (module doc)
     gflops: float
     diff: DiffMetrics
     norm_err: float = 0.0   # max|y - y_ref| / max|y_ref|
     rhs: int = 1            # right-hand sides per call (GFLOPS counts all)
+    per_call_s: float = 0.0  # median of single calls, host included
+    extra: dict = field(default_factory=dict)
 
 
 @dataclass
@@ -106,9 +173,12 @@ class MatrixResult:
     format_stats: dict
     config: BenchConfig
     csr: CSRMatrix | None = None       # the matrix the fp64 oracle ran
+                                       # (reordered under cfg.reorder)
     sell: SellMatrix | None = None     # the host SELL sell/sell_bf16 ran
     sell_dd: SellMatrix | None = None  # the one sell_dd ran (rows mode
                                        # where sell has slot-packed sg bins)
+    hll: HLLMatrix | None = None       # serial_hll / ell / hll's HLL
+    sell_sigma: SellMatrix | None = None  # the SELL-C-sigma sell_sigma ran
     pr: object = None       # PRMatrix | PanelPRMatrix the pr stage ran
     split: object = None    # SplitMatrix the split stage ran
     sell_spmm: SellMatrix | None = None  # the k-major SELL sell_spmm ran
@@ -123,6 +193,30 @@ def quantize_bf16(values: np.ndarray) -> np.ndarray:
         torch.bfloat16).to(torch.float64).numpy()
 
 
+def flush_hbm(device, mbytes: int | None = None) -> int:
+    """Scrub the device's cache (≙ the JAX ``flush_hbm``, clear_cache,
+    utility.c:141-159 / clear_gpu_cache, cuda_src/utility.cu:148-175): read
+    and write a buffer of at least twice the L2, never under 64 MB (or
+    ``mbytes`` MB when larger), and wait for it. Returns the buffer's bytes;
+    on the CPU it does nothing and returns 0."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 0
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    nbytes = max(2 * l2, _FLUSH_MIN_BYTES, (mbytes or 0) << 20)
+    # the caching allocator hands the same block back on the next call
+    buf = torch.ones(-(-nbytes // 4), dtype=torch.float32, device=device)
+    buf.mul_(1.0000001)
+    torch.cuda.synchronize(device)
+    return buf.numel() * 4
+
+
+def _csr_with(csr: CSRMatrix, values: np.ndarray) -> CSRMatrix:
+    return CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx, values)
+
+
 def run_matrix(
     name: str,
     coo: COOMatrix,
@@ -133,14 +227,19 @@ def run_matrix(
     device,
 ) -> MatrixResult:
     """Run ``serial_csr`` and ``cfg.stages`` on one matrix (≙ the per-matrix
-    body of main.c:39-459 / main_cuda.cu:52-729). SELL bins take the "auto"
-    layout, rebuilt with SELL-sigma row order when the plain conversion is
-    pathological; differences count at the default tolerances of
-    ``difference_metrics``."""
+    body of main.c:39-459 / main_cuda.cu:52-729). SELL bins take
+    ``cfg.sell_layout``, rebuilt with SELL-sigma row order when the plain
+    conversion is pathological; differences count at the default tolerances
+    of ``difference_metrics``."""
     unknown = [s for s in cfg.stages if s not in STAGES]
     if unknown:
         raise ValueError(f"unknown stages {unknown}; the port runs {STAGES}")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"dtype {cfg.dtype!r}: one of {sorted(DTYPES)}")
+    if cfg.reorder not in ("none", "rcm", "auto"):
+        raise ValueError(f"reorder {cfg.reorder!r}: none, rcm or auto")
     device = torch.device(device)
+    dt = DTYPES[cfg.dtype]
     M, N, nnz = coo.nrows, coo.ncols, coo.nnz
     if x is None:
         x = np.ones(N, dtype=np.float64)  # ≙ init_vector_at_one (utility.c:18)
@@ -149,6 +248,14 @@ def run_matrix(
     csr = CSRMatrix.from_coo(coo)
     fstats = {"csr": csr.memory_stats(),
               "convert_csr_s": time.perf_counter() - t0}
+    if cfg.reorder != "none" and M == N:
+        # bandwidth-reducing preprocessing: the SpMV workload is unchanged
+        # (same nnz and FLOPs, y' = P y); every stage, the oracle included,
+        # runs the permuted problem
+        csr, perm, fstats["reorder"] = reorder_rcm(
+            csr, mode=cfg.reorder, log=lambda m: log(f"[{name}] {m}"))
+        if perm is not None:
+            x = np.asarray(x)[perm]
     stages: dict = {}
     res = MatrixResult(name, M, N, nnz, stages, fstats, cfg, csr=csr)
 
@@ -160,9 +267,17 @@ def run_matrix(
         times.append(time.perf_counter() - t0)
     sec = min(times)
     stages["serial_csr"] = StageResult(
-        "serial_csr", sec, calculate_flops(nnz, sec) / 1e9, DiffMetrics())
+        "serial_csr", sec, calculate_flops(nnz, sec) / 1e9, DiffMetrics(),
+        per_call_s=sec)
     log(f"[{name}] serial_csr: {sec*1e3:.3f} ms = "
         f"{stages['serial_csr'].gflops:.3f} GFLOPS (host fp64 oracle)")
+
+    # the x and oracle of the stages that take cfg.dtype: bf16 rounds values
+    # and x as the uploads do
+    x_dt, y_dt = x, y_ref
+    if dt == torch.bfloat16:
+        x_dt = quantize_bf16(x)
+        y_dt = _csr_with(csr, quantize_bf16(csr.values)).spmv(x_dt)
 
     # ultra-heavy rows split into <=cap-entry segments; the segments' sums
     # are reduced back to rows (classic row splitting). Short-row matrices
@@ -189,28 +304,33 @@ def run_matrix(
             return y[:M]
         return np.bincount(ids, weights=y[: ids.size], minlength=M)[:M]
 
-    def record(stage, sec, ref, y, what=""):
-        dm = difference_metrics(ref, y)
-        scale = float(np.abs(ref).max()) if ref.size else 0.0
-        err = float(np.abs(y - ref).max()) / scale if scale else 0.0
-        stages[stage] = StageResult(stage, sec,
-                                    calculate_flops(nnz, sec) / 1e9, dm, err)
-        log(f"[{name}] {stage}: {sec*1e3:.3f} ms = "
-            f"{stages[stage].gflops:.3f} GFLOPS{what} on {device}, "
-            f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}"
-            f", norm_err={err:.2e}")
-
-    def timed(fn, *args):
-        return time_fn(fn, *args, device=device, reps=cfg.iterations,
-                       skip=cfg.skip)
-
-    xt = device_put_x(x, N, device=device)
-    xh, xl = device_put_x_dd(x, N, device=device)
     want = set(cfg.stages)
+    if dt == torch.float64:
+        for stage in sorted(want & set(_KERNEL_DT_STAGES)):
+            _skip(res, log, stage, "dtype float64: the port's kernels take "
+                  "float32 or bfloat16 values (fp64-class: sell_dd, pr_dd, "
+                  "split_dd)")
+        want -= set(_KERNEL_DT_STAGES)
+    xt = device_put_x(x_dt, N, device=device)
+    xh, xl = device_put_x_dd(x, N, device=device)
 
+    if want & {"serial_hll", "csr", "ell", "hll"}:
+        _hll_csr_stages(res, want, x, x_dt, y_ref, y_dt, dt, device, log)
     if want & set(_SELL_STAGES):
-        _sell_stages(res, csr, csr_k, seg_map, x, y_ref, xt, xh, xl, want,
-                     record, timed, log, device)
+        _sell_stages(res, want, csr_k, seg_map, x_dt, y_ref, y_dt, xt, xh,
+                     xl, dt, device, log)
+    if "hll" in want:
+        _hll_stage(res, xt, y_dt, dt, device, log)
+
+    # --- SELL-C-sigma: rows sorted by length ---
+    if "sell_sigma" in want:
+        t0 = time.perf_counter()
+        sig = res.sell_sigma = _build_sell(csr_k, name, log, sigma_sort=True)
+        fstats["convert_sell_sigma_s"] = time.perf_counter() - t0
+        fstats["sell_sigma"] = sig.memory_stats()
+        _run_sell(res, "sell_sigma", sig, _kernel_ids(sig, seg_map,
+                                                      csr_k.nrows),
+                  dt, xt, y_dt, device, log, f" (pad {sig.padding_ratio:.2f})")
 
     # --- PR: gather in column order, route to sigma order, reduce ---
     if "pr" in want:
@@ -218,11 +338,12 @@ def run_matrix(
         res.pr = pr_from_csr(csr_k, target_rows=PANEL_TARGET_ROWS)
         fstats["convert_pr_s"] = time.perf_counter() - t0
         fstats["pr"] = res.pr.memory_stats()
-        d = device_put_pr(res.pr, device=device)
+        d = device_put_pr(res.pr, dt, device=device)
+        flush_hbm(device)
         y = pr_spmv(d, xt).cpu().numpy().astype(np.float64)
-        sec = timed(pr_spmv, d, xt)
-        record("pr", sec, y_ref, to_rows(y, res.pr.row_perm),
-               f" (pad {res.pr.padding_ratio:.2f})")
+        _record(res, device, log, "pr", _timed(cfg, device, pr_spmv, d, xt),
+                y_dt, to_rows(y, res.pr.row_perm),
+                f" (pad {res.pr.padding_ratio:.2f}, {str(dt)[6:]} values)")
         del d
     if "pr_dd" in want:
         t0 = time.perf_counter()
@@ -236,10 +357,11 @@ def run_matrix(
                                 dd=True)
         fstats["convert_pr_dd_s"] = time.perf_counter() - t0
         d = device_put_pr_dd(pr_dd, device=device)
+        flush_hbm(device)
         y64 = combine_f64(*pr_spmv_dd(d, xh, xl)).cpu().numpy()
-        sec = timed(pr_spmv_dd, d, xh, xl)
-        record("pr_dd", sec, y_ref, to_rows(y64, pr_dd.row_perm),
-               " (fp64-class)")
+        _record(res, device, log, "pr_dd",
+                _timed(cfg, device, pr_spmv_dd, d, xh, xl), y_ref,
+                to_rows(y64, pr_dd.row_perm), " (fp64-class)")
         del d
 
     # --- split: near SELL + natural-order PR far side ---
@@ -251,30 +373,78 @@ def run_matrix(
         except ValueError as e:
             for stage in ("split", "split_dd"):
                 if stage in want:
-                    res.skipped[stage] = str(e)
-                    log(f"[{name}] {stage} skipped: {e}")
+                    _skip(res, log, stage, str(e))
         else:
             fstats["convert_split_s"] = time.perf_counter() - t0
             fstats["split"] = sm.memory_stats()
             res.split = sm
     if sm is not None and "split" in want:
-        d = device_put_split(sm, device=device)
+        d = device_put_split(sm, dt, device=device)
+        flush_hbm(device)
         y = split_spmv(d, xt).cpu().numpy().astype(np.float64)
-        sec = timed(split_spmv, d, xt)
-        record("split", sec, y_ref, to_rows(y),
-               f" (slab_dist {sm.slab_dist}, far {sm.far_frac:.3f})")
+        _record(res, device, log, "split",
+                _timed(cfg, device, split_spmv, d, xt), y_dt, to_rows(y),
+                f" (slab_dist {sm.slab_dist}, far {sm.far_frac:.3f})")
         del d
     if sm is not None and "split_dd" in want:
         # the same host product: the routing and the near bins do not
         # depend on the value type
         d = device_put_split_dd(sm, device=device)
+        flush_hbm(device)
         y64 = combine_f64(*split_spmv_dd(d, xh, xl)).cpu().numpy()
-        sec = timed(split_spmv_dd, d, xh, xl)
-        record("split_dd", sec, y_ref, to_rows(y64), " (fp64-class)")
+        _record(res, device, log, "split_dd",
+                _timed(cfg, device, split_spmv_dd, d, xh, xl), y_ref,
+                to_rows(y64), " (fp64-class)")
         del d
     if want & {"sell_spmm", "bsr_spmm"}:
-        _spmm_stages(res, csr, csr_k, seg_map, want, timed, log, device)
+        _spmm_stages(res, want, csr_k, seg_map, dt, device, log)
     return res
+
+
+def _timed(cfg: BenchConfig, device, fn, *args):
+    """``(seconds, per_call_s, extra)`` of ``fn(*args)``: the stage
+    statistic of the module doc."""
+    per_call = time_fn(fn, *args, device=device, reps=cfg.iterations,
+                       skip=cfg.skip)
+    if device.type == "cuda":
+        sec = min(device_time_fn(fn, *args, device=device,
+                                 reps=cfg.iterations, skip=max(cfg.skip, 1))
+                  for _ in range(cfg.rounds))
+    else:
+        sec = min([per_call] + [
+            time_fn(fn, *args, device=device, reps=cfg.iterations,
+                    skip=cfg.skip) for _ in range(cfg.rounds - 1)])
+    extra = {}
+    if cfg.device_validate:
+        reps = min(cfg.iterations, 16)
+        first = fn(*args)
+        first = first[0] if isinstance(first, tuple) else first
+        diff, dv_sec = run_device_validated(fn, *args, y_ref=first,
+                                            device=device, reps=reps)
+        extra = {"device_val_max_diff": diff, "device_val_reps": reps,
+                 "device_val_overhead_pct":
+                     (dv_sec / per_call - 1.0) * 100.0 if per_call else 0.0}
+    return sec, per_call, extra
+
+
+def _record(res: MatrixResult, device, log, stage, timing, ref, y, what=""):
+    """Validate ``y`` against ``ref`` and store the stage's result."""
+    sec, per_call, extra = timing
+    dm = difference_metrics(ref, y)
+    scale = float(np.abs(ref).max()) if ref.size else 0.0
+    err = float(np.abs(y - ref).max()) / scale if scale else 0.0
+    st = res.stages[stage] = StageResult(
+        stage, sec, calculate_flops(res.nnz, sec) / 1e9, dm, err,
+        per_call_s=per_call, extra=extra)
+    log(f"[{res.name}] {stage}: {sec*1e3:.4f} ms = {st.gflops:.3f} GFLOPS"
+        f"{what} on {device} (per call {per_call*1e3:.4f} ms), "
+        f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}, "
+        f"norm_err={err:.2e}")
+
+
+def _skip(res: MatrixResult, log, stage, reason):
+    res.skipped[stage] = reason
+    log(f"[{res.name}] {stage} skipped: {reason}")
 
 
 def _build_sell(csr_k, name, log, **kw) -> SellMatrix:
@@ -282,11 +452,12 @@ def _build_sell(csr_k, name, log, **kw) -> SellMatrix:
     (power-law heads: bins with k > 1024 or padding above 8x) fall back to
     SELL-sigma row sorting, as the JAX harness's build_sell does."""
     sell = SellMatrix.from_csr(csr_k, **kw)
-    if any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8:
+    if not kw.get("sigma_sort") and (
+            any(b.k > 1024 for b in sell.bins) or sell.padding_ratio > 8):
         log(f"[{name}] plain SELL pathological "
             f"(pad {sell.padding_ratio:.1f}, kmax "
             f"{max((b.k for b in sell.bins), default=0)}) -> auto sigma")
-        sell = SellMatrix.from_csr(csr_k, sigma_sort=True, **kw)
+        sell = SellMatrix.from_csr(csr_k, **{**kw, "sigma_sort": True})
     return sell
 
 
@@ -302,37 +473,99 @@ def _kernel_ids(sell, seg_map, n_rows: int):
     return np.asarray(ids, np.int64)
 
 
-def _sell_stages(res, csr, csr_k, seg_map, x, y_ref, xt, xh, xl, want,
-                 record, timed, log, device):
-    """The SELL stages: ``sell``, ``sell_bf16`` and ``sell_dd``."""
-    name, M, fstats = res.name, res.nrows, res.format_stats
+def _run_sell(res, stage, sell, ids, dtype, xt, ref, device, log, what=""):
+    """Upload ``sell`` with ``dtype`` values, flush, run it once, map its
+    rows back through ``ids`` (:func:`_kernel_ids`) and time the SpMV; the
+    segment reduction is an epilogue kept out of the timed call, as the JAX
+    harness keeps it."""
+    d = device_put_sell(sell, dtype, device=device)
+    flush_hbm(device)
+    y = sell_spmv(d, xt)
+    if ids is not None:
+        y = torch.zeros(res.nrows, dtype=y.dtype, device=device) \
+            .index_add_(0, torch.from_numpy(ids).to(device), y)
+    _record(res, device, log, stage,
+            _timed(res.config, device, sell_spmv, d, xt), ref,
+            y.cpu().numpy().astype(np.float64), what)
 
+
+def _hll_csr_stages(res, want, x, x_dt, y_ref, y_dt, dt, device, log):
+    """``serial_hll`` (host), ``csr`` and ``ell`` (plain PyTorch)."""
+    csr, fstats, cfg = res.csr, res.format_stats, res.config
+    if want & {"serial_hll", "ell", "hll"}:
+        t0 = time.perf_counter()
+        res.hll = HLLMatrix.from_csr(csr, DEFAULT_HACK_SIZE)
+        fstats["convert_hll_s"] = time.perf_counter() - t0
+        fstats["hll"] = res.hll.memory_stats()
+    if "serial_hll" in want:
+        t0 = time.perf_counter()
+        y = res.hll.spmv(x)
+        sec = time.perf_counter() - t0
+        _record(res, device, log, "serial_hll", (sec, sec, {}), y_ref, y,
+                " (host fp64)")
+    xd = torch.from_numpy(np.asarray(x_dt, np.float64)).to(dt).to(device)
+    spmv = lambda dd, xx: dd.spmv(xx)
+    if "csr" in want:
+        try:
+            d = device_put_csr(csr, dt, device=device)
+        except MemoryError as e:
+            _skip(res, log, "csr", str(e))
+        else:
+            flush_hbm(device)
+            y = spmv(d, xd).cpu().numpy().astype(np.float64)
+            _record(res, device, log, "csr", _timed(cfg, device, spmv, d, xd),
+                    y_dt, y, f" ({str(dt)[6:]} values)")
+            del d
+    if "ell" in want:
+        try:
+            d = device_put_ell(res.hll, dt, device=device,
+                               max_elements=ELL_MAX_ELEMENTS)
+        except MemoryError as e:
+            _skip(res, log, "ell", str(e))
+        else:
+            flush_hbm(device)
+            y = spmv(d, xd).cpu().numpy().astype(np.float64)
+            _record(res, device, log, "ell", _timed(cfg, device, spmv, d, xd),
+                    y_dt, y, f" (rect {tuple(d.ja.shape)})")
+            del d
+
+
+def _hll_stage(res, xt, y_dt, dt, device, log):
+    """``hll``: the HLL matrix's padded rows on the SELL kernels."""
+    hll = res.hll
+    padded = int(hll.memory_stats()["padded_nnz"])
+    maxnz = int(np.asarray(hll.maxnz).max()) if hll.num_blocks else 0
+    if padded > ELL_MAX_ELEMENTS or maxnz > _HLL_MAX_MAXNZ:
+        # monster blocks (power-law heads): the reference's own HLL
+        # collapse regime
+        _skip(res, log, "hll", f"HLL padded area {padded} (cap "
+              f"{ELL_MAX_ELEMENTS}) / max block MAXNZ {maxnz} (cap "
+              f"{_HLL_MAX_MAXNZ})")
+        return
     t0 = time.perf_counter()
-    sell = res.sell = _build_sell(csr_k, name, log)
+    sell = hll_to_sell(hll)
+    res.format_stats["convert_hll_sell_s"] = time.perf_counter() - t0
+    _run_sell(res, "hll", sell, None, dt, xt, y_dt, device, log,
+              f" (padded {padded}, bins "
+              f"{sorted({b.layout for b in sell.bins})})")
+
+
+def _sell_stages(res, want, csr_k, seg_map, x_dt, y_ref, y_dt, xt, xh, xl,
+                 dt, device, log):
+    """The SELL stages: ``sell``, ``sell_bf16`` and ``sell_dd``."""
+    name, fstats, cfg = res.name, res.format_stats, res.config
+    t0 = time.perf_counter()
+    sell = res.sell = _build_sell(csr_k, name, log, layout=cfg.sell_layout)
     fstats["convert_sell_s"] = time.perf_counter() - t0
     fstats["sell"] = sell.memory_stats()
-
     ids = _kernel_ids(sell, seg_map, csr_k.nrows)
-    if ids is not None:
-        ids = torch.from_numpy(ids).to(device)
-
-    def run_stage(stage, dtype, ref):
-        d = device_put_sell(sell, dtype, device=device)
-        y = sell_spmv(d, xt)
-        if ids is not None:
-            y = torch.zeros(M, dtype=y.dtype, device=device).index_add_(
-                0, ids, y)
-        # the timed call is the SpMV itself; the segment reduction is an
-        # epilogue the JAX harness also keeps out of the timed path
-        sec = timed(sell_spmv, d, xt)
-        record(stage, sec, ref, y.cpu().numpy().astype(np.float64))
 
     if "sell" in want:
-        run_stage("sell", torch.float32, y_ref)
+        _run_sell(res, "sell", sell, ids, dt, xt, y_dt, device, log)
     if "sell_bf16" in want:
-        csr_q = CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
-                          quantize_bf16(csr.values))
-        run_stage("sell_bf16", torch.bfloat16, csr_q.spmv(x))
+        ref = _csr_with(res.csr, quantize_bf16(res.csr.values)).spmv(x_dt)
+        _run_sell(res, "sell_bf16", sell, ids, torch.bfloat16, xt, ref,
+                  device, log)
     if "sell_dd" not in want:
         return
 
@@ -342,40 +575,48 @@ def _sell_stages(res, csr, csr_k, seg_map, x, y_ref, xt, xh, xl, want,
     sell_dd = sell
     if any(b.sg_slots for b in sell.bins):
         t0 = time.perf_counter()
-        sell_dd = _build_sell(csr_k, name, log, sg_slots=False)
+        sell_dd = _build_sell(csr_k, name, log, layout=cfg.sell_layout,
+                              sg_slots=False)
         fstats["convert_sell_dd_s"] = time.perf_counter() - t0
         log(f"[{name}] slot-packed sg bins -> rows-mode SELL for sell_dd "
             f"in {fstats['convert_sell_dd_s']:.2f} s")
     res.sell_dd = sell_dd
     d = device_put_sell_dd(sell_dd, device=device)
+    flush_hbm(device)
     y64 = combine_f64(*sell_spmv_dd(d, xh, xl)).cpu().numpy()
     ids_dd = _kernel_ids(sell_dd, seg_map, csr_k.nrows)
     if ids_dd is not None:  # host-exact f64 segment reduction
-        y64 = np.bincount(ids_dd, weights=y64, minlength=M)[:M]
-    sec = timed(sell_spmv_dd, d, xh, xl)
-    record("sell_dd", sec, y_ref, y64, " (fp64-class)")
+        y64 = np.bincount(ids_dd, weights=y64, minlength=res.nrows)[:res.nrows]
+    _record(res, device, log, "sell_dd",
+            _timed(cfg, device, sell_spmv_dd, d, xh, xl), y_ref, y64,
+            " (fp64-class)")
 
 
-def _spmm_stages(res, csr, csr_k, seg_map, want, timed, log, device):
+def _spmm_stages(res, want, csr_k, seg_map, dt, device, log):
     """The SpMM stages: ``sell_spmm`` and ``bsr_spmm``."""
+    cfg, csr, stages = res.config, res.csr, res.stages
     name, M, N, fstats = res.name, res.nrows, res.ncols, res.format_stats
-    cfg, stages = res.config, res.stages
+    bf16 = dt == torch.bfloat16
+    # the oracle's matrix: bf16 values rounded as the upload rounds them
+    ocsr = _csr_with(csr, quantize_bf16(csr.values)) if bf16 else csr
 
-    def record(stage, sec, X, Y, rhs, what=""):
+    def record(stage, timing, X, Y, rhs, what=""):
         """Validate ``Y`` against the fp64 oracle on sampled columns."""
-        dm = sampled_spmm_metrics(csr, X, Y)
+        sec, per_call, extra = timing
+        dm = sampled_spmm_metrics(ocsr, X, Y)
         cols = np.unique(np.linspace(0, rhs - 1, min(4, rhs)).astype(int))
-        refs = [csr.spmv(X[:, c].astype(np.float64)) for c in cols]
+        refs = [ocsr.spmv(X[:, j].astype(np.float64)) for j in cols]
         scale = max((float(np.abs(r).max()) for r in refs if r.size),
                     default=0.0)
-        err = max((float(np.abs(Y[:M, c] - r).max())
-                   for c, r in zip(cols, refs) if r.size), default=0.0)
+        err = max((float(np.abs(Y[:M, j] - r).max())
+                   for j, r in zip(cols, refs) if r.size), default=0.0)
         stages[stage] = StageResult(
             stage, sec, calculate_flops(csr.nnz * rhs, sec) / 1e9, dm,
-            err / scale if scale else 0.0, rhs)
-        log(f"[{name}] {stage}: {sec*1e3:.3f} ms = "
-            f"{stages[stage].gflops:.3f} GFLOPS (R={rhs}{what}) on {device}, "
-            f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}"
+            err / scale if scale else 0.0, rhs, per_call, extra)
+        log(f"[{name}] {stage}: {sec*1e3:.4f} ms = "
+            f"{stages[stage].gflops:.3f} GFLOPS (R={rhs}{what}) on "
+            f"{device} (per call {per_call*1e3:.4f} ms), sig_diffs="
+            f"{dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}"
             f", norm_err={stages[stage].norm_err:.2e}")
 
     if "sell_spmm" in want:
@@ -383,17 +624,18 @@ def _spmm_stages(res, csr, csr_k, seg_map, want, timed, log, device):
         t0 = time.perf_counter()
         sm = res.sell_spmm = _build_sell(csr_k, name, log, layout="k-major")
         fstats["convert_sell_spmm_s"] = time.perf_counter() - t0
-        d = device_put_sell(sm, torch.float32, device=device)
+        d = device_put_sell(sm, dt, device=device)
         X = np.random.default_rng(0).standard_normal((N, R), dtype=np.float32)
         xt = device_put_x_multi(X, N, device=device)
+        flush_hbm(device)
         y = sell_spmm(d, xt)
         ids = _kernel_ids(sm, seg_map, csr_k.nrows)
         if ids is not None:
             y = torch.zeros(M, R, device=device).index_add_(
                 0, torch.from_numpy(ids).to(device), y)
         # the segment reduction stays out of the timed call, as in sell
-        sec = timed(sell_spmm, d, xt)
-        record("sell_spmm", sec, X, y.cpu().numpy().astype(np.float64), R)
+        record("sell_spmm", _timed(cfg, device, sell_spmm, d, xt), X,
+               y.cpu().numpy().astype(np.float64), R)
         del d, xt
     if "bsr_spmm" in want:
         B = int(cfg.spmm_rhs)
@@ -401,18 +643,19 @@ def _spmm_stages(res, csr, csr_k, seg_map, want, timed, log, device):
         try:
             bsr = BSRMatrix.from_csr(csr)
         except ValueError as e:  # the byte budget: too scattered for blocks
-            res.skipped["bsr_spmm"] = str(e)
-            log(f"[{name}] bsr_spmm skipped: {e}")
+            _skip(res, log, "bsr_spmm", str(e))
             return
         fstats["convert_bsr_s"] = time.perf_counter() - t0
         fstats["bsr"] = {"blocks": bsr.n_real_blocks, "kb": bsr.kb,
                          "fill": bsr.fill, "pad_ratio": bsr.pad_ratio,
                          "bytes": bsr.nbytes}
         res.bsr = bsr
-        d = device_put_bsr(bsr, device=device)
+        d = device_put_bsr(bsr, dt, device=device)
         X = np.random.default_rng(0).standard_normal((N, B), dtype=np.float32)
-        xp = pad_rhs(X, N, device=device)
+        xp = pad_rhs(X, N, dt, device=device)
+        flush_hbm(device)
         y = bsr_spmm(d, xp)[:, :B]
-        sec = timed(bsr_spmm, d, xp)
-        record("bsr_spmm", sec, X, y.cpu().numpy().astype(np.float64), B,
+        record("bsr_spmm", _timed(cfg, device, bsr_spmm, d, xp),
+               quantize_bf16(X) if bf16 else X,
+               y.cpu().numpy().astype(np.float64), B,
                f", fill {bsr.fill:.3f}, kb {bsr.kb}")

@@ -1,7 +1,13 @@
-// PR (permutation-routed) SpMV on Hopper, f32 and double-double.
+// PR (permutation-routed) SpMV on Hopper, f32 or bf16 values, and
+// double-double.
 //
 // Replaces the TPU kernels sparsematrixvectormultiplication_tpu/ops/pallas_pr.py
-// `_kernel_pr` and ops/pallas_pr_dd.py `_kernel_pr_dd`. A PR problem holds
+// `_kernel_pr` (whose values may be f32 or bf16, pallas_pr.py:104) and
+// ops/pallas_pr_dd.py `_kernel_pr_dd`. bf16 values are widened to f32 on
+// load (sell_common.cuh's F32Sum<__nv_bfloat16>); x and the sums stay f32,
+// as in the bf16 SELL kernels, where the TPU kernel summed in the value
+// type. A bf16 slot reads 2 B of value instead of 4, 10 B per slot with md
+// and route instead of 12. A PR problem holds
 // its entries in global column order: source slot s = r*128 + l of the
 // (n_rows, 128) planes carries value `val[s]` and `md[s]`, and gathers
 // x[128*row_slab[r] + (md[s] & 127)]. The TPU kernel forms every product in
@@ -97,6 +103,14 @@ extern "C" int pr_spmv_f32(const int* bins, int n_bins, const int* route,
                            int64_t n_groups, void* stream) {
   return pr::launch(bins, n_bins, route, md, row_slab,
                     sell::F32Sum<float>{val, x, y}, n_groups, stream);
+}
+
+extern "C" int pr_spmv_bf16(const int* bins, int n_bins, const int* route,
+                            const int* md, const int* row_slab,
+                            const __nv_bfloat16* val, const float* x, float* y,
+                            int64_t n_groups, void* stream) {
+  return pr::launch(bins, n_bins, route, md, row_slab,
+                    sell::F32Sum<__nv_bfloat16>{val, x, y}, n_groups, stream);
 }
 
 extern "C" int pr_spmv_dd(const int* bins, int n_bins, const int* route,

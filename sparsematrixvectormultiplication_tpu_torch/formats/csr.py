@@ -9,9 +9,11 @@ row's columns in a single O(nnz log nnz) pass — no per-row Python loops, so
 """
 
 # Numpy host layer copied from
-# sparsematrixvectormultiplication_tpu/formats/csr.py without the native
-# converter branch of from_coo (the port must not import the JAX package);
-# tests/test_torch_formats.py holds the two array-equal.
+# sparsematrixvectormultiplication_tpu/formats/csr.py (the port must not
+# import the JAX package); tests/test_torch_formats.py holds the two
+# array-equal. One change: the native converter (native=True, or nnz >=
+# _NATIVE_MIN_NNZ) runs this package's native/fast_csr.cpp and raises when it
+# cannot be built, where the JAX loader fell back to numpy.
 
 from __future__ import annotations
 
@@ -42,10 +44,32 @@ class CSRMatrix:
     def shape(self) -> tuple:
         return (self.nrows, self.ncols)
 
+    # nnz above which the native counting-sort converter beats np.lexsort
+    _NATIVE_MIN_NNZ = 2_000_000
+
     @classmethod
-    def from_coo(cls, coo: COOMatrix, *, sort_columns: bool = True) -> "CSRMatrix":
-        """Build CSR (≙ reference convert_in_csr, csr_matrix.c:63) with the
-        vectorized numpy path."""
+    def from_coo(cls, coo: COOMatrix, *, sort_columns: bool = True,
+                 native: bool | None = None) -> "CSRMatrix":
+        """Build CSR (≙ reference convert_in_csr, csr_matrix.c:63).
+
+        Large matrices route through the native C++ counting-sort converter
+        (native/fast_csr.cpp, O(nnz) vs lexsort's O(nnz log nnz)); small ones
+        and non-f64 values use the vectorized numpy path. ``native`` forces
+        the choice; the native path raises when it cannot be built."""
+        use_native = (
+            sort_columns
+            and coo.nnz >= cls._NATIVE_MIN_NNZ
+            and coo.val.dtype == np.float64
+            and coo.ncols < 2**31
+            if native is None
+            else native
+        )
+        if use_native:
+            from ..native.build import coo_to_csr_native
+
+            row_ptr, col_idx, values = coo_to_csr_native(
+                coo.row, coo.col, coo.val, coo.nrows)
+            return cls(coo.nrows, coo.ncols, row_ptr, col_idx, values)
         if sort_columns:
             order = np.lexsort((coo.col, coo.row))
         else:

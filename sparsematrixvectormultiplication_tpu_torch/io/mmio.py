@@ -15,12 +15,16 @@ vendored NIST mmio (reference: libs/mmio.{h,c}) plus its COO "PreMatrix" parser
   - bounds validation of every index      (reference matrix_parser.c:103-112)
 
 Unlike the reference (a scalar fscanf loop), parsing is numpy-vectorized so
-100M+ nnz matrices convert at memory speed.
+100M+ nnz matrices convert at memory speed; a C++ fast path lives in
+``native/`` (see :mod:`..native.build`).
 """
 
 # Numpy host layer copied from sparsematrixvectormultiplication_tpu/io/mmio.py
-# without the native parser branch (the port must not import the JAX package);
-# tests/test_torch_formats.py holds the two array-equal.
+# (the port must not import the JAX package); tests/test_torch_formats.py
+# holds the two array-equal. One change: bodies of >= _NATIVE_MIN_NNZ
+# entries go to this package's native/fast_mmio.cpp, which raises when it
+# cannot be built, where the JAX reader warned and fell back to numpy; a body
+# the native scanner refuses still goes to the numpy parser.
 
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ __all__ = [
 ]
 
 _BANNER = "%%MatrixMarket"
+_NATIVE_MIN_NNZ = 1 << 14  # entries from which the native parser reads a body
 
 _OBJECTS = ("matrix", "vector")
 _FORMATS = ("coordinate", "array")
@@ -256,6 +261,23 @@ def _read_matrix_market_bytes(data: bytes, *, expand_symmetry, dtype, index_dtyp
 def _parse_coordinate_body(data: bytes, nnz: int, tc: MMTypeCode, dtype, index_dtype,
                            offset: int = 0):
     ncol_file = 2 if tc.is_pattern else (4 if tc.is_complex else 3)
+
+    # native C++ multithreaded parser (native/fast_mmio.cpp); real/integer/
+    # pattern only — complex needs both components, handled by the numpy path
+    if not tc.is_complex and nnz >= _NATIVE_MIN_NNZ:
+        from ..native.build import parse_body_native
+
+        out = parse_body_native(data, nnz, ncol_file, offset=offset)
+        if out is not None:
+            row1, col1, vals = out
+            row = row1.astype(index_dtype, copy=False) - 1
+            col = col1.astype(index_dtype, copy=False) - 1
+            if tc.is_pattern:
+                val = np.ones(nnz, dtype=dtype)
+            else:
+                val = vals.astype(dtype, copy=False)
+            return row, col, val
+
     body = data[offset:]
 
     # numpy-vectorized parse of the whitespace table; np.loadtxt fallback for

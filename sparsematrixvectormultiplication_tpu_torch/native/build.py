@@ -4,15 +4,23 @@
   at conversion time (:mod:`..formats.pr`): a 128-edge-colouring, the
   per-lane Beneš masks and the final lane gather;
 * ``fast_bsr.cpp`` — the CSR -> 128x128 BSR blocker (:mod:`..formats.bsr`):
-  distinct blocks per block-row, then the dense tiles.
+  distinct blocks per block-row, then the dense tiles;
+* ``fast_csr.cpp`` — the COO -> CSR converter (:mod:`..formats.csr`): a
+  counting sort over rows, then short per-row column sorts;
+* ``fast_mmio.cpp`` — the Matrix Market coordinate-body parser
+  (:mod:`..io.mmio`), split across threads at line boundaries.
 
 At first use each source is compiled with ``g++ -O3 -std=c++17 -shared
 -fPIC -pthread`` into ``build/native/`` at the root of the checkout, under a
 name hashed from the source and the flags, and loaded with :mod:`ctypes`.
 Importing this module compiles nothing. A library that cannot be built, or
-that fails, raises: there is no silent fallback to the Python router or the
-numpy blocker, which take minutes (router, millions of elements) or tens of
-seconds (blocker, tens of millions of entries).
+that fails, raises: there is no silent fallback to the Python router, the
+numpy blocker or the numpy CSR converter, which take minutes (router,
+millions of elements) or tens of seconds (blocker and converter, tens of
+millions of entries). A coordinate body the parser refuses (a token its
+number scanner does not read, such as ``nan``, or a malformed line) is a
+property of the file, not of the build: :func:`parse_body_native` returns
+None for it, and the numpy parser reads the body or raises ``MMIOError``.
 """
 
 from __future__ import annotations
@@ -29,24 +37,28 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["load_fast_route", "run_fast_route", "load_fast_bsr",
-           "csr_to_bsr_native", "library_path"]
+           "csr_to_bsr_native", "load_fast_csr", "coo_to_csr_native",
+           "load_fast_mmio", "parse_body_native", "library_path"]
 
 _DIR = Path(__file__).resolve().parent
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 # library stem -> (source, what it is, for messages)
 _LIBS = {"fastroute": ("fast_route.cpp", "the PR router"),
-         "fastbsr": ("fast_bsr.cpp", "the BSR blocker")}
+         "fastbsr": ("fast_bsr.cpp", "the BSR blocker"),
+         "fastcsr": ("fast_csr.cpp", "the COO->CSR converter"),
+         "fastmmio": ("fast_mmio.cpp", "the Matrix Market parser")}
 _P32 = ctypes.POINTER(ctypes.c_int32)
 _P64 = ctypes.POINTER(ctypes.c_int64)
+_PF64 = ctypes.POINTER(ctypes.c_double)
 _BLOCK = 128
 # each blocker thread carries a 4*n_bc-byte stamp array: cap them at 256 MiB
 _STAMP_BYTES = 256 << 20
 
 
 def library_path(stem: str = "fastroute") -> Path:
-    """Where library ``stem`` ("fastroute" or "fastbsr") for the current
-    source and flags lives."""
+    """Where library ``stem`` ("fastroute", "fastbsr", "fastcsr" or
+    "fastmmio") for the current source and flags lives."""
     h = hashlib.sha256(" ".join(_FLAGS).encode())
     h.update((_DIR / _LIBS[stem][0]).read_bytes())
     return _BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
@@ -170,3 +182,74 @@ def csr_to_bsr_native(row_ptr, col_idx, values, nrows: int, n_bc: int,
     if rc != 0:
         raise RuntimeError(f"fast_bsr_fill failed with code {rc}")
     return blocks, bcols, int(kb), n_real
+
+
+def _threads(num_threads: int) -> int:
+    return num_threads if num_threads > 0 else min(os.cpu_count() or 1, 16)
+
+
+@functools.cache
+def load_fast_csr():
+    """Build the converter if needed and return its ``fast_coo_to_csr``
+    entry."""
+    fn = _load("fastcsr").fast_coo_to_csr
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [_P32, _P32, _PF64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, _P64, _P32, _PF64]
+    return fn
+
+
+def coo_to_csr_native(row, col, val, nrows: int, num_threads: int = 0):
+    """Native COO -> CSR (≙ the reference's convert_in_csr,
+    src/csr_matrix.c:63-126: counting sort, then each row sorted by
+    column): returns ``(row_ptr int64, col_idx int32, values float64)``,
+    the products of the numpy path of :meth:`..formats.csr.CSRMatrix.
+    from_coo` (duplicate coordinates of one row keep their input order in
+    rows of up to 32 entries; longer rows sort with ``std::sort``, which
+    may order duplicates otherwise). Raises ``RuntimeError`` when a row
+    index is out of range."""
+    fn = load_fast_csr()
+    row = np.ascontiguousarray(row, dtype=np.int32)
+    col = np.ascontiguousarray(col, dtype=np.int32)
+    val = np.ascontiguousarray(val, dtype=np.float64)
+    nnz = int(row.size)
+    row_ptr = np.empty(int(nrows) + 1, dtype=np.int64)
+    col_out = np.empty(nnz, dtype=np.int32)
+    val_out = np.empty(nnz, dtype=np.float64)
+    rc = fn(row.ctypes.data_as(_P32), col.ctypes.data_as(_P32),
+            val.ctypes.data_as(_PF64), nnz, int(nrows),
+            _threads(num_threads), row_ptr.ctypes.data_as(_P64),
+            col_out.ctypes.data_as(_P32), val_out.ctypes.data_as(_PF64))
+    if rc != 0:
+        raise RuntimeError(f"fast_coo_to_csr failed with code {rc} "
+                           f"(nnz={nnz}, nrows={nrows})")
+    return row_ptr, col_out, val_out
+
+
+@functools.cache
+def load_fast_mmio():
+    """Build the parser if needed and return its ``fast_mmio_parse_body``
+    entry."""
+    fn = _load("fastmmio").fast_mmio_parse_body
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, _P32, _P32, _PF64]
+    return fn
+
+
+def parse_body_native(body: bytes, nnz: int, per_line: int,
+                      num_threads: int = 0, offset: int = 0):
+    """Parse the ``nnz`` entries of a coordinate body, ``body[offset:]``
+    (no copy), of ``per_line`` numbers each (2 pattern, 3 real or integer,
+    4 complex: the real part is kept): returns ``(row, col, val)``, 1-based
+    int32 indices and float64 values, or None when the parser refuses the
+    body (fewer entries than ``nnz``, or a token it does not read)."""
+    fn = load_fast_mmio()
+    rows = np.empty(nnz, dtype=np.int32)
+    cols = np.empty(nnz, dtype=np.int32)
+    vals = np.empty(nnz, dtype=np.float64)
+    base = ctypes.cast(ctypes.c_char_p(body), ctypes.c_void_p).value
+    got = fn(base + offset, len(body) - offset, nnz, per_line,
+             _threads(num_threads), rows.ctypes.data_as(_P32),
+             cols.ctypes.data_as(_P32), vals.ctypes.data_as(_PF64))
+    return (rows, cols, vals) if got == nnz else None

@@ -26,7 +26,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _HEADERS = ("sell_common.cuh", "dd.cuh")
 _SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu",
-            "pr.cu", "sell_spmm.cu", "bsr.cu")
+            "pr.cu", "sell_spmm.cu", "bsr.cu", "bw_probe.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -61,7 +61,8 @@ _ENTRIES = {
        for v in ("f32", "bf16")},
     "sell_sg_dd": (_P, _P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32, _P),
     # bins, n_bins, route, md, row_slab, val, x, y, n_groups, stream
-    "pr_spmv_f32": (_P, _I32, _P, _P, _P, _P, _P, _P, _I64, _P),
+    **{f"pr_spmv_{v}": (_P, _I32, _P, _P, _P, _P, _P, _P, _I64, _P)
+       for v in ("f32", "bf16")},
     "pr_spmv_dd": (_P, _I32, _P, _P, _P, *_DD, _I64, _P),
     # SpMM, x and y row-major with row strides ldx, ldy; W columns computed
     # group_ids, ja, as, x, y, n_groups, K, W, ldx, ldy, accumulate, stream
@@ -76,6 +77,20 @@ _ENTRIES = {
     # block_cols, blocks, x, y, n_block_rows, kb, B, ldx, ldy, stream
     **{f"bsr_spmm_{r}_{v}": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I64, _P)
        for r in ("blockspec", "dma") for v in ("f32", "bf16")},
+    # bandwidth probe (bench/bw_probe.py)
+    # a, b, n_vec, n_blocks, partial, seed, out, stream
+    **{f"bw_read_{v}": (_P, _P, _I64, _I32, _P, _P, _P, _P)
+       for v in ("f32", "i32", "i16", "i8")},
+    "bw_read2_f32_i32": (_P, _P, _I64, _I32, _P, _P, _P, _P),
+    # in, seed, out, n_vec, n_blocks, stream
+    "bw_copy_f32": (_P, _P, _P, _I64, _I32, _P),
+    # buf, n_chunks, chunk_rows, nbuf, n_blocks, partial, seed, out, stream
+    "bw_read_async_f32": (_P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
+    # chunk_rows, nbuf, blocks_per_sm (int*)
+    "bw_read_async_occupancy": (_I32, _I32, _P),
+    # qb, x, ja, as, seed, y, n_groups, k, span, stream
+    **{f"bw_kernelsim_{v}f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P)
+       for v in ("", "packed_", "nocompute_")},
 }
 
 

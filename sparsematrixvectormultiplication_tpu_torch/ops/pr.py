@@ -2,8 +2,9 @@
 version.
 
 Counterpart of the JAX package's ``ops/pallas_pr.py`` (``_kernel_pr`` ->
-``csrc/pr.cu`` ``pr_spmv_f32``). A host :class:`~..formats.pr.PRMatrix`
-holds its entries in global column order on ``(n_rows, 128)`` planes
+``csrc/pr.cu`` ``pr_spmv_f32``, and ``pr_spmv_bf16`` for bf16 values, which
+it widens to f32 on load; x and the sums are f32 in both). A host
+:class:`~..formats.pr.PRMatrix` holds its entries in global column order on ``(n_rows, 128)`` planes
 (``val``, ``md``; row r reads x slab ``row_slab[r]``) and the routing that
 moves each product to a sigma-ordered k-major slot array: ``2*log2(n_rows)-1``
 Beneš exchange stages (bit s of ``masks``, partner ``i ^ d_s``) and a final
@@ -20,7 +21,8 @@ kernel), so comparing the two on the card puts the composed plane under
 test.
 
 :func:`pr_problem` is the kernel's wrapper (one launch per PR problem,
-counted in ``.launches``): CUDA tensors launch the kernel or raise, CPU
+counted in ``.launches``, those of ``pr_spmv_bf16`` also in
+``.launches_bf16``): CUDA tensors launch the kernel or raise, CPU
 tensors run the plain version. :func:`pr_spmv` returns y in sigma row order,
 cropped to ``nrows``, panels concatenated — callers unpermute with the host
 matrix's ``unpermute`` / ``row_perm``.
@@ -75,9 +77,9 @@ class DevicePRIndex:
 
 @dataclass(kw_only=True)
 class DevicePR(DevicePRIndex):
-    """One PR problem on a device with f32 values."""
+    """One PR problem on a device with f32 or bf16 values."""
 
-    val: torch.Tensor         # (n_rows, 128) float32
+    val: torch.Tensor         # (n_rows, 128) float32 | bfloat16
 
 
 @dataclass
@@ -149,16 +151,18 @@ def _put_panels(pr, put) -> DevicePanelPR:
 def device_put_pr(pr, dtype=torch.float32, *, device):
     """Upload a host ``PRMatrix`` (returns a :class:`DevicePR`) or
     ``PanelPRMatrix`` (a :class:`DevicePanelPR`), of this package or of the
-    JAX package: only their attributes are read. Values are f32."""
-    if dtype != torch.float32:
-        raise ValueError(f"PR values are torch.float32, not {dtype}")
+    JAX package: only their attributes are read. Values are f32 or bf16
+    (rounded from the host's f64 as the JAX upload rounds them)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"PR values are torch.float32 or torch.bfloat16, "
+                         f"not {dtype}")
     if hasattr(pr, "panels"):
         return _put_panels(pr, lambda p: device_put_pr(p, dtype,
                                                        device=device))
     device = torch.device(device)
     return DevicePR(**_put_index(pr, device),
                     val=torch.from_numpy(np.ascontiguousarray(
-                        pr.val, np.float64)).to(torch.float32).to(device))
+                        pr.val, np.float64)).to(dtype).to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -206,8 +210,9 @@ def _k_sum(blk: torch.Tensor) -> torch.Tensor:
 
 def pr_problem_plain(d: DevicePR, x_tab: torch.Tensor) -> torch.Tensor:
     """One problem's y (``y_rows*128``, sigma order, uncropped): products
-    ``val * x`` in column order, routed by the stages, summed per bin."""
-    (a,) = _route_planes(d, [d.val * _x_gather(d, x_tab)])
+    ``val * x`` in column order (bf16 values widened to f32), routed by the
+    stages, summed per bin."""
+    (a,) = _route_planes(d, [d.val.float() * _x_gather(d, x_tab)])
     y = torch.zeros(d.y_rows, LANES, dtype=torch.float32, device=a.device)
     rows = y.view(-1, SUBLANES, LANES)
     for K, G, off, g0 in d.bins:
@@ -221,10 +226,12 @@ def pr_problem_plain(d: DevicePR, x_tab: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_launch(d: DevicePRIndex, values: dict, xs: dict):
+def _check_launch(d: DevicePRIndex, values: dict, xs: dict,
+                  value_types: tuple = (torch.float32,)):
     """Check what a launch reads: every tensor on the device of the first
-    x and contiguous, int32 index planes, f32 values and x, plane sizes that
-    match the problem, and an x table that reaches its last slab."""
+    x and contiguous, int32 index planes, ``value_types`` values, f32 x,
+    plane sizes that match the problem, and an x table that reaches its
+    last slab."""
     x0 = next(iter(xs.values()))
     if x0.device.type != "cuda":
         raise RuntimeError(
@@ -239,7 +246,12 @@ def _check_launch(d: DevicePRIndex, values: dict, xs: dict):
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in {**values, **xs}.items():
+    for name, t in values.items():
+        if t.dtype not in value_types:
+            raise ValueError(f"{name} must be "
+                             f"{' or '.join(str(v)[6:] for v in value_types)}"
+                             f", got {t.dtype}")
+    for name, t in xs.items():
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
     plane = d.n_rows * LANES
@@ -277,18 +289,24 @@ def _launch(wrapper, d: DevicePRIndex, name: str, operands: tuple):
 
 def pr_problem(d: DevicePR, x_tab: torch.Tensor) -> torch.Tensor:
     """One problem's y (``y_rows*128`` f32, sigma order, uncropped) through
-    the kernel on CUDA tensors, or the plain version on CPU tensors."""
+    the kernel (``pr_spmv_f32``, or ``pr_spmv_bf16`` for bf16 values) on
+    CUDA tensors, or the plain version on CPU tensors."""
     if x_tab.device.type == "cpu":
         return pr_problem_plain(d, x_tab)
-    _check_launch(d, {"val": d.val}, {"x": x_tab})
+    _check_launch(d, {"val": d.val}, {"x": x_tab},
+                  (torch.float32, torch.bfloat16))
     # the bins tile every group (_check_bins): each element is stored once
     y = torch.empty(d.y_rows * LANES, dtype=torch.float32,
                     device=x_tab.device)
-    _launch(pr_problem, d, "pr_spmv_f32", (d.val, x_tab, y))
+    bf16 = d.val.dtype == torch.bfloat16
+    _launch(pr_problem, d, "pr_spmv_bf16" if bf16 else "pr_spmv_f32",
+            (d.val, x_tab, y))
+    pr_problem.launches_bf16 += bf16
     return y
 
 
-pr_problem.launches = 0
+pr_problem.launches = 0       # both entries
+pr_problem.launches_bf16 = 0  # pr_spmv_bf16 alone
 
 
 def _check_x_table(dpr, x_tab: torch.Tensor):
@@ -326,7 +344,7 @@ def _check_f32(dpr):
 
 
 def pr_spmv(dpr, x_tab: torch.Tensor, *, crop: bool = True) -> torch.Tensor:
-    """``y = A @ x`` over the PR layout, in sigma row order (f32).
+    """``y = A @ x`` over the PR layout, in sigma row order (f32 sums).
 
     ``x_tab`` is x padded by :func:`~.sell.device_put_x` or
     :func:`~.sell.pack_x_table`. A single problem returns ``y[:nrows]``

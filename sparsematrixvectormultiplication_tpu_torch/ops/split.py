@@ -58,11 +58,12 @@ def _check_natural(sm):
 
 def device_put_split(sm, dtype=torch.float32, *, device) -> DeviceSplit:
     """Upload a host ``SplitMatrix`` (this package's or the JAX package's):
-    the near SELL with ``dtype`` values, the far PR side in f32."""
+    the near SELL and the far PR side with ``dtype`` values (f32 or
+    bf16)."""
     _check_natural(sm)
     return DeviceSplit(int(sm.nrows), int(sm.ncols), int(sm.nnz),
                        device_put_sell(sm.near, dtype, device=device),
-                       device_put_pr(sm.far, device=device))
+                       device_put_pr(sm.far, dtype, device=device))
 
 
 def device_put_split_dd(sm, *, device) -> DeviceSplitDD:

@@ -11,6 +11,11 @@ overhead reads as that overhead.
 kernel holds the stream while the host queues all the reps behind one pair
 of events, so the device runs them without waiting for the host. It checks
 that the spin was still running when the last rep was queued.
+
+:func:`run_device_validated` checks every rep of a run against a reference
+result on the device (≙ the reference's in-loop checkResult,
+main_cuda.cu:183-188, and the JAX ``run_device_validated``): the running
+``max|out - y_ref|`` stays a device scalar and is read back once.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import time
 
 import torch
 
-__all__ = ["time_fn", "device_time_fn", "ITERATION_SKIP"]
+__all__ = ["time_fn", "device_time_fn", "run_device_validated",
+           "ITERATION_SKIP"]
 
 ITERATION_SKIP = 5  # warm-up iterations to skip (≙ reference utility.h:7)
 _SPIN_TRIES = 8     # each retry doubles the spin
@@ -101,3 +107,36 @@ def device_time_fn(fn, *args, device, reps: int = 20,
     raise RuntimeError(
         f"the host did not queue {reps} calls within a {spin_s / 2:.4f} s "
         "spin; device time not measured")
+
+
+def run_device_validated(fn, *args, y_ref: torch.Tensor, device,
+                         reps: int = 16) -> tuple:
+    """Run ``fn(*args)`` ``reps`` times; after each, fold ``max|out -
+    y_ref|`` (over ``y_ref``'s leading entries; ``out[0]`` of a tuple) into
+    a running maximum kept on the device, and read it back once at the end.
+    Returns ``(max_abs_diff, seconds_per_rep)``; the seconds include the
+    compare, so callers can state its overhead against the plain timed
+    run (CUDA events on a CUDA device, the host clock elsewhere)."""
+    device = torch.device(device)
+    ref = y_ref.reshape(-1)
+    acc = torch.zeros((), dtype=torch.float64, device=ref.device)
+
+    def rep():
+        out = fn(*args)
+        out = (out[0] if isinstance(out, tuple) else out).reshape(-1)
+        diff = (out[: ref.numel()].double() - ref.double()).abs().max()
+        torch.maximum(acc, diff, out=acc)
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            rep()
+        return float(acc), (time.perf_counter() - t0) / reps
+    with torch.cuda.device(device):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            rep()
+        end.record()
+        worst = float(acc)  # the one readback
+    return worst, start.elapsed_time(end) / reps / 1e3

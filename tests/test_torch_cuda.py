@@ -30,7 +30,12 @@ from sparsematrixvectormultiplication_tpu_torch import (
     pr_from_csr,
     run_matrix,
 )
-from sparsematrixvectormultiplication_tpu_torch.bench.harness import BenchConfig
+from sparsematrixvectormultiplication_tpu_torch.bench import bw_probe as BW
+from sparsematrixvectormultiplication_tpu_torch.bench.harness import (
+    BenchConfig,
+    flush_hbm,
+    quantize_bf16,
+)
 from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
     banded,
     cancelling_pairs,
@@ -623,3 +628,188 @@ def test_spmm_wrappers_refuse_bad_inputs(dev):
         BSR.bsr_dma(dataclasses.replace(dbsr, blocks=dbsr.blocks.double()),
                     xp, yb)
     assert BSR.bsr_blockspec.launches == before
+
+
+# ---- bf16 PR values ----
+
+
+@pytest.mark.parametrize("case", sorted(PR_CASES))
+def test_pr_bf16_kernel_matches_plain(case, dev):
+    """bf16 values through ``pr_spmv_bf16`` against the plain version on the
+    same widened values, then the whole SpMV against the fp64 oracle of the
+    bf16-rounded values."""
+    csr, pr = _pr_host(case)
+    d = PRo.device_put_pr(pr, torch.bfloat16, device=dev)
+    assert all(p.val.dtype == torch.bfloat16 for p in _problems(d))
+    x = np.random.default_rng(7).standard_normal(csr.ncols)
+    x_tab = S.device_put_x(x, csr.ncols, device=dev)
+    for p in _problems(d):
+        before = (PRo.pr_problem.launches, PRo.pr_problem.launches_bf16)
+        y = PRo.pr_problem(p, x_tab)
+        torch.cuda.synchronize()
+        assert (PRo.pr_problem.launches, PRo.pr_problem.launches_bf16) == (
+            before[0] + 1, before[1] + 1)
+        _close(y, PRo.pr_problem_plain(p, x_tab))
+    y = pr.unpermute(PRo.pr_spmv(d, x_tab).cpu().numpy().astype(np.float64))
+    q = CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
+                  quantize_bf16(csr.values))
+    ref = q.spmv(x_tab.cpu().numpy()[: csr.ncols].astype(np.float64))
+    assert (np.abs(y - ref) / np.maximum(1.0, np.abs(ref))).max() < 5e-6
+
+
+# ---- the harness: flush_hbm and the stages of the JAX harness ----
+
+
+def test_flush_hbm_buffer_is_twice_the_l2(dev):
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    n = flush_hbm(dev)
+    assert n >= 2 * l2 and n >= 64 << 20
+    assert flush_hbm(dev, mbytes=300) >= 300 << 20
+    assert flush_hbm("cpu") == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_run_matrix_new_stages_on_cuda(dtype, dev):
+    """serial_hll, csr, ell, hll, sell_sigma and pr after RCM, each timed as
+    the best of rounds of device time and validated with no significant
+    difference; device_validate checks every rep against the first."""
+    coo = road_network(20_000, seed=5)
+    stages = ("serial_hll", "csr", "ell", "sell", "hll", "sell_sigma", "pr")
+    res = run_matrix("road", coo, BenchConfig(
+        iterations=5, skip=1, stages=stages, dtype=dtype, reorder="rcm",
+        sell_layout="sb-list", device_validate=True),
+        log=lambda m: None, device=dev)
+    assert res.format_stats["reorder"]["applied"]
+    assert tuple(res.stages) == ("serial_csr", *stages) and not res.skipped
+    assert {b.layout for b in res.sell.bins} == {"sb-list"}
+    for name in stages:
+        st = res.stages[name]
+        assert st.diff.significant_diffs == 0, name
+        assert st.seconds > 0 and st.per_call_s > 0, name
+    for name in stages[1:]:
+        assert res.stages[name].extra["device_val_max_diff"] == 0.0, name
+
+
+# ---- the bandwidth probe's kernels ----
+
+
+def _ints(shape, dtype, dev, seed=0, lo=-8, hi=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return BW.small_ints(shape, dtype, generator=g, device=dev, lo=lo, hi=hi)
+
+
+# rows: one 8-row tile, an odd count of tiles, and enough to span the grid
+@pytest.mark.parametrize("nrows", [8, 8 * 37, 8 * 12_345])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int16,
+                                   torch.int8])
+def test_bw_read_matches_plain(dtype, nrows, dev):
+    """Small integers: every f32 sum is exact, so kernel and plain version
+    agree bit for bit whatever the order of the sums."""
+    a = _ints((nrows, 128), dtype, dev)
+    seed = _ints((8, 128), torch.float32, dev, seed=1)
+    before = BW.bw_read.launches
+    got = BW.bw_read(a, seed)
+    assert BW.bw_read.launches == before + 1
+    assert torch.equal(got, BW.bw_read_plain(a, seed))
+
+
+@pytest.mark.parametrize("nrows", [8, 8 * 37, 8 * 12_345])
+def test_bw_read2_matches_plain(nrows, dev):
+    a = _ints((nrows, 128), torch.float32, dev)
+    b = _ints((nrows, 128), torch.int32, dev, seed=2, lo=0, hi=128)
+    seed = _ints((8, 128), torch.float32, dev, seed=1)
+    assert torch.equal(BW.bw_read(a, seed, b), BW.bw_read_plain(a, seed, b))
+
+
+@pytest.mark.parametrize("nrows", [8, 8 * 37 + 3, 8 * 12_345])
+def test_bw_copy_matches_plain(nrows, dev):
+    buf = _ints((nrows, 128), torch.float32, dev)
+    seed = _ints((8, 128), torch.float32, dev, seed=1)
+    before = BW.bw_copy.launches
+    out = BW.bw_copy(buf, seed)
+    assert BW.bw_copy.launches == before + 1
+    assert torch.equal(out, BW.bw_copy_plain(buf, seed))
+    into = torch.empty_like(buf)
+    assert BW.bw_copy(buf, seed, into) is into and torch.equal(into, out)
+
+
+@pytest.mark.parametrize("chunks", [1, 7, 3000])
+@pytest.mark.parametrize("config", [(8, 2), (8, 3), *BW.ASYNC_CONFIGS])
+def test_bw_read_async_matches_plain(config, chunks, dev):
+    chunk_rows, nbuf = config
+    buf = _ints((chunk_rows * chunks, 128), torch.float32, dev)
+    seed = _ints((8, 128), torch.float32, dev, seed=1)
+    before = BW.bw_read_async.launches
+    got = BW.bw_read_async(buf, seed, chunk_rows=chunk_rows, nbuf=nbuf)
+    assert BW.bw_read_async.launches == before + 1
+    assert torch.equal(got, BW.bw_read_async_plain(buf, seed))
+
+
+@pytest.mark.parametrize("variant", [
+    dict(span=4), dict(span=1), dict(span=8), dict(span=4, compute=False),
+    dict(span=4, packed=True)])
+def test_bw_kernelsim_matches_plain(variant, dev):
+    """Codes with sel up to span + 1 (past the window: they add nothing)."""
+    ng, k, xrows = 13, 32, 300
+    packed = variant.get("packed", False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    qb, x, code, as_ = BW.kernelsim_inputs(ng, k, xrows, variant["span"] + 2,
+                                           generator=g, device=dev,
+                                           packed=packed)
+    seed = _ints((8, 128), torch.float32, dev, seed=1)
+    before = BW.bw_kernelsim.launches
+    got = BW.bw_kernelsim(qb, x, code, as_, seed, k=k, **variant)
+    assert BW.bw_kernelsim.launches == before + 1
+    want = BW.bw_kernelsim_plain(qb, x, code, as_, seed, k=k, **variant)
+    assert torch.equal(got, want) and want.abs().max() > 0
+
+
+def test_bw_wrappers_refuse_bad_inputs(dev):
+    """CPU tensors, mixed devices, wrong types and shapes raise; nothing is
+    counted."""
+    a = _ints((64, 128), torch.float32, dev)
+    seed = _ints((8, 128), torch.float32, dev, seed=1)
+    counts = {k: w.launches for k, w in BW.KERNELS.items()}
+    with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+        BW.bw_read(a.cpu(), seed.cpu())
+    with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+        BW.bw_copy(a.cpu(), seed.cpu())
+    with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+        BW.bw_read_async(a.cpu(), seed.cpu(), chunk_rows=8)
+    with pytest.raises(ValueError, match="seed is on cpu"):
+        BW.bw_read(a, seed.cpu())
+    with pytest.raises(ValueError, match="must be torch.float32"):
+        BW.bw_read(a.double(), seed)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        BW.bw_read(a[:60], seed)
+    with pytest.raises(ValueError, match="not the shape"):
+        BW.bw_read(a, seed, torch.zeros(8, 128, dtype=torch.int32,
+                                        device=dev))
+    with pytest.raises(ValueError, match="multiple of 8 and nbuf"):
+        BW.bw_read_async(a, seed, chunk_rows=8, nbuf=4)
+    with pytest.raises(ValueError, match="no packed no-compute"):
+        BW.bw_kernelsim(torch.zeros(1, 16, dtype=torch.int32, device=dev), a,
+                        torch.zeros(64, 128, dtype=torch.int32, device=dev),
+                        torch.zeros(128, 128, device=dev), seed, k=16,
+                        compute=False, packed=True)
+    with pytest.raises(ValueError, match="kernelsim planes"):
+        BW.bw_kernelsim(torch.zeros(1, 8, dtype=torch.int32, device=dev), a,
+                        torch.zeros(8, 128, dtype=torch.int32, device=dev),
+                        a, seed, k=8)
+    assert {k: w.launches for k, w in BW.KERNELS.items()} == counts
+
+
+def test_run_probes_quick_reports_every_probe(dev):
+    """The probe's entry point at its quick size: one record per probe, each
+    with a positive rate; every kernel of the probe launched."""
+    before = {k: w.launches for k, w in BW.KERNELS.items()}
+    lines = []
+    recs = BW.run_probes(dev, quick=True, emit=lines.append,
+                         log=lambda m: None)
+    assert len(lines) == len(recs) and recs[-1]["probe"] == "launch_overhead"
+    names = {r["probe"] for r in recs}
+    assert {"xla_sum_read", "xla_copy_rw", "bw_read_f32", "bw_read2_f32_i32",
+            "bw_copy_f32", "bw_read_i16", "bw_read_i8",
+            "kernelsim_span4"} <= names
+    assert all(r["seconds"] > 0 and r["GBps"] > 0 for r in recs)
+    assert all(w.launches > before[k] for k, w in BW.KERNELS.items())

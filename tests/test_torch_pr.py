@@ -329,8 +329,10 @@ def test_upload_accepts_either_package_and_checks_x():
     with pytest.raises(TypeError, match="pr_spmv_dd"):
         P.pr_spmv(PD.device_put_pr_dd(_port_pr("road"), device="cpu"),
                   device_put_x(np.ones(ncols), ncols, device="cpu"))
-    with pytest.raises(ValueError, match="float32"):
-        P.device_put_pr(_port_pr("road"), torch.bfloat16, device="cpu")
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        P.device_put_pr(_port_pr("road"), torch.float16, device="cpu")
+    assert P.device_put_pr(_port_pr("road"), torch.bfloat16,
+                           device="cpu").val.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("stages", [("pr", "pr_dd"), ("pr_dd",)])
@@ -352,7 +354,7 @@ def test_run_matrix_pr_stages_on_cpu(stages):
 
 def test_run_matrix_rejects_unknown_stage():
     with pytest.raises(ValueError, match="unknown stages"):
-        run_matrix("x", syn.banded(512, 4, 16), BenchConfig(stages=("hll",)),
+        run_matrix("x", syn.banded(512, 4, 16), BenchConfig(stages=("pallas_hll",)),
                    log=lambda m: None, device="cpu")
 
 

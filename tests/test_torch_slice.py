@@ -182,6 +182,14 @@ def test_port_imports_without_jax_or_nvcc():
         "        'sparsematrixvectormultiplication_tpu')]\n"
         "assert not bad, bad\n"
         "assert _build.load.cache_info().currsize == 0\n"
+        "for m in ('bench.bw_probe', 'bench.harness', 'formats.hll',\n"
+        "          'formats.reorder', 'ops.hll', 'ops.xla', 'native.build'):\n"
+        "    assert P.__name__ + '.' + m in sys.modules, m\n"
+        "from sparsematrixvectormultiplication_tpu_torch.native import (\n"
+        "    build as nb)\n"
+        "assert not any(f.cache_info().currsize for f in (\n"
+        "    nb.load_fast_csr, nb.load_fast_mmio, nb.load_fast_route,\n"
+        "    nb.load_fast_bsr))\n"
         "print('ok')\n"
     )
     # no nvcc anywhere: PATH holds only the interpreter's directory
