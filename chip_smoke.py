@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port's main paths on one GPU: the card's
-bandwidth probe, SELL SpMV (f32, bf16 and double-double), the benchmark
-harness's HLL, CSR, ELL and SELL-sigma stages and RCM reordering, the PR
-layout (f32, bf16 values and double-double) and the locality split,
-``auto_device_op``, and multi-RHS SpMM (SELL k-major and wl, 128x128 BSR).
+bandwidth and kernel-variant probes, SELL SpMV (f32, bf16 and
+double-double), the benchmark harness's HLL, CSR, ELL and SELL-sigma stages
+and RCM reordering, the PR layout (f32, bf16 values and double-double) and
+the locality split, ``auto_device_op``, and multi-RHS SpMM (SELL k-major
+and wl, 128x128 BSR).
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -14,7 +15,14 @@ CSR converter and Matrix Market parser from ``native/``, then runs the
 bandwidth phase: ``bench.bw_probe.run_probes`` at full size (512 MB
 buffers, kernelsim at 240 groups of K=64), which must launch each of the
 four probe kernels (``bw_read``, ``bw_copy``, ``bw_read_async``,
-``bw_kernelsim``). Then it drives the main path (generate or read a matrix
+``bw_kernelsim``). Then the kernel-variant phase:
+``bench.kernel_probe.run_kernel_probes`` runs the five TPU kernel probes'
+sweeps (probes/kernel_probe{,2,3,4,5}.py) variant for variant at full size
+(16,777,216 entries a plane, 2^21 rows a probe-4 stream), each variant's
+kernel held bit for bit against its plain version and against the probe's
+checksum on small integers; each of ``kp_decode``, ``kp_fused`` and
+``kp_colsum`` must launch (the counts include each variant's checked call).
+Then it drives the main path (generate or read a matrix
 -> CSR -> layout -> upload -> SpMV or SpMM, validated against the fp64
 oracle) through ``run_matrix`` on ten phases, each of which must convert to
 exactly the SELL bin layouts named beside it, with the cache flushed before
@@ -126,6 +134,12 @@ bf16 as the kernel does); its JSON row is panel 0, beside cuSPARSE f32 on
 the bf16-rounded values (the same function), and the panel phase's
 matrix gets its cuSPARSE times too.
 
+The kernel-variant rows of the JSON summary are the phase's own records:
+``kp_decode`` at probe 1's ``span4_i32``, ``kp_fused`` at probe 4's
+``fused_gather_kb8192``, ``kp_colsum`` at probe 4's ``read1_kb8192``
+(``library_ms``: ``a.sum(0)``), each ``bound_ms`` the variant's planes and
+tables, the distinct x entries it reads and its output over 3.35 TB/s.
+
 The JSON summary's ``ms`` and ``plain_ms`` are device times, at each
 kernel's main-path bin with the most entries among those whose planes
 exceed twice the L2 (so they stream from HBM and their time can be held
@@ -231,6 +245,17 @@ BW_KERNELS = {
     "bw_kernelsim": ("bw_kernelsim", f"{PROBE}:208"),
 }
 BW_JSON_ASYNC = (32, 2)  # chunk_rows, nbuf of bw_read_async's JSON row
+KP_KERNELS = {
+    # wrapper key: (the variant of its JSON row, TPU kernels replaced)
+    "kp_decode": ("span4_i32", ", ".join(
+        f"probes/kernel_probe{f}" for f in (
+            ".py:96", "2.py:76", "3.py:76", "4.py:285", "5.py:70"))),
+    "kp_fused": ("fused_gather_kb8192", "probes/kernel_probe3.py:76 "
+                 "(k_fused), probes/kernel_probe4.py:154, "
+                 "probes/kernel_probe4.py:209"),
+    "kp_colsum": ("read1_kb8192", "probes/kernel_probe4.py:88, "
+                  "probes/kernel_probe4.py:118"),
+}
 SB_I16_PHASES = ("banded_adversarial", "road_scattered")
 # run_matrix's host and plain-PyTorch stages of the JAX harness, and the two
 # SELL-kernel stages it adds (pallas_hll, pallas_sell_sigma)
@@ -277,6 +302,8 @@ def main() -> int:
              f"the {PKG} package")
     from sparsematrixvectormultiplication_tpu_torch.bench import (
         bw_probe as BW)
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        kernel_probe as KP)
     from sparsematrixvectormultiplication_tpu_torch.bench.harness import (
         STAGES, BenchConfig, quantize_bf16)
     from sparsematrixvectormultiplication_tpu_torch.io.mmio import (
@@ -345,6 +372,26 @@ def main() -> int:
           f"{copy_rate / HBM_BYTES_PER_S:.1%} of the {HBM_BYTES_PER_S:.3g} "
           f"B/s spec: the %STREAM denominator; phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the kernel-variant phase: the five TPU kernel probes' sweeps at
+    # full size (16,777,216 entries a plane, 2^21 rows a probe-4 stream);
+    # run_kernel_probes holds every variant's kernel against its plain
+    # version bit for bit and against the probe's checksum, and raises
+    # otherwise; the counts are read from this run only ----
+    t0 = time.perf_counter()
+    for w in KP.KERNELS.values():
+        w.launches = 0
+    kp_recs = {r["variant"]: r for r in KP.run_kernel_probes(
+        dev, emit=lambda line: None, copy_rate=copy_rate,
+        log=lambda m: print(f"[kernel_probe] {m}", flush=True))}
+    launches_kp = {k: w.launches for k, w in KP.KERNELS.items()}
+    idle = sorted(k for k, n in launches_kp.items() if n == 0)
+    if idle:
+        fail(f"kernel_probe: the kernels {idle} were not launched")
+    print(f"[kernel_probe] {len(kp_recs)} variants, every kernel equal to "
+          f"its plain version bit for bit; launches {launches_kp}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
 
     def need_ms(nnz, value_bytes, n_x, n_y, tables):
         """The least time of an SpMV piece: ``nnz`` entries of
@@ -1508,6 +1555,16 @@ def main() -> int:
             "launches": launches_bw[key], "max_abs_err": 0.0, "ms": ms_k,
             "plain_ms": ms_p, "bound_ms": bound, "bound_by": "bytes",
             "library_ms": lib})
+    for key, (variant, replaces) in KP_KERNELS.items():
+        r = kp_recs[variant]
+        print(f"{key}: device times at {variant} (kernel_probe phase, "
+              f"{r['entries']} entries)")
+        summary.append({
+            "name": key, "route": "cuda",
+            "source": f"{PKG}/csrc/kernel_probe.cu", "replaces": replaces,
+            "launches": launches_kp[key], "max_abs_err": 0.0, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     for table, kernels, run_stats, launched, lib_dtype in (
             ("", KERNELS, stats, launches, torch.float32),
             (" dd", DD_KERNELS, stats_dd, launches_dd, torch.float64)):

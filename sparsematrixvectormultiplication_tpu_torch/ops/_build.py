@@ -26,7 +26,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _HEADERS = ("sell_common.cuh", "dd.cuh")
 _SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu",
-            "pr.cu", "sell_spmm.cu", "bsr.cu", "bw_probe.cu")
+            "pr.cu", "sell_spmm.cu", "bsr.cu", "bw_probe.cu",
+            "kernel_probe.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,6 +92,15 @@ _ENTRIES = {
     # qb, x, ja, as, seed, y, n_groups, k, span, stream
     **{f"bw_kernelsim_{v}f32": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P)
        for v in ("", "packed_", "nocompute_")},
+    # kernel-variant probes (bench/kernel_probe.py)
+    # mode, code_bytes, ja, as, tab, x, partial, y, steps, kb, ck, span, L,
+    # stride, tcols, parts, gpp, stream
+    "kp_decode": (_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, *(_I32,) * 8,
+                  _P),
+    # mode, f, tab, x, partial, y, steps, kb, tcols, parts, gpp, stream
+    "kp_fused": (_I32, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _I32, _P),
+    # a, b, two, n_rows, n_blocks, partial, out, stream
+    "kp_colsum": (_P, _P, _I32, _I64, _I32, _P, _P, _P),
 }
 
 

@@ -813,3 +813,168 @@ def test_run_probes_quick_reports_every_probe(dev):
             "kernelsim_span4"} <= names
     assert all(r["seconds"] > 0 and r["GBps"] > 0 for r in recs)
     assert all(w.launches > before[k] for k, w in BW.KERNELS.items())
+
+
+# ---- the kernel-variant probes' kernels ----
+
+KP_CODES = {"stream": (torch.int32, torch.int16, torch.int8),
+            "bcast": (torch.int32, torch.int16),
+            "window": (torch.int32, torch.int16, torch.int8),
+            "masked": (torch.int32, torch.int16),
+            "sblist": (torch.int32,), "wl": (torch.int32,)}
+# (steps, kb, ck): one 8-row group a step, one part a step, parts of an odd
+# count of groups, few steps of many rows (probe 3's KB=8192 shape), tall
+# chunks (probe 2's ck=64)
+KP_GEOMETRIES = [(5, 8, 8), (300, 64, 8), (7, 1000, 8), (3, 8192, 8),
+                 (11, 512, 64)]
+
+
+def _kp_decode_case(mode, dtype, steps, kb, ck, dev, span=4):
+    """Codes that reach every branch: masked slabs one below and two past
+    the window, sb-list slabs in and out of a list that repeats a slab."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    nch, xr = kb // ck, 300
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    x = BW.small_ints((xr, 128), torch.float32, generator=g, device=dev)
+    as_ = BW.small_ints((steps * kb, 128), torch.float32, generator=g,
+                        device=dev)
+    m = ri(0, 128, (steps, nch, ck, 128))
+    kw = {"kb": kb, "ck": ck}
+    tab = ri(1, xr - ck - span - 2, (steps, nch))
+    if mode == "stream":
+        code = ri(-100, 100, (steps * kb, 128))
+    elif mode in ("bcast", "window"):
+        code = m if dtype != torch.int32 or mode == "window" else \
+            ri(-(1 << 20), 1 << 20, m.shape)
+        if dtype == torch.int32 and mode == "window":
+            code = m + ri(0, 1 << 10, m.shape) * 128  # slab bits ignored
+    elif mode == "masked":
+        d = ri(-1, span + 2, m.shape)
+        q = 0 if dtype == torch.int16 else tab[:, :, None, None]
+        code = ((q + d) << 7) | m
+        kw["span"] = span
+    elif mode == "sblist":
+        tab = ri(0, xr, (steps, nch, span))
+        tab[:, :, 1] = tab[:, :, 0]  # a slab listed twice counts twice
+        pick = tab.gather(2, ri(0, span, (steps, nch, ck * 128)).long()
+                          .view(steps, nch, -1)).view(steps, nch, ck, 128)
+        slab = torch.where(ri(0, 4, m.shape) > 0, pick, ri(0, xr, m.shape))
+        code = slab * 128 + m
+        tab = tab.view(steps, -1).contiguous()
+        kw["span"] = span
+    else:  # wl, the most layers per window (of 4, 2, 1) that divide nch
+        L = next(n for n in (4, 2, 1) if nch % n == 0)
+        tab = ri(0, xr, (steps, 8 * nch // L))
+        code = m
+        kw["L"] = L
+    code = code.reshape(-1, 128).to(dtype).contiguous()
+    return (mode, code, as_, tab, x), kw
+
+
+@pytest.mark.parametrize("geometry", KP_GEOMETRIES)
+@pytest.mark.parametrize("mode,dtype", [(m, t) for m, ts in KP_CODES.items()
+                                        for t in ts])
+def test_kp_decode_matches_plain(mode, dtype, geometry, dev):
+    """Small integers: every f32 sum is exact, so kernel and plain version
+    agree bit for bit whatever the order of the sums."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        kernel_probe as KP)
+    steps, kb, ck = geometry
+    if mode == "wl" and ck != 8:
+        ck = 8
+    args, kw = _kp_decode_case(mode, dtype, steps, kb, ck, dev)
+    before = KP.kp_decode.launches
+    got = KP.kp_decode(*args, **kw)
+    assert KP.kp_decode.launches == before + 1
+    want = KP.kp_decode_plain(*args, **kw)
+    assert torch.equal(got, want) and want.abs().max() > 0
+
+
+@pytest.mark.parametrize("steps,kb", [(1, 8), (5, 64), (3, 8192), (40, 1000)])
+@pytest.mark.parametrize("mode", ["fused8", "halves_gather", "halves_pure"])
+def test_kp_fused_matches_plain(mode, steps, kb, dev):
+    """halves_pure sums value bits that wrap int32 (kernel: uint32 adds);
+    fused8 streams float(ja), so its codes stay below 128 (exact sums)."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        kernel_probe as KP)
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = BW.small_ints((300, 128), torch.float32, generator=g, device=dev)
+    qb = KP.qb_for(steps, kb // 8, 300, generator=g)
+    ja, as_ = KP.mk_data(qb, 1, 8, generator=g)
+    f = (KP.fuse_chunks(ja & 127, as_) if mode == "fused8"
+         else KP.fuse_halves(ja, as_, kb))
+    args = (f, qb, x) if mode == "halves_gather" else (f,)
+    before = KP.kp_fused.launches
+    got = KP.kp_fused(mode, *args, kb=kb)
+    assert KP.kp_fused.launches == before + 1
+    want = KP.kp_fused_plain(mode, *args, kb=kb)
+    assert torch.equal(got, want) and want.abs().max() > 0
+    if mode == "halves_pure":
+        s = f.sum(0, dtype=torch.int64)
+        assert bool(((s < -2 ** 31) | (s >= 2 ** 31)).any())
+
+
+@pytest.mark.parametrize("rows", [8, 8 * 37 + 3, 1 << 16, 1 << 21])
+@pytest.mark.parametrize("two", [False, True])
+def test_kp_colsum_matches_plain(two, rows, dev):
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        kernel_probe as KP)
+    a = _ints((rows, 128), torch.float32, dev, lo=-4, hi=4)
+    b = _ints((rows, 128), torch.float32, dev, seed=3, lo=-4, hi=4) \
+        if two else None
+    before = KP.kp_colsum.launches
+    got = KP.kp_colsum(a, b)
+    assert KP.kp_colsum.launches == before + 1
+    assert torch.equal(got, KP.kp_colsum_plain(a, b))
+
+
+def test_kp_wrappers_refuse_bad_inputs(dev):
+    """CPU tensors, mixed devices, wrong types and shapes raise; nothing is
+    counted."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        kernel_probe as KP)
+    (mode, code, as_, tab, x), kw = _kp_decode_case(
+        "masked", torch.int32, 2, 64, 8, dev)
+    counts = {k: w.launches for k, w in KP.KERNELS.items()}
+    with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+        KP.kp_decode(mode, code.cpu(), as_.cpu(), tab.cpu(), x.cpu(), **kw)
+    with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+        KP.kp_fused("halves_pure", code.cpu(), kb=32)
+    with pytest.raises(RuntimeError, match="runs on CUDA tensors"):
+        KP.kp_colsum(as_.cpu())
+    with pytest.raises(ValueError, match="tab is on cpu"):
+        KP.kp_decode(mode, code, as_, tab.cpu(), x, **kw)
+    with pytest.raises(ValueError, match="tab must be"):
+        KP.kp_decode(mode, code, as_, tab[:, :3].contiguous(), x, **kw)
+    with pytest.raises(ValueError, match="ck must be"):
+        KP.kp_decode(mode, code, as_, tab, x, kb=64, ck=12)
+    with pytest.raises(ValueError, match="int32/int16/int8"):
+        KP.kp_decode(mode, code.double(), as_, tab, x, **kw)
+    with pytest.raises(ValueError, match="whole"):
+        KP.kp_fused("halves_pure", code[:72].contiguous(), kb=64)
+    with pytest.raises(ValueError, match="not the shape"):
+        KP.kp_colsum(as_, as_[:8].contiguous())
+    assert {k: w.launches for k, w in KP.KERNELS.items()} == counts
+
+
+def test_run_kernel_probes_quick_on_the_card(dev):
+    """The probes' entry point at its quick size: every variant's kernel
+    equals its plain version (run_kernel_probes raises otherwise) and its
+    checksum; every kernel launched; each record has a positive rate."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        kernel_probe as KP)
+    before = {k: w.launches for k, w in KP.KERNELS.items()}
+    lines = []
+    recs = KP.run_kernel_probes(dev, quick=True, emit=lines.append,
+                                log=lambda m: None)
+    assert len(lines) == len(recs) == 58
+    assert all(r["ms"] > 0 and r["GBps"] > 0 and r["bound_ms"] > 0
+               and r["plain_ms"] > 0 and r["equal"] for r in recs)
+    assert all(r.get("rel_err", 0.0) == 0.0 for r in recs)
+    assert all(w.launches > before[k] for k, w in KP.KERNELS.items())
+    assert all(r["library_ms"] > 0 for r in recs
+               if r["variant"].startswith("read1_kb"))

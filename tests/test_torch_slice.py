@@ -179,11 +179,12 @@ def test_port_imports_without_jax_or_nvcc():
         "from sparsematrixvectormultiplication_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'ml_dtypes', 'triton',\n"
-        "        'sparsematrixvectormultiplication_tpu')]\n"
+        "        'sparsematrixvectormultiplication_tpu', 'probes')]\n"
         "assert not bad, bad\n"
         "assert _build.load.cache_info().currsize == 0\n"
-        "for m in ('bench.bw_probe', 'bench.harness', 'formats.hll',\n"
-        "          'formats.reorder', 'ops.hll', 'ops.xla', 'native.build'):\n"
+        "for m in ('bench.bw_probe', 'bench.kernel_probe', 'bench.harness',\n"
+        "          'formats.hll', 'formats.reorder', 'ops.hll', 'ops.xla',\n"
+        "          'native.build'):\n"
         "    assert P.__name__ + '.' + m in sys.modules, m\n"
         "from sparsematrixvectormultiplication_tpu_torch.native import (\n"
         "    build as nb)\n"
