@@ -151,8 +151,12 @@ the function that bin computes: the larger of its bytes over 3.35 TB/s
 table or right-hand side) they read and each y entry they write, moved
 once) and its useful FLOP (2 per entry and right-hand side) over the 67
 TFLOP/s f32 rate; ``bound_by`` says which. SpMV does ~2 FLOP per entry f32
-and ~20 dd, so bytes bind; the BSR kernel's dense-block FLOP (every stored
-block multiplied whole) is printed beside it. Padding, index tables and the
+and ~20 dd, so bytes bind; beside the BSR kernels the smoke prints band64's
+kept 16x16 sub-tiles (those ``tile_mask`` marks nonzero, the ones the
+kernels multiply), the FLOP they make and the dense-block FLOP (every
+stored block multiplied whole). It also prints the upload seconds of the
+PR problems' destination-order planes and of ``tile_mask``, and each PR
+and BSR kernel's factor against cuSPARSE in the same call. Padding, index tables and the
 layout's own planes are not counted; the bytes the layout's planes hold are
 printed beside it. ``library_ms`` is the cuSPARSE time of the bin's phase.
 
@@ -1160,12 +1164,34 @@ def main() -> int:
     xh, xl = D.device_put_x_dd(x, csr.ncols, device=dev)
     csr_bf16 = type(csr)(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
                          quantize_bf16(csr.values))
+
+    def routed_planes_s(dpr, dd):
+        """Host seconds of the upload's index side on the card (planes,
+        composed route, ``dst_col``) and of the value gathers into
+        destination order, every panel, timed again after the upload."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for host, p in zip(pr_host.panels, dpr.panels):
+            _, route = PR._put_index(host, dev)
+            PR._routed(torch.stack([p.val_h, p.val_l], -1) if dd else p.val,
+                       route)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     for kind in ("pr", "pr_bf16", "pr_dd"):
         dd = kind == "pr_dd"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         dpr = (PRD.device_put_pr_dd(pr_host, device=dev) if dd
                else PR.device_put_pr(pr_host, torch.bfloat16 if kind ==
                                      "pr_bf16" else torch.float32,
                                      device=dev))
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        print(f"[webbase_pr] {kind} upload {up_s:.4f} s, of which the index "
+              f"side and the destination-order planes (route, dst_col, "
+              f"dst_val) {routed_planes_s(dpr, dd):.4f} s (timed again "
+              f"alone)", flush=True)
         xs = (xh, xl) if dd else (xt,)
         kernel = pr_wrappers["pr_dd" if dd else "pr"]
         plain = PRD.pr_problem_plain_dd if dd else PR.pr_problem_plain
@@ -1188,15 +1214,15 @@ def main() -> int:
                                   else PLAIN_PR_REPS) * 1e3
             call_k = time_fn(kernel, p, *xs, device=dev) * 1e3
             vals = (p.val_h, p.val_l) if dd else (p.val,)
-            planes = (nbytes(*vals, p.md, p.route, p.row_slab, p.bin_table,
-                             *xs) + p.y_rows * 128 * 4 * len(xs))
+            planes = (nbytes(p.dst_col, p.dst_val, p.bin_table, *xs)
+                      + p.y_rows * 128 * 4 * len(xs))
             bound = pr_bound_ms(p, vals, len(xs))
             if i == 0:  # the JSON line's: the first and larger panel
                 pr_stats[kind] = (ms_k, ms_p, err, bound)
             print(f"[webbase_pr] {kind} panel {i} ({p.n_rows} Beneš rows, "
                   f"{p.nnz} nnz, bins {p.bins}): device kernel {ms_k:.4f} "
                   f"ms, plain {ms_p:.4f} ms; call kernel {call_k:.4f} ms; "
-                  f"planes, x tables and y {planes} B "
+                  f"destination planes, x tables and y {planes} B "
                   f"({planes / ms_k / 1e9:.3f} TB/s); bound {bound:.4f} ms; "
                   f"max|k-p| {err:.3e}", flush=True)
         spmv = PRD.pr_spmv_dd if dd else PR.pr_spmv
@@ -1208,9 +1234,14 @@ def main() -> int:
                            torch.float64 if dd else torch.float32)
         need = csr_bound_ms(csr, {"pr": 4, "pr_bf16": 2, "pr_dd": 8}[kind],
                             len(xs))
+        lib_ms = library[("webbase_pr bf16", torch.float32)
+                         if kind == "pr_bf16" else
+                         ("webbase_pr", torch.float64 if dd
+                          else torch.float32)][0]
         print(f"[webbase_pr] {kind} SpMV of both panels device time "
-              f"{dev_spmv:.4f} ms, matrix bound {need:.4f} ms{lib}",
-              flush=True)
+              f"{dev_spmv:.4f} ms, matrix bound {need:.4f} ms{lib}; "
+              f"factor against cuSPARSE {dev_spmv / lib_ms:.3f}x (panel 0 "
+              f"alone {pr_stats[kind][0] / lib_ms:.3f}x)", flush=True)
         del dpr
         torch.cuda.empty_cache()
 
@@ -1401,7 +1432,30 @@ def main() -> int:
     n_x = int(np.unique(csr.col_idx).size)
     n_slots = bsr.n_block_rows * bsr.kb
     for dtype in (torch.float32, torch.bfloat16):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         d = BSR.device_put_bsr(bsr, dtype, device=dev)
+        torch.cuda.synchronize()
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        BSR.tile_masks(d.blocks)
+        torch.cuda.synchronize()
+        mask_s = time.perf_counter() - t0
+        # byte a of a slot's mask: sub-tile row a; their OR: the strips
+        rows = d.tile_mask.cpu().numpy().view(np.uint8).reshape(-1, 8)
+        kept = int(np.unpackbits(rows).sum())
+        strips = int(np.unpackbits(np.bitwise_or.reduce(rows, 1)).sum())
+        real = int(rows.any(1).sum())
+        print(f"[band64_250k] bsr {str(dtype)[6:]} upload {up_s:.4f} s, of "
+              f"which tile_mask {mask_s:.4f} s (timed again alone); "
+              f"{n_slots} slots ({real} with a nonzero), kept 16x16 "
+              f"sub-tiles {kept} of {64 * n_slots} "
+              f"({kept / (64 * n_slots):.4f}; {kept / max(64 * real, 1):.4f} "
+              f"of the non-pad slots), live 128x16 strips {strips} of "
+              f"{8 * n_slots}; FLOP multiplied at B=128 "
+              f"{kept * 2 * 16 * 16 * 128 / 1e9:.3f} G against "
+              f"{n_slots * 2 * 128 ** 3 / 1e9:.3f} G dense and "
+              f"{2 * csr.nnz * 128 / 1e9:.3f} G useful", flush=True)
         elem = d.blocks.element_size()
         for rhs in BSR_RHS:
             X, xp, _, _ = bsr_inputs(csr, dtype, rhs)
@@ -1428,12 +1482,12 @@ def main() -> int:
                 print(f"[band64_250k] bsr {route} {str(dtype)[6:]} B={rhs}: "
                       f"device kernel {ms_k:.4f} ms "
                       f"({2 * csr.nnz * rhs / ms_k / 1e6:.1f} useful "
-                      f"GFLOPS, "
-                      f"{2 * n_slots * 128 * 128 * rhs / ms_k / 1e9:.2f} "
-                      f"dense TFLOP/s), call {call_k:.4f} ms; plain "
+                      f"GFLOPS, {kept * 2 * 16 * 16 * rhs / ms_k / 1e9:.2f} "
+                      f"TFLOP/s multiplied), call {call_k:.4f} ms; plain "
                       f"{ms_p:.4f} ms; cuSPARSE SpMM (f32) {lib:.4f} ms; "
                       f"bound {need:.4f} ms ({by}); dense-block FLOP at "
-                      f"the f32 rate {dense:.4f} ms; max|k-p| "
+                      f"the f32 rate {dense:.4f} ms; factor against "
+                      f"cuSPARSE {ms_k / lib:.3f}x; max|k-p| "
                       f"{e:.3e}", flush=True)
                 if dtype == torch.float32 and rhs == BSR_RHS[0]:
                     bsr_rows[route] = (ms_k, ms_p, need, by, lib)

@@ -61,10 +61,11 @@ _ENTRIES = {
                         _I32, _P)
        for v in ("f32", "bf16")},
     "sell_sg_dd": (_P, _P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32, _P),
-    # bins, n_bins, route, md, row_slab, val, x, y, n_groups, stream
-    **{f"pr_spmv_{v}": (_P, _I32, _P, _P, _P, _P, _P, _P, _I64, _P)
+    # bins, n_bins, dst_col, dst_val, x, y, n_groups, stream; dd: dst_val
+    # holds (hi, lo) pairs, then x_hi, x_lo, y_hi, y_lo
+    **{f"pr_spmv_{v}": (_P, _I32, _P, _P, _P, _P, _I64, _P)
        for v in ("f32", "bf16")},
-    "pr_spmv_dd": (_P, _I32, _P, _P, _P, *_DD, _I64, _P),
+    "pr_spmv_dd": (_P, _I32, _P, *(_P,) * 5, _I64, _P),
     # SpMM, x and y row-major with row strides ldx, ldy; W columns computed
     # group_ids, ja, as, x, y, n_groups, K, W, ldx, ldy, accumulate, stream
     **{f"sell_k_major_spmm_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
@@ -75,8 +76,10 @@ _ENTRIES = {
     **{f"sell_wl_spmm_{v}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                              _I64, _I64, _I32, _P)
        for v in ("f32", "bf16")},
-    # block_cols, blocks, x, y, n_block_rows, kb, B, ldx, ldy, stream
-    **{f"bsr_spmm_{r}_{v}": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I64, _P)
+    # block_cols, tile_mask, blocks, x, y, n_block_rows, n_block_cols, kb,
+    # B, ldx, ldy, stream
+    **{f"bsr_spmm_{r}_{v}": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I64,
+                             _I64, _P)
        for r in ("blockspec", "dma") for v in ("f32", "bf16")},
     # bandwidth probe (bench/bw_probe.py)
     # a, b, n_vec, n_blocks, partial, seed, out, stream

@@ -5,15 +5,19 @@ differ in how the X slab of a block reaches fast memory, and each has a
 route of ``csrc/bsr.cu``:
 
 * ``_kernel`` (BlockSpec index map) -> ``route="blockspec"``,
-  :func:`bsr_blockspec`: tiles staged through shared memory with ordinary
-  loads;
+  :func:`bsr_blockspec`: tiles loaded by TMA into a ring of stages;
 * ``_kernel_dma`` (``make_async_copy``) -> ``route="dma"``, :func:`bsr_dma`:
-  tiles copied with double-buffered ``cp.async``.
+  the same ring filled with ``cp.async``.
 
-Both take f32 or bf16 blocks with X of the same type and sum in IEEE f32
-(no TF32). :func:`bsr_spmm_plain` is the plain PyTorch version: X slabs
-gathered by block column, ``torch.bmm`` with the blocks widened to f32, a
-sum over the kb slots. A wrapper given CUDA tensors launches its kernel, or
+Both take f32 or bf16 blocks with X of the same type and sum in f32: f32
+with IEEE FFMA (no TF32), bf16 on the tensor cores (``mma.sync``, f32
+accumulation). The upload adds ``tile_mask``, one 64-bit mask a slot whose
+bit ``8a + b`` says that the block's 16x16 sub-tile ``(a, b)`` holds a
+nonzero; the kernels skip the others (:func:`tile_masks`).
+
+:func:`bsr_spmm_plain` is the plain PyTorch version: X slabs gathered by
+block column, ``torch.bmm`` with the blocks widened to f32, a sum over the
+kb slots. A wrapper given CUDA tensors launches its kernel, or
 raises; given CPU tensors it runs the plain version. Each wrapper counts
 its launches in ``.launches``.
 
@@ -33,8 +37,9 @@ from ..formats.bsr import BLOCK, BSRMatrix
 from . import _build
 from .sell_spmm import _check_rows_view
 
-__all__ = ["DeviceBSR", "device_put_bsr", "pad_rhs", "bsr_spmm",
-           "bsr_spmm_plain", "bsr_blockspec", "bsr_dma", "ROUTES"]
+__all__ = ["DeviceBSR", "device_put_bsr", "tile_masks", "pad_rhs",
+           "bsr_spmm", "bsr_spmm_plain", "bsr_blockspec", "bsr_dma",
+           "ROUTES"]
 
 _VALUE_TYPES = (torch.float32, torch.bfloat16)
 _X_ALIGN = 8            # X row strides: whole 16-byte chunks of f32 and bf16
@@ -51,6 +56,7 @@ class DeviceBSR:
     n_block_rows: int
     block_cols: torch.Tensor  # (n_block_rows * kb,) int32
     blocks: torch.Tensor      # (n_block_rows * kb, 128, 128) f32 | bf16
+    tile_mask: torch.Tensor   # (n_block_rows * kb,) int64, see tile_masks
 
     @property
     def n_block_cols(self) -> int:
@@ -65,12 +71,29 @@ def device_put_bsr(bsr: BSRMatrix, dtype=torch.float32, *,
     if dtype not in _VALUE_TYPES:
         raise ValueError(f"block dtype {dtype} not supported "
                          "(torch.float32 or torch.bfloat16)")
-    blocks = torch.from_numpy(np.ascontiguousarray(bsr.blocks)).to(device)
+    blocks = torch.from_numpy(np.ascontiguousarray(bsr.blocks)).to(device) \
+        .to(dtype)
     return DeviceBSR(
         int(bsr.nrows), int(bsr.ncols), int(bsr.nnz), int(bsr.kb),
         int(bsr.n_block_rows),
         torch.from_numpy(np.ascontiguousarray(bsr.block_cols, np.int32))
-        .to(device), blocks.to(dtype))
+        .to(device), blocks, tile_masks(blocks))
+
+
+_TILE = 16
+# bit weights of the 64 sub-tiles; bit 63 is int64's sign
+_BIT_WEIGHTS = [1 << s for s in range(63)] + [-(1 << 63)]
+
+
+def tile_masks(blocks: torch.Tensor) -> torch.Tensor:
+    """``(n, 128, 128)`` blocks -> ``(n,)`` int64 masks on their device:
+    bit ``8a + b`` is set iff ``blocks[i, 16a:16a+16, 16b:16b+16]`` holds a
+    nonzero. An all-zero (pad) block has mask 0."""
+    n, t = blocks.shape[0], BLOCK // _TILE
+    live = (blocks.view(n, t, _TILE, t, _TILE) != 0).any(4).any(2)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int64,
+                           device=blocks.device)
+    return (live.view(n, t * t).long() * weights).sum(1)
 
 
 def pad_rhs(X, ncols: int, dtype=torch.float32, *, device) -> torch.Tensor:
@@ -126,6 +149,13 @@ def _check_launch(dbsr: DeviceBSR, xp: torch.Tensor, y: torch.Tensor):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, x on {device}")
     n_slots = dbsr.n_block_rows * dbsr.kb
+    mask = dbsr.tile_mask
+    if not isinstance(mask, torch.Tensor) or mask.dtype != torch.int64 or \
+            not mask.is_contiguous() or tuple(mask.shape) != (n_slots,):
+        raise ValueError(f"tile_mask must be {n_slots} contiguous int64 "
+                         f"(device_put_bsr's)")
+    if mask.device != device:
+        raise ValueError(f"tile_mask is on {mask.device}, x on {device}")
     if dbsr.block_cols.dtype != torch.int32 or not \
             dbsr.block_cols.is_contiguous() or \
             dbsr.block_cols.numel() != n_slots:
@@ -155,10 +185,14 @@ def _run(wrapper, route: str, dbsr: DeviceBSR, xp: torch.Tensor,
     name = f"bsr_spmm_{route}_{tag}"
     with torch.cuda.device(xp.device):
         fn = getattr(_build.load(), name)
-        err = fn(dbsr.block_cols.data_ptr(), dbsr.blocks.data_ptr(),
-                 xp.data_ptr(), y.data_ptr(), dbsr.n_block_rows, dbsr.kb,
-                 xp.shape[1], xp.stride(0), y.stride(0),
+        err = fn(dbsr.block_cols.data_ptr(), dbsr.tile_mask.data_ptr(),
+                 dbsr.blocks.data_ptr(), xp.data_ptr(), y.data_ptr(),
+                 dbsr.n_block_rows, dbsr.n_block_cols, dbsr.kb, xp.shape[1],
+                 xp.stride(0), y.stride(0),
                  torch.cuda.current_stream(xp.device).cuda_stream)
+    if err == -1:
+        raise RuntimeError(f"{name}: the TMA tensor maps could not be "
+                           "encoded (cuTensorMapEncodeTiled)")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1

@@ -11,13 +11,17 @@ Beneš exchange stages (bit s of ``masks``, partner ``i ^ d_s``) and a final
 lane gather (``final_lane``). Each K-bin ``(K, G, off, g0)`` then sums the K
 slots of its rows.
 
-:func:`device_put_pr` uploads the planes and composes the stages and the
-lane gather into one int32 plane ``route`` (:func:`compose_route`): the
-source slot whose product lands at destination ``(r, l)``. The kernel reads
-``route``; the plain version :func:`pr_problem_plain` runs the stages
-themselves, step by step as the TPU kernel does, from the host ``masks`` and
+The routing is a fixed permutation, so :func:`device_put_pr` applies it
+once, at upload, on the device: it composes the stages and the lane gather
+into the source slot ``route[dst]`` of each destination slot
+(:func:`compose_route`) and keeps, in destination order over the rows the
+bins cover, the column each slot gathers, ``dst_col = 128*row_slab[route >>
+7] + (md[route] & 127)``, and its value ``dst_val = val[route]``. The
+kernel reads only those two planes, coalesced. The plain version
+:func:`pr_problem_plain` runs the stages themselves on the source-order
+planes, step by step as the TPU kernel does, from the host ``masks`` and
 ``final_lane`` (uploaded at its first call on a device, never for the
-kernel), so comparing the two on the card puts the composed plane under
+kernel), so comparing the two on the card puts the routed planes under
 test.
 
 :func:`pr_problem` is the kernel's wrapper (one launch per PR problem,
@@ -64,7 +68,7 @@ class DevicePRIndex:
     bin_table: torch.Tensor   # (n_bins, 4) int32, the same on the device
     md: torch.Tensor          # (n_rows, 128) int32; lane = md & 127
     row_slab: torch.Tensor    # (n_rows,) int32 x slab of each source row
-    route: torch.Tensor       # (n_rows, 128) int32 composed source slot
+    dst_col: torch.Tensor     # (dst_rows, 128) int32 x column, dest. order
     max_slab: int             # max(row_slab): the x table must reach it
     masks: np.ndarray         # (n_rows, 128) int32 Beneš swap bits, host
     final_lane: np.ndarray    # (n_rows, 128) int32 lane gather, host
@@ -80,6 +84,7 @@ class DevicePR(DevicePRIndex):
     """One PR problem on a device with f32 or bf16 values."""
 
     val: torch.Tensor         # (n_rows, 128) float32 | bfloat16
+    dst_val: torch.Tensor     # (dst_rows, 128) val[route], the same type
 
 
 @dataclass
@@ -125,22 +130,40 @@ def compose_route(masks: torch.Tensor, final_lane: torch.Tensor):
     return torch.gather(a, 1, final_lane.long()).contiguous()
 
 
-def _put_index(pr, device) -> dict:
+def _dst_rows(bins: tuple) -> int:
+    """Destination rows the bins use: ``off + K*8*G`` of the last bin."""
+    K, G, off, _ = bins[-1]
+    return off + K * SUBLANES * G
+
+
+def _put_index(pr, device) -> tuple:
     """The :class:`DevicePRIndex` fields of host problem ``pr`` (this
-    package's or the JAX package's ``PRMatrix``) on ``device``."""
+    package's or the JAX package's ``PRMatrix``) on ``device``, and the
+    composed ``route`` over the destination rows the bins use (flat int64),
+    with which the caller gathers its value planes."""
     n_rows, y_rows = int(pr.n_rows), int(pr.y_rows)
     bins = tuple(tuple(int(v) for v in b) for b in pr.bins)
     _check_bins(bins, n_rows, y_rows)
     masks = np.ascontiguousarray(pr.masks, np.int32)
     final_lane = np.ascontiguousarray(pr.final_lane, np.int32)
+    md, row_slab = _ints(pr.md, device), _ints(pr.row_slab, device)
+    route = compose_route(_ints(masks, device), _ints(final_lane, device))
+    route = route[:_dst_rows(bins)].reshape(-1).long()
+    dst_col = (row_slab[route >> 7] * LANES
+               + (md.view(-1)[route] & (LANES - 1))).view(-1, LANES)
     return dict(
         nrows=int(pr.nrows), ncols=int(pr.ncols), nnz=int(pr.nnz),
         n_rows=n_rows, y_rows=y_rows, bins=bins,
         bin_table=_ints(np.asarray(bins).reshape(-1, 4), device),
-        md=_ints(pr.md, device), row_slab=_ints(pr.row_slab, device),
-        route=compose_route(_ints(masks, device), _ints(final_lane, device)),
+        md=md, row_slab=row_slab, dst_col=dst_col,
         max_slab=int(np.max(pr.row_slab)),
-        masks=masks, final_lane=final_lane)
+        masks=masks, final_lane=final_lane), route
+
+
+def _routed(plane: torch.Tensor, route: torch.Tensor) -> torch.Tensor:
+    """``plane`` (source slots first) in destination order, 128 a row."""
+    return plane.reshape(-1, *plane.shape[2:])[route] \
+        .view(-1, LANES, *plane.shape[2:])
 
 
 def _put_panels(pr, put) -> DevicePanelPR:
@@ -160,9 +183,10 @@ def device_put_pr(pr, dtype=torch.float32, *, device):
         return _put_panels(pr, lambda p: device_put_pr(p, dtype,
                                                        device=device))
     device = torch.device(device)
-    return DevicePR(**_put_index(pr, device),
-                    val=torch.from_numpy(np.ascontiguousarray(
-                        pr.val, np.float64)).to(dtype).to(device))
+    index, route = _put_index(pr, device)
+    val = torch.from_numpy(np.ascontiguousarray(pr.val, np.float64)) \
+        .to(dtype).to(device)
+    return DevicePR(**index, val=val, dst_val=_routed(val, route))
 
 
 # ---------------------------------------------------------------------------
@@ -226,19 +250,22 @@ def pr_problem_plain(d: DevicePR, x_tab: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _check_launch(d: DevicePRIndex, values: dict, xs: dict,
-                  value_types: tuple = (torch.float32,)):
-    """Check what a launch reads: every tensor on the device of the first
-    x and contiguous, int32 index planes, ``value_types`` values, f32 x,
-    plane sizes that match the problem, and an x table that reaches its
-    last slab."""
+def _check_launch(d: DevicePRIndex, values: dict, dst_values: dict,
+                  xs: dict, value_types: tuple = (torch.float32,),
+                  pairs: bool = False):
+    """Check the problem and what a launch reads: every tensor on the
+    device of the first x and contiguous, int32 index planes,
+    ``value_types`` values (source order ``values``; destination order
+    ``dst_values``, ``(dst_rows, 128)``, or ``(dst_rows, 128, 2)`` with
+    ``pairs``), f32 x, plane sizes that match the problem, and an x table
+    that reaches its last slab."""
     x0 = next(iter(xs.values()))
     if x0.device.type != "cuda":
         raise RuntimeError(
             f"the PR kernel runs on CUDA or CPU tensors, not {x0.device}")
     ints = {"bin_table": d.bin_table, "md": d.md, "row_slab": d.row_slab,
-            "route": d.route}
-    for name, t in {**ints, **values, **xs}.items():
+            "dst_col": d.dst_col}
+    for name, t in {**ints, **values, **dst_values, **xs}.items():
         if t.device != x0.device:
             raise ValueError(f"{name} is on {t.device}, x on {x0.device}")
         if not t.is_contiguous():
@@ -246,7 +273,7 @@ def _check_launch(d: DevicePRIndex, values: dict, xs: dict,
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
-    for name, t in values.items():
+    for name, t in {**values, **dst_values}.items():
         if t.dtype not in value_types:
             raise ValueError(f"{name} must be "
                              f"{' or '.join(str(v)[6:] for v in value_types)}"
@@ -255,10 +282,17 @@ def _check_launch(d: DevicePRIndex, values: dict, xs: dict,
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
     plane = d.n_rows * LANES
-    for name, t in {"md": d.md, "route": d.route, **values}.items():
+    for name, t in {"md": d.md, **values}.items():
         if t.numel() != plane:
             raise ValueError(f"{name} holds {t.numel()} slots, the problem "
                              f"{plane}")
+    dst = (_dst_rows(d.bins), LANES)
+    for name, t, shape in (("dst_col", d.dst_col, dst),
+                           *((n, t, dst + (2,) * pairs)
+                             for n, t in dst_values.items())):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the "
+                             f"problem needs {shape}")
     if d.row_slab.numel() != d.n_rows or d.bin_table.numel() != 4 * len(
             d.bins):
         raise ValueError("row_slab or the bin table does not match the "
@@ -272,14 +306,14 @@ def _check_launch(d: DevicePRIndex, values: dict, xs: dict,
 
 
 def _launch(wrapper, d: DevicePRIndex, name: str, operands: tuple):
-    """Call C entry ``name`` for problem ``d``: bin table, index planes,
-    then ``operands`` (values, x, y; device pointers), the group count and
-    the current stream; count the launch on ``wrapper``."""
+    """Call C entry ``name`` for problem ``d``: bin table, ``dst_col``,
+    then ``operands`` (destination-order values, x, y; device pointers),
+    the group count and the current stream; count the launch on
+    ``wrapper``."""
     device = operands[0].device
     with torch.cuda.device(device):
         err = getattr(_build.load(), name)(
-            d.bin_table.data_ptr(), len(d.bins), d.route.data_ptr(),
-            d.md.data_ptr(), d.row_slab.data_ptr(),
+            d.bin_table.data_ptr(), len(d.bins), d.dst_col.data_ptr(),
             *(t.data_ptr() for t in operands), d.y_rows // SUBLANES,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -293,14 +327,14 @@ def pr_problem(d: DevicePR, x_tab: torch.Tensor) -> torch.Tensor:
     CUDA tensors, or the plain version on CPU tensors."""
     if x_tab.device.type == "cpu":
         return pr_problem_plain(d, x_tab)
-    _check_launch(d, {"val": d.val}, {"x": x_tab},
+    _check_launch(d, {"val": d.val}, {"dst_val": d.dst_val}, {"x": x_tab},
                   (torch.float32, torch.bfloat16))
     # the bins tile every group (_check_bins): each element is stored once
     y = torch.empty(d.y_rows * LANES, dtype=torch.float32,
                     device=x_tab.device)
-    bf16 = d.val.dtype == torch.bfloat16
+    bf16 = d.dst_val.dtype == torch.bfloat16
     _launch(pr_problem, d, "pr_spmv_bf16" if bf16 else "pr_spmv_f32",
-            (d.val, x_tab, y))
+            (d.dst_val, x_tab, y))
     pr_problem.launches_bf16 += bf16
     return y
 

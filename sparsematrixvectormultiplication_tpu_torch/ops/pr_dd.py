@@ -3,11 +3,13 @@ matrices.
 
 Counterpart of the JAX package's ``ops/pallas_pr_dd.py`` (``_kernel_pr_dd``
 -> ``csrc/pr.cu`` ``pr_spmv_dd``). The problem's index side (planes, bins,
-the composed ``route``) is :mod:`.pr`'s; the values travel as f32 (hi, lo)
-planes (``split_f64`` of the fp64 host values) and x as a pair of padded
-tables. Each product is an error-free two-product plus the cross terms,
-both planes ride the same routing, and each row's K slots are summed by a
-chain of ``dd_add_dd`` from (0, 0). y comes back as a pair in sigma row
+the destination-order ``dst_col``) is :mod:`.pr`'s; the values travel as
+f32 (hi, lo) planes (``split_f64`` of the fp64 host values), in source
+order for the plain version and, for the kernel, as one destination-order
+plane of interleaved (hi, lo) pairs (8 B a slot, one load), and x as a
+pair of padded tables. Each product is an error-free two-product plus the
+cross terms, both planes ride the same routing, and each row's K slots are
+summed by a chain of ``dd_add_dd`` from (0, 0). y comes back as a pair in sigma row
 order, which :func:`~.doubledouble.combine_f64` joins in fp64.
 
 :func:`pr_problem_dd` is the kernel's wrapper (``.launches``): CUDA tensors
@@ -28,7 +30,8 @@ import torch
 from ..formats.sell import LANES, SUBLANES
 from .doubledouble import dd_add_dd, split_f64, two_prod
 from .pr import (DevicePRIndex, _check_kind, _check_launch, _launch,
-                 _put_index, _put_panels, _route_planes, _spmv, _x_gather)
+                 _put_index, _put_panels, _route_planes, _routed, _spmv,
+                 _x_gather)
 
 __all__ = ["DevicePRDD", "device_put_pr_dd",
            "pr_problem_dd", "pr_problem_plain_dd", "pr_spmv_dd",
@@ -44,6 +47,7 @@ class DevicePRDD(DevicePRIndex):
 
     val_h: torch.Tensor   # (n_rows, 128) float32
     val_l: torch.Tensor   # (n_rows, 128) float32
+    dst_val: torch.Tensor  # (dst_rows, 128, 2) float32 (hi, lo) at route
 
 
 def device_put_pr_dd(pr, *, device):
@@ -53,10 +57,11 @@ def device_put_pr_dd(pr, *, device):
     if hasattr(pr, "panels"):
         return _put_panels(pr, lambda p: device_put_pr_dd(p, device=device))
     device = torch.device(device)
-    hi, lo = split_f64(np.asarray(pr.val, np.float64))
-    return DevicePRDD(**_put_index(pr, device),
-                      val_h=torch.from_numpy(hi).to(device),
-                      val_l=torch.from_numpy(lo).to(device))
+    index, route = _put_index(pr, device)
+    hi, lo = (torch.from_numpy(v).to(device)
+              for v in split_f64(np.asarray(pr.val, np.float64)))
+    return DevicePRDD(**index, val_h=hi, val_l=lo,
+                      dst_val=_routed(torch.stack([hi, lo], -1), route))
 
 
 def pr_problem_plain_dd(d: DevicePRDD, xh_tab: torch.Tensor,
@@ -90,12 +95,13 @@ def pr_problem_dd(d: DevicePRDD, xh_tab: torch.Tensor, xl_tab: torch.Tensor):
     if xh_tab.device.type == "cpu":
         return pr_problem_plain_dd(d, xh_tab, xl_tab)
     _check_launch(d, {"val_h": d.val_h, "val_l": d.val_l},
-                  {"x_hi": xh_tab, "x_lo": xl_tab})
+                  {"dst_val": d.dst_val}, {"x_hi": xh_tab, "x_lo": xl_tab},
+                  pairs=True)
     # the bins tile every group: each element is stored once
     yh, yl = (torch.empty(d.y_rows * LANES, dtype=torch.float32,
                           device=xh_tab.device) for _ in range(2))
     _launch(pr_problem_dd, d, "pr_spmv_dd",
-            (d.val_h, d.val_l, xh_tab, xl_tab, yh, yl))
+            (d.dst_val, xh_tab, xl_tab, yh, yl))
     return yh, yl
 
 

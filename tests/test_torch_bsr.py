@@ -265,3 +265,53 @@ def test_wrapper_raises_off_cpu_and_cuda(route):
     y = torch.zeros(d.n_block_rows * 128, 8, device="meta")
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         BSR.ROUTES[route](d, xp, y)
+
+
+def _np_masks(blocks):
+    """The upload's tile masks counted in numpy: bit 8a + b of slot i is
+    set iff its 16x16 sub-tile (a, b) holds a nonzero (uint64 bits read as
+    int64)."""
+    n = blocks.shape[0]
+    live = (np.asarray(blocks).reshape(n, 8, 16, 8, 16) != 0).any((2, 4))
+    bits = live.reshape(n, 64).astype(np.uint64) << np.arange(
+        64, dtype=np.uint64)
+    return bits.sum(1, dtype=np.uint64).view(np.int64)
+
+
+def _corner_case(pkg_csr):
+    """Block row 0: a nonzero only at (127, 127), the corner sub-tile (bit
+    63, int64's sign), and one at (3, 200); block row 1: one block, so a
+    pad slot beside it; block row 2 (rows 256-299): empty, two pad slots."""
+    rows = np.array([3, 127, 130])
+    row_ptr = np.zeros(301, np.int64)
+    np.add.at(row_ptr, rows + 1, 1)
+    return pkg_csr(300, 300, np.cumsum(row_ptr),
+                   np.array([200, 127, 255], np.int32),
+                   np.array([1.5, -2.0, 3.0]))
+
+
+@pytest.mark.parametrize("case", [*sorted(CASES), "corner"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_mask_counts_nonzero_subtiles(case, dtype):
+    """``tile_mask`` from either package's host BSRMatrix equals a numpy
+    count of the nonzero 16x16 sub-tiles; pad slots have mask 0."""
+    if case == "corner":
+        mine = BSRMatrix.from_csr(_corner_case(CSRMatrix))
+        theirs = JBSR.from_csr(_corner_case(JCSR))
+    else:
+        make, kw = CASES[case]
+        mine = BSRMatrix.from_csr(make(syn, CSRMatrix), **kw)
+        theirs = JBSR.from_csr(make(jsyn, JCSR), **kw)
+    want = _np_masks(mine.blocks)
+    for host in (mine, theirs):
+        d = BSR.device_put_bsr(host, getattr(torch, dtype), device="cpu")
+        assert d.tile_mask.dtype == torch.int64
+        assert d.tile_mask.shape == (d.n_block_rows * d.kb,)
+        np.testing.assert_array_equal(d.tile_mask.numpy(), want)
+    pad = ~np.abs(mine.blocks).any((1, 2))
+    assert (want[pad] == 0).all() and (want[~pad] != 0).all()
+    if case == "corner":
+        assert mine.kb == 2 and pad.sum() == 3
+        assert np.int64(-2**63) in want[:2]
+        assert sorted(bin(int(v)).count("1") for v in want.view(np.uint64)) \
+            == [0, 0, 0, 1, 1, 1]

@@ -21,6 +21,7 @@ import torch
 
 from sparsematrixvectormultiplication_tpu_torch import (
     BSRMatrix,
+    COOMatrix,
     CSRMatrix,
     PanelPRMatrix,
     PanelSellMatrix,
@@ -345,7 +346,7 @@ def _problems(d):
 @pytest.mark.parametrize("case", sorted(PR_CASES))
 def test_pr_kernel_matches_plain(case, dev):
     """Each problem through the kernel against the plain version, which runs
-    the Beneš stages themselves (so the composed route is under test), then
+    the Beneš stages themselves (so the routed planes are under test), then
     the whole SpMV against the fp64 oracle (tests/test_pr.py:156)."""
     csr, pr = _pr_host(case)
     d = PRo.device_put_pr(pr, device=dev)
@@ -435,13 +436,14 @@ def _bad_inputs(d, x_tab):
         ("x must be float32", d, x_tab.double()),
         ("x is not contiguous",
          d, torch.zeros(2 * n, device=x_tab.device)[::2]),
-        ("route is not contiguous",
-         dataclasses.replace(d, route=d.route.t().contiguous().t()), x_tab),
+        ("dst_col is not contiguous",
+         dataclasses.replace(d, dst_col=d.dst_col.t().contiguous().t()),
+         x_tab),
         ("md must be int32", dataclasses.replace(d, md=d.md.long()), x_tab),
         ("val must be float32",
          dataclasses.replace(d, val=d.val.double()), x_tab),
         ("at least", d, x_tab[: 128 * d.max_slab]),
-        ("is on cpu", dataclasses.replace(d, route=d.route.cpu()), x_tab),
+        ("is on cpu", dataclasses.replace(d, dst_col=d.dst_col.cpu()), x_tab),
     ]
 
 
@@ -547,14 +549,50 @@ def _bsr(dtype, dev, make=lambda: banded(700, 9, 40, seed=3)):
     return csr, BSR.device_put_bsr(BSRMatrix.from_csr(csr), dtype, device=dev)
 
 
-@pytest.mark.parametrize("rhs", [9, 128, 300])
+def _subtile_coo(seed=21):
+    """1000 x 900 (a ragged last block row, rows past nrows in its padded
+    Y): each block row holds 0-4 blocks (pad slots beside the fuller rows;
+    block row 3 holds none), each block a random third of its 16x16
+    sub-tiles filled at random density, and every block's strip 5 (columns
+    80-95) all zero."""
+    rng = np.random.default_rng(seed)
+    nrows, ncols = 1000, 900
+    rows, cols = [], []
+    for g in range(-(-nrows // 128)):
+        n_blocks = 0 if g == 3 else int(rng.integers(1, 5))
+        for bc in rng.choice(-(-ncols // 128), n_blocks, replace=False):
+            for a, b in np.argwhere(rng.random((8, 8)) < 1 / 3):
+                if b == 5:
+                    continue
+                r, c = np.nonzero(rng.random((16, 16)) < rng.random())
+                rows.append(128 * g + 16 * a + r)
+                cols.append(128 * bc + 16 * b + c)
+    row, col = np.concatenate(rows), np.concatenate(cols)
+    keep = (row < nrows) & (col < ncols)
+    row, col = row[keep], col[keep]
+    return COOMatrix(nrows, ncols, row.astype(np.int32), col.astype(np.int32),
+                     rng.standard_normal(row.size))
+
+
+BSR_MATRICES = {"banded": lambda: banded(700, 9, 40, seed=3),
+                "subtiles": _subtile_coo}
+
+
+@pytest.mark.parametrize("rhs", [3, 6, 9, 16, 128, 130, 300])
+@pytest.mark.parametrize("matrix", sorted(BSR_MATRICES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("route", sorted(BSR.ROUTES))
-def test_bsr_kernel_matches_plain(route, dtype, rhs, dev):
+def test_bsr_kernel_matches_plain(route, dtype, matrix, rhs, dev):
     """Both routes, f32 and bf16, B below, at and past the 128-column tile
-    (300: a ragged third tile), raw and padded X, against the plain
-    version; 700 rows leave a ragged last block row."""
-    csr, d = _bsr(dtype, dev)
+    (130, 300: a ragged last tile), raw and padded X, against the plain
+    version; 700 and 1000 rows leave a ragged last block row. The
+    "subtiles" matrix has all-zero 16x16 sub-tiles at random, a wholly zero
+    strip in every block, pad slots and an empty block row."""
+    csr, d = _bsr(dtype, dev, BSR_MATRICES[matrix])
+    if matrix == "subtiles":
+        masks = d.tile_mask.cpu().numpy().view(np.uint64)
+        assert (masks == 0).any() and (masks != 0).any()
+        assert not (masks & np.uint64(0x2020202020202020)).any()
     X = np.random.default_rng(11).standard_normal((csr.ncols, rhs))
     wrapper = BSR.ROUTES[route]
     for xin in (torch.from_numpy(X).to(dev),
@@ -628,6 +666,26 @@ def test_spmm_wrappers_refuse_bad_inputs(dev):
         BSR.bsr_dma(dataclasses.replace(dbsr, blocks=dbsr.blocks.double()),
                     xp, yb)
     assert BSR.bsr_blockspec.launches == before
+
+
+@pytest.mark.parametrize("route", sorted(BSR.ROUTES))
+def test_bsr_kernels_refuse_a_bad_tile_mask(route, dev):
+    """A DeviceBSR whose tile_mask is missing, short, of another type or on
+    another device raises; nothing is launched."""
+    csr, dbsr = _bsr(torch.float32, dev)
+    xp = BSR.pad_rhs(np.ones((csr.ncols, 8)), csr.ncols, device=dev)[:, :8]
+    yb = torch.empty(dbsr.n_block_rows * 128, 8, device=dev)
+    wrapper = BSR.ROUTES[route]
+    before = wrapper.launches
+    m = dbsr.tile_mask
+    for what, mask in (("tile_mask must be", None),
+                       ("tile_mask must be", m[:-1]),
+                       ("tile_mask must be", m.view(-1, 1)),
+                       ("tile_mask must be", m.int()),
+                       ("tile_mask is on cpu", m.cpu())):
+        with pytest.raises(ValueError, match=what):
+            wrapper(dataclasses.replace(dbsr, tile_mask=mask), xp, yb)
+    assert wrapper.launches == before
 
 
 # ---- bf16 PR values ----

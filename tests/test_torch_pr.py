@@ -3,8 +3,10 @@
 * Host layer: the port's ``formats/pr_route.py`` and ``formats/pr.py`` give
   the JAX package's arrays (np.array_equal, dtypes included); the port's
   native router builds with g++ and gives the JAX router's products.
-* Upload: the composed ``route`` plane equals the Beneš stages plus the
-  final lane gather applied to an iota.
+* Upload: the composed ``route`` equals the Beneš stages plus the final
+  lane gather applied to an iota, and the kernel's destination-order
+  planes are the column and value planes gathered by it, slot for slot;
+  a plain k-order sum over them equals the plain version.
 * SpMV: the plain versions against ``pr_spmv_pallas`` /
   ``pr_spmv_pallas_dd`` in interpret mode on the same host product, and
   against the fp64 oracle. Tolerances are the JAX tests' own
@@ -48,6 +50,8 @@ from sparsematrixvectormultiplication_tpu_torch.ops import pr as P
 from sparsematrixvectormultiplication_tpu_torch.ops import pr_dd as PD
 from sparsematrixvectormultiplication_tpu_torch.ops.doubledouble import (
     combine_f64,
+    dd_add_dd,
+    dd_mul_dd,
 )
 from sparsematrixvectormultiplication_tpu_torch.ops.sell import device_put_x
 from sparsematrixvectormultiplication_tpu_torch.ops.sell_dd import (
@@ -228,22 +232,112 @@ def test_pr_from_csr_matches_jax():
 # ---- the composed route ----
 
 
+def _iota_route(host):
+    """The Beneš stages and the final lane gather applied to an iota."""
+    iota = np.arange(host.n_rows * 128).reshape(host.n_rows, 128)
+    bits = np.stack([(host.masks >> s) & 1 for s in range(host.n_stages)])
+    # each lane is its own Beneš network
+    routed = np.stack([proute.apply_benes(iota[:, l], bits[:, :, l])
+                       for l in range(128)], axis=1)
+    return np.take_along_axis(routed, host.final_lane.astype(np.int64),
+                              axis=1)
+
+
+def _dst_rows(host):
+    K, G, off, _ = host.bins[-1]
+    return off + K * 8 * G
+
+
 @pytest.mark.parametrize("name", ["powerlaw", "panels"])
 def test_route_is_the_stages_on_an_iota(name):
-    pr = _port_pr(name)
+    """The composed route is the stages on an iota, and the uploads' planes
+    in destination order are the source planes at it: ``dst_col = 128 *
+    row_slab[route >> 7] + (md[route] & 127)``, ``dst_val = val[route]``
+    (dd: the (hi, lo) pairs), from either package's host problem."""
+    for pr in (_port_pr(name), _jax_pr(name)):
+        d = P.device_put_pr(pr, device="cpu")
+        dd = PD.device_put_pr_dd(pr, device="cpu")
+        for host, dev, ddev in zip(getattr(pr, "panels", (pr,)),
+                                   getattr(d, "panels", (d,)),
+                                   getattr(dd, "panels", (dd,))):
+            want = _iota_route(host)
+            route = P.compose_route(
+                torch.from_numpy(host.masks.astype(np.int32)),
+                torch.from_numpy(host.final_lane.astype(np.int32)))
+            assert route.dtype == torch.int32
+            assert np.array_equal(route.numpy(), want)
+            r = want[:_dst_rows(host)]
+            col = 128 * host.row_slab[r >> 7] + (host.md.reshape(-1)[r] & 127)
+            assert dev.dst_col.dtype == torch.int32
+            assert np.array_equal(dev.dst_col.numpy(), col)
+            assert np.array_equal(ddev.dst_col.numpy(), col)
+            val = np.asarray(host.val, np.float64).reshape(-1)[r]
+            assert np.array_equal(dev.dst_val.numpy(),
+                                  val.astype(np.float32))
+            hi = val.astype(np.float32)
+            lo = (val - hi.astype(np.float64)).astype(np.float32)
+            assert tuple(ddev.dst_val.shape) == (*r.shape, 2)
+            assert np.array_equal(ddev.dst_val[..., 0].numpy(), hi)
+            assert np.array_equal(ddev.dst_val[..., 1].numpy(), lo)
+
+
+def _dst_sum(d, x_tab):
+    """y of one problem from its destination-order planes: each row's K
+    slots ``dst_val * x[dst_col]`` summed in k order in f32, as the kernel
+    sums them."""
+    prod = (d.dst_val.float() * x_tab[d.dst_col.long()]).view(-1, 8, 128)
+    y = torch.zeros(d.y_rows, 128)
+    for K, G, off, g0 in d.bins:
+        blk = prod[off // 8:(off + G * K * 8) // 8].view(G, K, 8, 128)
+        acc = torch.zeros(G, 8, 128)
+        for k in range(K):
+            acc = acc + blk[:, k]
+        y.view(-1, 8, 128)[g0:g0 + G] = acc
+    return y.view(-1)
+
+
+def _dst_sum_dd(d, xh_tab, xl_tab):
+    """:func:`_dst_sum` in double-double: ``dd_mul_dd`` of the (hi, lo) pairs
+    and x's, then a ``dd_add_dd`` chain from (0, 0) over each row's K
+    slots."""
+    idx = d.dst_col.long()
+    vh, vl = d.dst_val[..., 0], d.dst_val[..., 1]
+    xh, xl = xh_tab[idx], xl_tab[idx]
+    ph, pl = dd_mul_dd(vh, vl, xh, xl)
+    ph, pl = ph.view(-1, 8, 128), pl.view(-1, 8, 128)
+    yh, yl = torch.zeros(d.y_rows, 128), torch.zeros(d.y_rows, 128)
+    for K, G, off, g0 in d.bins:
+        sl = slice(off // 8, (off + G * K * 8) // 8)
+        bh, bl = ph[sl].view(G, K, 8, 128), pl[sl].view(G, K, 8, 128)
+        h, l = torch.zeros(G, 8, 128), torch.zeros(G, 8, 128)
+        for k in range(K):
+            h, l = dd_add_dd(h, l, bh[:, k], bl[:, k])
+        yh.view(-1, 8, 128)[g0:g0 + G] = h
+        yl.view(-1, 8, 128)[g0:g0 + G] = l
+    return yh.view(-1), yl.view(-1)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_dst_planes_sum_to_the_plain_version(name):
+    """The kernel's arithmetic on the routed planes, written plainly: per
+    problem, a k-order sum of ``dst_val * x[dst_col]`` equals
+    ``pr_problem_plain`` (f32, 5e-6) and its dd chain
+    ``pr_problem_plain_dd`` (1e-11), the tolerances of
+    test_pr_spmv_plain_matches_jax_interpret and its dd twin."""
+    pr = _jax_pr(name)
+    ncols = _csrs(name)[0].ncols
+    x = _x(ncols, seed=9)
+    x_tab = device_put_x(x, ncols, device="cpu")
+    xh, xl = device_put_x_dd(x, ncols, device="cpu")
     d = P.device_put_pr(pr, device="cpu")
-    for host, dev in zip(getattr(pr, "panels", (pr,)),
-                         getattr(d, "panels", (d,))):
-        iota = np.arange(host.n_rows * 128).reshape(host.n_rows, 128)
-        bits = np.stack([(host.masks >> s) & 1
-                         for s in range(host.n_stages)])
-        # each lane is its own Beneš network
-        routed = np.stack([proute.apply_benes(iota[:, l], bits[:, :, l])
-                           for l in range(128)], axis=1)
-        want = np.take_along_axis(routed, host.final_lane.astype(np.int64),
-                                  axis=1)
-        assert dev.route.dtype == torch.int32
-        assert np.array_equal(dev.route.numpy(), want)
+    dd = PD.device_put_pr_dd(pr, device="cpu")
+    for p, q in zip(getattr(d, "panels", (d,)), getattr(dd, "panels", (dd,))):
+        want = P.pr_problem_plain(p, x_tab).numpy().astype(np.float64)
+        got = _dst_sum(p, x_tab).numpy().astype(np.float64)
+        assert _rel(got, want) < F32_REL
+        want = combine_f64(*PD.pr_problem_plain_dd(q, xh, xl)).numpy()
+        got = combine_f64(*_dst_sum_dd(q, xh, xl)).numpy()
+        assert _rel(got, want) < DD_REL
 
 
 # ---- SpMV against the JAX kernels in interpret mode ----
@@ -317,7 +411,7 @@ def test_pr_dd_sums_where_f32_cancels():
 def test_upload_accepts_either_package_and_checks_x():
     d_port = P.device_put_pr(_port_pr("road"), device="cpu")
     d_jax = P.device_put_pr(_jax_pr("road"), device="cpu")
-    for f in ("md", "row_slab", "route", "val", "bin_table"):
+    for f in ("md", "row_slab", "dst_col", "val", "dst_val", "bin_table"):
         assert torch.equal(getattr(d_port, f), getattr(d_jax, f)), f
     for f in ("masks", "final_lane"):  # host arrays, read by the plain path
         assert isinstance(getattr(d_port, f), np.ndarray), f
