@@ -82,11 +82,11 @@ what it picked.
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
 sampled columns); the dd stages also a norm-scaled error ``max|y - y_ref| /
-max|y_ref|`` below 1e-12. The SELL phases run f32, bf16 and dd
-(``sell_dd``; scattered_uniform's slot-packed sg bins are rebuilt in rows
-mode for it), webbase_pr and band64_250k only f32. The kernels' launch counters are reset
-before the phases and read after them and the panel phase, before
-``auto_device_op``; every kernel and every dd kernel, the k-major kernel of
+max|y_ref|`` below 1e-12. The SELL phases run f32, bf16 and dd (``sell_dd``, on
+the same SELL as ``sell``: the dd kernels take slot-packed sg bins), webbase_pr
+and band64_250k only f32. The kernels' launch counters are reset before the
+phases and read after them and the panel phase, before ``auto_device_op``;
+every kernel and every dd kernel, the k-major kernel of
 both precisions in accumulate mode, the PR kernel with bf16 values, every
 SpMM kernel (both BSR routes among them) and both SELL SpMM kernels in
 accumulate mode must have been launched. The probe kernels' counters are
@@ -94,24 +94,31 @@ reset before the bandwidth phase and read after it. Each phase prints its
 host set-up: the CSR conversion (the native converter from 2,000,000
 entries), the sum of its conversions and the phase's wall time.
 
-Then every bin of every phase, banded_adversarial and road_scattered also
-with int16 sb index planes, is run through its kernel, storing and
-accumulating, and through its plain PyTorch version on the card; they must
-agree within rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order), or
-for the dd kernels within 1e-12*max|y| on the fp64-combined result (dd sums
-in another order). So are webbase_pr's PR panels through the PR and
-PR-dd kernels, road_scattered's split (its K=1 far problem through the
-PR kernels, and the composite), every bin of the SELL SpMM runs (the
-sell_spmm SELLs at R=16, the headline's wl bins at R=8 and 16; f32, and
-bf16 values on the headline and banded_adversarial, at the same
-tolerance: the plain versions widen bf16 exactly as the kernels do, so
-only the order of the f32 sums differs), and band64_250k's blocks through
-both BSR routes (f32 and bf16, B=128 and 512, the same tolerance for the
-same reason). Column j of each SELL SpMM result must equal the SpMV kernel
-on X[:, j] bit for bit on the headline and banded_adversarial. Kernel and
+Then every bin of every phase, banded_adversarial and road_scattered also with
+int16 sb index planes, is run through its kernel, storing and accumulating, and
+through its plain PyTorch version on the card; they must agree within
+rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order), or for the dd kernels
+within 1e-12*max|y| on the fp64-combined result (dd sums in another order); the
+wl and sg kernels, whose plain versions add in the kernels' order and rounding,
+bit for bit. Each wl bin's kernel (f32 and dd) must also return what the padded
+layout before compaction returned (``wl_padded_plain``: every slot, pads
+included) bit for bit, and the smoke prints each wl bin's padded and compacted
+slots and bytes, the headline's upload seconds, and scattered_uniform's dd SpMV
+bin by bin. So are webbase_pr's PR panels through the PR and PR-dd kernels,
+road_scattered's split (its K=1 far problem through the PR kernels, and the
+composite), every bin of the SELL SpMM runs (the sell_spmm SELLs at R=16, the
+headline's wl bins at R=8 and 16; f32, and bf16 values on the headline and
+banded_adversarial, at the same tolerance: the plain versions widen bf16
+exactly as the kernels do, so only the order of the f32 sums differs), and
+band64_250k's blocks through both BSR routes (f32 and bf16, B=128 and 512, the
+same tolerance for the same reason). Column j of each SELL SpMM result must
+equal the SpMV kernel on X[:, j] bit for bit on the headline and
+banded_adversarial. Kernel and
 plain version are each timed twice: device time (CUDA events around calls
 queued back to back behind a spin kernel, per call) and call time (CUDA
-events around each call, host included). Beside each phase's SpMV, the
+events around each call, host included); the wl and sg plain versions,
+which queue a few kernels for every slot step, only by call time over
+``PLAIN_SEQ_REPS`` calls. Beside each phase's SpMV, the
 device time of cuSPARSE's CSR SpMV (``torch.sparse_csr_tensor @ x``) on the
 phase's whole matrix, f32 values beside the f32/bf16 kernels and fp64
 beside the dd kernels, is printed, and beside each SpMM kernel cuSPARSE's
@@ -140,25 +147,26 @@ The kernel-variant rows of the JSON summary are the phase's own records:
 (``library_ms``: ``a.sum(0)``), each ``bound_ms`` the variant's planes and
 tables, the distinct x entries it reads and its output over 3.35 TB/s.
 
-The JSON summary's ``ms`` and ``plain_ms`` are device times, at each
-kernel's main-path bin with the most entries among those whose planes
-exceed twice the L2 (so they stream from HBM and their time can be held
-against the bound; the largest bin where none does; PR: webbase_pr's panel 0;
-SELL SpMM at R=16; BSR: band64_250k at B=128) with f32 (or dd) values and
-int32 index planes; ``bound_ms`` is the least time the card could take for
-the function that bin computes: the larger of its bytes over 3.35 TB/s
-(its real entries' values and 4 B columns, each distinct x entry (per x
-table or right-hand side) they read and each y entry they write, moved
-once) and its useful FLOP (2 per entry and right-hand side) over the 67
-TFLOP/s f32 rate; ``bound_by`` says which. SpMV does ~2 FLOP per entry f32
-and ~20 dd, so bytes bind; beside the BSR kernels the smoke prints band64's
-kept 16x16 sub-tiles (those ``tile_mask`` marks nonzero, the ones the
-kernels multiply), the FLOP they make and the dense-block FLOP (every
-stored block multiplied whole). It also prints the upload seconds of the
-PR problems' destination-order planes and of ``tile_mask``, and each PR
-and BSR kernel's factor against cuSPARSE in the same call. Padding, index tables and the
+The JSON summary's ``ms`` and ``plain_ms`` are device times, at each kernel's
+main-path bin with the most entries among those whose planes exceed twice the
+L2 (so they stream from HBM and their time can be held against the bound; the
+largest bin where none does; PR: webbase_pr's panel 0; SELL SpMM at R=16; BSR:
+band64_250k at B=128) with f32 (or dd) values and int32 index planes;
+``bound_ms`` is the least time the card could take for the function that bin
+computes: the larger of its bytes over 3.35 TB/s (its real entries' values and
+4 B columns (wl: the 2-byte code its compacted planes need), each distinct x
+entry (per x table or right-hand side) they read and each y entry they write,
+moved once) and its useful FLOP (2 per entry and right-hand side) over the 67
+TFLOP/s f32 rate; ``bound_by`` says which. SpMV does ~2 FLOP per entry f32 and
+~20 dd, so bytes bind; beside the BSR kernels the smoke prints band64's kept
+16x16 sub-tiles (those ``tile_mask`` marks nonzero, the ones the kernels
+multiply), the FLOP they make and the dense-block FLOP (every stored block
+multiplied whole). It also prints the upload seconds of the PR problems'
+destination-order planes and of ``tile_mask``, and each PR and BSR kernel's
+factor against cuSPARSE in the same call. Padding, index tables and the
 layout's own planes are not counted; the bytes the layout's planes hold are
-printed beside it. ``library_ms`` is the cuSPARSE time of the bin's phase.
+printed beside it, and is the SELL rows' ``plane_bytes``. ``library_ms`` is the
+cuSPARSE time of the bin's phase.
 
 The last two lines are the kernels' JSON summary and
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before them;
@@ -193,6 +201,11 @@ PLAIN_PR_DD_REPS = 1
 # a plain SELL SpMM call on the headline's main bin at R=16 queues ~220
 # kernels in 22 chunks of groups, a plain BSR call at B=512 ~70
 PLAIN_SPMM_REPS = 1
+# the wl and sg plain versions add slot step by slot step, a few kernels a
+# step (the headline's wl bins ~1,400 a call in f32, ~2,800 dd): more than
+# fit behind device_time_fn's spin, so they get call times over few calls
+PLAIN_SEQ_REPS = 3
+SEQ_LAYOUTS = ("wl", "sg")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
@@ -397,22 +410,23 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
 
-    def need_ms(nnz, value_bytes, n_x, n_y, tables):
+    def need_ms(nnz, value_bytes, n_x, n_y, tables, col_bytes=4):
         """The least time of an SpMV piece: ``nnz`` entries of
-        ``value_bytes`` plus a 4 B column, ``n_x`` distinct x entries and
-        ``n_y`` y rows per x table (``tables``: 2 for dd), over the HBM
-        rate."""
-        moved = nnz * (value_bytes + 4) + (n_x + n_y) * 4 * tables
+        ``value_bytes`` plus a ``col_bytes`` column (4 B; wl's compacted
+        planes need a 2 B code), ``n_x`` distinct x entries and ``n_y`` y
+        rows per x table (``tables``: 2 for dd), over the HBM rate."""
+        moved = nnz * (value_bytes + col_bytes) + (n_x + n_y) * 4 * tables
         return moved / HBM_BYTES_PER_S * 1e3
 
     def spmm_need(nnz, value_bytes, n_x, n_y, rhs, x_bytes=4,
-                  flop_rate=F32_FLOP_PER_S):
+                  flop_rate=F32_FLOP_PER_S, col_bytes=4):
         """``(ms, bound_by)``, the least time of an SpMM piece: ``nnz``
-        entries of ``value_bytes`` plus a 4 B column, ``n_x`` distinct x rows
-        of ``rhs`` values of ``x_bytes`` and ``n_y`` f32 y rows of ``rhs``
-        over the HBM rate, or its 2 FLOP per entry and right-hand side over
-        ``flop_rate``, whichever is longer."""
-        moved = nnz * (value_bytes + 4) + rhs * (n_x * x_bytes + n_y * 4)
+        entries of ``value_bytes`` plus a ``col_bytes`` column, ``n_x``
+        distinct x rows of ``rhs`` values of ``x_bytes`` and ``n_y`` f32 y
+        rows of ``rhs`` over the HBM rate, or its 2 FLOP per entry and
+        right-hand side over ``flop_rate``, whichever is longer."""
+        moved = nnz * (value_bytes + col_bytes) + rhs * (n_x * x_bytes
+                                                         + n_y * 4)
         by_bytes = moved / HBM_BYTES_PER_S * 1e3
         by_ops = 2 * nnz * rhs / flop_rate * 1e3
         return (by_bytes, "bytes") if by_bytes >= by_ops else (
@@ -629,16 +643,10 @@ def main() -> int:
             fail(f"{name}: the sell_spmm SELL is not k-major")
         got_dd = set()
         if "sell_dd" in stages:
-            # sell_dd runs the same SELL, or its rows-mode rebuild where the
-            # conversion has slot-packed sg bins (the far bins may then go)
-            got_dd = {b.layout for b in res.sell_dd.bins}
-            if res.sell_dd is res.sell:
-                ok_dd = got_dd == layouts
-            else:
-                ok_dd = "sg" in got_dd and got_dd <= layouts
-            if not ok_dd:
-                fail(f"{name}: the sell_dd conversion gave layouts "
-                     f"{sorted(got_dd)}")
+            # sell_dd runs the same SELL, slot-packed sg bins and all
+            if res.sell_dd is not res.sell:
+                fail(f"{name}: sell_dd ran another SELL than sell")
+            got_dd = layouts
         if name == "scattered_uniform" and not (
                 any(b.add_into for b in bins)
                 and {b.span > 0 for b in bins if b.layout == "sg"}
@@ -706,7 +714,7 @@ def main() -> int:
                       f"bins {[p.bins for p in res.pr.panels]}, padding "
                       f"{res.pr.padding_ratio:.3f}")
         shapes = [[(b.layout, b.k, b.n_groups, b.span) for b in s.bins]
-                  for s in (res.sell, res.sell_dd, res.sell_spmm)
+                  for s in (res.sell, res.sell_spmm)
                   if s is not None]
         best = {s: round(res.stages[s].seconds * 1e3, 4) for s in ran}
         per_call = {s: round(res.stages[s].per_call_s * 1e3, 4) for s in ran}
@@ -888,12 +896,27 @@ def main() -> int:
     l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
 
     def value_planes(b):
+        if getattr(b, "as_pair", None) is not None:
+            return (b.as_pair,)  # wl and sg dd: (hi, lo) pairs
         return (b.as_hi, b.as_lo) if hasattr(b, "as_hi") else (b.as_,)
+
+    def hi_plane(b):
+        """The bin's values (dd: their hi halves), one per slot."""
+        v = value_planes(b)[0]
+        return v[..., 0] if v.dim() == 3 else v
+
+    def value_bytes(b):
+        """Bytes of values a slot: f32 4, bf16 2, dd 8."""
+        return sum(v.element_size() * (v.numel() // hi_plane(b).numel())
+                   for v in value_planes(b))
+
+    def tables(b):
+        return tuple(t for t in (b.slab_list, b.slab_count, b.group_ids,
+                                 b.row_len, b.plane_off) if t is not None)
 
     def device_bytes(d):
         return sum(t.numel() * t.element_size() for b in d.bins
-                   for t in (b.ja, *value_planes(b), b.slab_list,
-                             b.slab_count, b.group_ids))
+                   for t in (b.ja, *value_planes(b), *tables(b)))
 
     def bytes_read(b):
         """Bytes a kernel streams: its planes (an sg bin reads only its
@@ -902,9 +925,8 @@ def main() -> int:
                      for t in (b.ja, *value_planes(b)))
         if b.layout == "sg":
             real = int(b.slab_count.clamp(max=b.k).sum())
-            planes = planes * real // (b.n_groups * b.k)
-        return planes + sum(t.numel() * t.element_size()
-                            for t in (b.slab_list, b.slab_count, b.group_ids))
+            planes = planes * real // max(b.n_groups * b.k, 1)
+        return planes + sum(t.numel() * t.element_size() for t in tables(b))
 
     def bin_counts(b, x_rows):
         """The bin's real entries (a value that is not 0, in a slot its
@@ -912,15 +934,14 @@ def main() -> int:
         rows they write (those the plain version sums from a value plane of
         1s at 1s of an ``x_rows``-entry x)."""
         shape, cols, keep, _ = S._SLOTS[b.layout](b)
-        vals = value_planes(b)
-        real = vals[0].view(shape) != 0
+        vals = hi_plane(b)
+        real = vals.reshape(shape) != 0
         if keep is not None:
             real = real & keep
         n_x = int(torch.unique(cols[real]).numel())
         index = {f.name: getattr(b, f.name)
                  for f in dataclasses.fields(S.DeviceBinIndex)}
-        ones = S.DeviceSellBin(**index,
-                               as_=real.float().reshape(vals[0].shape))
+        ones = S.DeviceSellBin(**index, as_=real.float().reshape(vals.shape))
         n_y = int((plains[b.layout](ones, torch.ones(x_rows, device=dev))
                    > 0).sum())
         return int(real.sum()), n_x, n_y
@@ -936,37 +957,57 @@ def main() -> int:
 
     def bound_ms(b, xs):
         """The least time of the bin's function (:func:`bin_counts`' bytes
-        over the HBM rate); returns it and the bin's real entries."""
+        over the HBM rate; wl: 2-byte codes); returns it and the bin's real
+        entries."""
         nnz, n_x, n_y = bin_counts(b, xs[0].numel())
-        return need_ms(nnz, sum(v.element_size() for v in value_planes(b)),
-                       n_x, n_y, len(xs)), nnz
+        return need_ms(nnz, value_bytes(b), n_x, n_y, len(xs),
+                       2 if b.layout == "wl" else 4), nnz
+
+    def plain_ms(plain, *args, reps=None):
+        """``(device ms, call ms)`` of a plain version; a wl or sg one
+        only by call time (:data:`PLAIN_SEQ_REPS`)."""
+        if plain in (plains["wl"], plains["sg"], dd_plains["wl"],
+                     dd_plains["sg"], SM.wl_spmm_bin_plain):
+            ms = time_fn(plain, *args, device=dev, reps=PLAIN_SEQ_REPS,
+                         skip=1) * 1e3
+            return ms, ms
+        kw = {} if reps is None else {"reps": reps}
+        return (device_time_fn(plain, *args, device=dev, **kw) * 1e3,
+                time_fn(plain, *args, device=dev) * 1e3)
 
     def check_bin(tag, b, xt, y0, phase):
         want = plains[b.layout](b, xt)
         atol = ATOL_REL * float(want.abs().max())
         rows = b.group_ids.long()
+        exact = b.layout in SEQ_LAYOUTS
         err = 0.0
         for accumulate in (False, True):
             y = y0.clone()
             wrappers[b.layout](b, xt, y, accumulate=accumulate)
             got = y.view(-1, 8, 128)[rows]
+            exp = want
             if accumulate:
-                got = got - y0.view(-1, 8, 128)[rows]
-            e = (got - want).abs().max().item()
-            if not torch.allclose(got, want, rtol=RTOL, atol=atol):
+                if exact:  # the kernel's own y + sum
+                    exp = y0.view(-1, 8, 128)[rows] + want
+                else:
+                    got = got - y0.view(-1, 8, 128)[rows]
+            e = (got - exp).abs().max().item()
+            if not (torch.equal(got, exp) if exact else torch.allclose(
+                    got, exp, rtol=RTOL, atol=atol)):
                 fail(f"{tag} ({b.layout}, accumulate={accumulate}): "
-                     f"max|k-p| = {e}")
+                     f"max|k-p| = {e}{' (must be equal)' if exact else ''}")
             err = max(err, e)
         st = stats[b.layout]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         y = y0.clone()
         ms_k = device_time_fn(wrappers[b.layout], b, xt, y, device=dev) * 1e3
-        ms_p = device_time_fn(plains[b.layout], b, xt, device=dev) * 1e3
+        ms_p, call_p = plain_ms(plains[b.layout], b, xt)
         call_k = time_fn(wrappers[b.layout], b, xt, y, device=dev) * 1e3
-        call_p = time_fn(plains[b.layout], b, xt, device=dev) * 1e3
         bound, nnz = bound_ms(b, (xt,))
-        print(f"{tag} {b.layout} k={b.k} groups={b.n_groups} span={b.span} "
-              f"ja={str(b.ja.dtype)[6:]}{' add_into' if b.add_into else ''}: "
+        chunks = f" chunks={S._sg_chunks(b)}" if b.layout == "sg" else ""
+        print(f"{tag} {b.layout} k={b.k} groups={b.n_groups} span={b.span}"
+              f"{chunks} ja={str(b.ja.dtype)[6:]}"
+              f"{' add_into' if b.add_into else ''}: "
               f"device kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; call "
               f"kernel {call_k:.4f} ms, plain {call_p:.4f} ms; "
               f"planes {bytes_read(b)} B read "
@@ -975,40 +1016,47 @@ def main() -> int:
               flush=True)
         if phase:
             take_row(st, b, nnz, (nnz, ms_k, ms_p, tag, b.k, b.n_groups,
-                                  bound, phase))
+                                  bound, phase, bytes_read(b)))
+        return ms_k
 
     def check_bin_dd(tag, b, xh, xl, y0h, y0l, phase):
         """A dd bin through its kernel, storing and dd-adding onto (y0h,
-        y0l), against its plain dd version; compared fp64-combined."""
+        y0l), against its plain dd version: compared fp64-combined, or the
+        wl and sg ones pair for pair. Its kernel is timed on its own (wl
+        and sg: the interleaved x table given)."""
         kernel, plain = dd_wrappers[b.layout], dd_plains[b.layout]
         want = plain(b, xh, xl)
         rows = b.group_ids.long()
         base = (y0h.view(-1, 8, 128)[rows], y0l.view(-1, 8, 128)[rows])
+        exact = b.layout in SEQ_LAYOUTS
+        kw = {"x_pair": D.pack_x_pair(xh, xl)} if exact else {}
         err = 0.0
         for accumulate in (False, True):
             yh, yl = y0h.clone(), y0l.clone()
-            kernel(b, xh, xl, yh, yl, accumulate=accumulate)
-            got = combine_f64(yh.view(-1, 8, 128)[rows],
-                              yl.view(-1, 8, 128)[rows])
-            exp = combine_f64(*(dd_add_dd(*base, *want) if accumulate
-                                else want))
-            e = (got - exp).abs().max().item()
-            if not e <= DD_TOL * exp.abs().max().item():
+            kernel(b, xh, xl, yh, yl, accumulate=accumulate, **kw)
+            got = (yh.view(-1, 8, 128)[rows], yl.view(-1, 8, 128)[rows])
+            exp = dd_add_dd(*base, *want) if accumulate else want
+            e = (combine_f64(*got) - combine_f64(*exp)).abs().max().item()
+            ok = (all(torch.equal(g, w) for g, w in zip(got, exp)) if exact
+                  else e <= DD_TOL * combine_f64(*exp).abs().max().item())
+            if not ok:
                 fail(f"{tag} ({b.layout} dd, accumulate={accumulate}): "
-                     f"max|k-p| = {e}")
+                     f"max|k-p| = {e}{' (must be equal)' if exact else ''}")
             err = max(err, e)
         st = stats_dd[b.layout]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         yh, yl = y0h.clone(), y0l.clone()
-        ms_k = device_time_fn(kernel, b, xh, xl, yh, yl, device=dev) * 1e3
-        ms_p = device_time_fn(plain, b, xh, xl, device=dev,
-                              reps=PLAIN_DD_REPS) * 1e3
-        call_k = time_fn(kernel, b, xh, xl, yh, yl, device=dev) * 1e3
-        call_p = time_fn(plain, b, xh, xl, device=dev) * 1e3
+        ms_k = device_time_fn(lambda: kernel(b, xh, xl, yh, yl, **kw),
+                              device=dev) * 1e3
+        ms_p, call_p = plain_ms(plain, b, xh, xl, reps=PLAIN_DD_REPS)
+        call_k = time_fn(lambda: kernel(b, xh, xl, yh, yl, **kw),
+                         device=dev) * 1e3
         bound, nnz = bound_ms(b, (xh, xl))
+        chunks = f" chunks={S._sg_chunks(b)}" if b.layout == "sg" else ""
         print(f"{tag} {b.layout} dd k={b.k} groups={b.n_groups} "
-              f"span={b.span} ja={str(b.ja.dtype)[6:]}"
-              f"{' add_into' if b.add_into else ''}: device kernel "
+              f"span={b.span}{chunks} ja={str(b.ja.dtype)[6:]}"
+              f"{' add_into' if b.add_into else ''}"
+              f"{' slots' if b.sg_slots else ''}: device kernel "
               f"{ms_k:.4f} ms, plain {ms_p:.4f} ms; call kernel "
               f"{call_k:.4f} ms, plain {call_p:.4f} ms; "
               f"planes {bytes_read(b)} B read "
@@ -1017,14 +1065,46 @@ def main() -> int:
               flush=True)
         if phase:
             take_row(st, b, nnz, (nnz, ms_k, ms_p, tag, b.k, b.n_groups,
-                                  bound, phase))
+                                  bound, phase, bytes_read(b)))
+        return ms_k
+
+    def wl_padded(tag, hb, b, xs, dd):
+        """A wl bin's padded and compacted slots and bytes, and its kernel
+        (storing) against the padded layout's result, bit for bit."""
+        n = (int(b.group_ids.max()) + 1) * 1024
+        ys = [torch.zeros(n, device=dev) for _ in xs]
+        if dd:
+            D.wl_bin_dd(b, *xs, *ys)
+            want = D.wl_padded_plain_dd(hb, *xs)
+        else:
+            S.wl_bin(b, *xs, *ys)
+            want = (S.wl_padded_plain(hb, xs[0], b.as_.dtype),)
+        rows = b.group_ids.long()
+        if not all(torch.equal(y.view(-1, 8, 128)[rows], w)
+                   for y, w in zip(ys, want)):
+            fail(f"{tag}: the compacted wl kernel differs from the padded "
+                 "layout's result")
+        padded, kept = int(np.asarray(hb.ja).size), b.ja.numel()
+        entries = int((np.asarray(hb.as_) != 0).sum())
+        vb = value_bytes(b)
+        print(f"{tag} wl k={hb.k} groups={hb.n_groups}: padded {padded} "
+              f"slots ({padded * (vb + 1)} B at {vb} B a value and the "
+              f"packed 1 B lane index), compacted {kept} slots "
+              f"({bytes_read(b)} B with 2 B codes, row lengths and block "
+              f"offsets); {entries} entries, {kept / max(entries, 1):.4f}x "
+              f"of them, {padded / max(kept, 1):.3f}x fewer slots; kernel "
+              f"equals the padded result bit for bit", flush=True)
 
     for name, sell, _, x, csr in runs:
         uploads = [(dt, False) for dt in (torch.float32, torch.bfloat16)]
         if name in SB_I16_PHASES:
             uploads += [(dt, True) for dt in (torch.float32, torch.bfloat16)]
         for dtype, i16 in uploads:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             d = S.device_put_sell(sell, dtype, device=dev, sb_i16=i16)
+            torch.cuda.synchronize()
+            up_s = time.perf_counter() - t0
             if i16 and not any(b.ja.dtype == torch.int16 for b in d.bins):
                 fail(f"{name}: sb_i16 packed no bin")
             xt = S.device_put_x(x, sell.ncols, device=dev)
@@ -1055,11 +1135,14 @@ def main() -> int:
                   f"device bytes {nb} ({nb / dev_k / 1e12:.3f} TB/s), "
                   f"read {nread} ({nread / dev_k / 1e12:.3f} TB/s); matrix "
                   f"bound {need:.4f} ms; max|k-p| "
-                  f"{(y_k - y_p).abs().max().item():.3e}{lib}", flush=True)
+                  f"{(y_k - y_p).abs().max().item():.3e}; upload "
+                  f"{up_s:.3f} s{lib}", flush=True)
             y0 = torch.randn(d.num_groups * 1024, device=dev)
             for i, b in enumerate(d.bins):
                 check_bin(f"{tag} bin {i}", b, xt, y0,
                           name if dtype == torch.float32 and not i16 else None)
+                if b.layout == "wl" and not i16:
+                    wl_padded(f"{tag} bin {i}", sell.bins[i], b, (xt,), False)
             del d, xt, y_k, y_p, y0
             torch.cuda.empty_cache()
 
@@ -1067,7 +1150,11 @@ def main() -> int:
         if sell is None:
             continue
         for i16 in (False, True) if name in SB_I16_PHASES else (False,):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             d = D.device_put_sell_dd(sell, device=dev, sb_i16=i16)
+            torch.cuda.synchronize()
+            up_s = time.perf_counter() - t0
             if i16 and not any(b.ja.dtype == torch.int16 for b in d.bins):
                 fail(f"{name}: sb_i16 packed no dd bin")
             xh, xl = D.device_put_x_dd(x, sell.ncols, device=dev)
@@ -1094,12 +1181,27 @@ def main() -> int:
                   f"{calculate_flops(sell.nnz, dev_k) / 1e9:.3f} GFLOPS; "
                   f"device bytes {nb} ({nb / dev_k / 1e12:.3f} TB/s), "
                   f"read {nread} ({nread / dev_k / 1e12:.3f} TB/s); matrix "
-                  f"bound {need:.4f} ms; max|k-p| {e:.3e}{lib}", flush=True)
+                  f"bound {need:.4f} ms; max|k-p| {e:.3e}; upload "
+                  f"{up_s:.3f} s{lib}", flush=True)
             y0h = torch.randn(d.num_groups * 1024, device=dev)
             y0l = y0h * 2.0**-30
+            per_bin = []  # (bin, its kernel's device ms alone)
             for i, b in enumerate(d.bins):
-                check_bin_dd(f"{tag} bin {i}", b, xh, xl, y0h, y0l,
-                             None if i16 else name)
+                ms = check_bin_dd(f"{tag} bin {i}", b, xh, xl, y0h, y0l,
+                                  None if i16 else name)
+                per_bin.append((f"{b.layout} k={b.k} g={b.n_groups}"
+                                f"{' add_into' if b.add_into else ''}", ms))
+                if b.layout == "wl" and not i16:
+                    wl_padded(f"{tag} bin {i}", sell.bins[i], b, (xh, xl),
+                              True)
+            launched0 = sum(w.launches for w in dd_wrappers.values())
+            D.sell_spmv_dd(d, xh, xl)
+            launched = sum(w.launches for w in dd_wrappers.values()) - launched0
+            print(f"{tag} SpMV bin by bin (kernel device ms, each alone): "
+                  f"{'; '.join(f'{what} {ms:.4f}' for what, ms in per_bin)}"
+                  f"; sum {sum(ms for _, ms in per_bin):.4f} ms against the "
+                  f"SpMV's {dev_k * 1e3:.4f} ms; {launched} wrapper launches "
+                  "a SpMV", flush=True)
             del d, xh, xl, y_k, y_p, y0h, y0l
             torch.cuda.empty_cache()
 
@@ -1321,17 +1423,23 @@ def main() -> int:
         want = plain(b, xt)
         atol = ATOL_REL * float(want.abs().max())
         rows = b.group_ids.long()
+        exact = b.layout == "wl"  # its plain version: the kernel's order
         err = 0.0
         for accumulate in (False, True):
             y = rhs_copy(y0)
             kernel(b, xt, y, accumulate=accumulate)
             got = y.view(-1, 8, 128, rhs)[rows]
+            exp = want
             if accumulate:
-                got = got - y0.view(-1, 8, 128, rhs)[rows]
-            e = (got - want).abs().max().item()
-            if not torch.allclose(got, want, rtol=RTOL, atol=atol):
+                if exact:
+                    exp = y0.view(-1, 8, 128, rhs)[rows] + want
+                else:
+                    got = got - y0.view(-1, 8, 128, rhs)[rows]
+            e = (got - exp).abs().max().item()
+            if not (torch.equal(got, exp) if exact else torch.allclose(
+                    got, exp, rtol=RTOL, atol=atol)):
                 fail(f"{tag} ({b.layout} SpMM, accumulate={accumulate}): "
-                     f"max|k-p| = {e}")
+                     f"max|k-p| = {e}{' (must be equal)' if exact else ''}")
             err = max(err, e)
         st = mm_stats[b.layout]
         st["max_abs_err"] = max(st["max_abs_err"], err)
@@ -1339,11 +1447,11 @@ def main() -> int:
             return
         y = rhs_copy(y0)
         ms_k = device_time_fn(kernel, b, xt, y, device=dev) * 1e3
-        ms_p = device_time_fn(plain, b, xt, device=dev,
-                              reps=PLAIN_SPMM_REPS) * 1e3
+        ms_p = plain_ms(plain, b, xt, reps=PLAIN_SPMM_REPS)[0]
         call_k = time_fn(kernel, b, xt, y, device=dev) * 1e3
         nnz, n_x, n_y = bin_counts(b, xt.shape[0])
-        bound, by = spmm_need(nnz, b.as_.element_size(), n_x, n_y, rhs)
+        bound, by = spmm_need(nnz, b.as_.element_size(), n_x, n_y, rhs,
+                              col_bytes=2 if exact else 4)
         planes = nbytes(b.ja, b.as_) + (n_x + n_y) * rhs * 4
         print(f"{tag} {b.layout} SpMM R={rhs} k={b.k} groups={b.n_groups}: "
               f"device kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; call "
@@ -1353,7 +1461,7 @@ def main() -> int:
               f"ms ({by}, {nnz} entries); max|k-p| {err:.3e}", flush=True)
         if rhs == SPMM_RHS and (st["best"] is None or nnz > st["best"][0]):
             st["best"] = (nnz, ms_k, ms_p, tag, b.k, b.n_groups, bound, by,
-                          phase)
+                          phase, bytes_read(b))
 
     def columns_equal_spmv(tag, d, X):
         """Column j of the SpMM is the SpMV kernel on X[:, j], bit for
@@ -1623,7 +1731,7 @@ def main() -> int:
             ("", KERNELS, stats, launches, torch.float32),
             (" dd", DD_KERNELS, stats_dd, launches_dd, torch.float64)):
         for lay, (kname, source, replaces) in kernels.items():
-            nnz, ms_k, ms_p, tag, k, ng, bound, phase = \
+            nnz, ms_k, ms_p, tag, k, ng, bound, phase, planes = \
                 run_stats[lay]["best"]
             hbm = "" if run_stats[lay]["key"][0] else ", L2-resident"
             print(f"{kname}: device times at its largest main-path bin "
@@ -1634,7 +1742,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launched[lay],
                 "max_abs_err": run_stats[lay]["max_abs_err"], "ms": ms_k,
                 "plain_ms": ms_p, "bound_ms": bound, "bound_by": "bytes",
-                "library_ms": library[phase, lib_dtype][0]})
+                "library_ms": library[phase, lib_dtype][0],
+                "plane_bytes": planes})
     for kind, (kname, source, replaces) in PR_KERNELS.items():
         ms_k, ms_p, err, bound = pr_stats[kind]
         lib_key = {"pr": ("webbase_pr", torch.float32),
@@ -1647,12 +1756,14 @@ def main() -> int:
             "bound_ms": bound, "bound_by": "bytes",
             "library_ms": library[lib_key][0]})
     for key, (kname, source, replaces) in SPMM_KERNELS.items():
+        extra = {}
         if key in BSR.ROUTES:
             ms_k, ms_p, bound, by, lib = bsr_rows[key]
             where = f"band64_250k f32, B={BSR_RHS[0]}"
         else:
-            nnz, ms_k, ms_p, tag, k, ng, bound, by, phase = \
+            nnz, ms_k, ms_p, tag, k, ng, bound, by, phase, planes = \
                 mm_stats[key]["best"]
+            extra = {"plane_bytes": planes}
             lib = cusparse_mm[phase, SPMM_RHS]
             where = f"{tag}, k={k}, {ng} groups, {nnz} entries, R={SPMM_RHS}"
         print(f"{kname}: device times at its largest main-path run "
@@ -1662,7 +1773,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches_mm[key],
             "max_abs_err": mm_stats[key]["max_abs_err"], "ms": ms_k,
             "plain_ms": ms_p, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib})
+            "library_ms": lib, **extra})
     print(f"smoke ran {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": summary}))

@@ -17,9 +17,8 @@ Stages, in the order they run:
   from the storage rounding;
 * ``sell_dd`` — fp64-class double-double (≙ ``pallas_sell_dd``): values
   and x split into f32 (hi, lo) pairs, y combined and segment-summed in
-  fp64 and validated against the fp64 oracle. The dd kernels refuse
-  slot-packed sg bins, so a SELL that has them is rebuilt in rows mode for
-  this stage (``convert_sell_dd_s``);
+  fp64 and validated against the fp64 oracle, on the same SELL as
+  ``sell`` (the dd kernels take slot-packed sg bins);
 * ``hll`` — the HLL matrix, padding slots kept, on the SELL kernels
   (≙ ``pallas_hll``); skipped past ``ELL_MAX_ELEMENTS`` padded entries or a
   block MAXNZ above 256, as the JAX harness skips it;
@@ -175,8 +174,7 @@ class MatrixResult:
     csr: CSRMatrix | None = None       # the matrix the fp64 oracle ran
                                        # (reordered under cfg.reorder)
     sell: SellMatrix | None = None     # the host SELL sell/sell_bf16 ran
-    sell_dd: SellMatrix | None = None  # the one sell_dd ran (rows mode
-                                       # where sell has slot-packed sg bins)
+    sell_dd: SellMatrix | None = None  # the one sell_dd ran: sell
     hll: HLLMatrix | None = None       # serial_hll / ell / hll's HLL
     sell_sigma: SellMatrix | None = None  # the SELL-C-sigma sell_sigma ran
     pr: object = None       # PRMatrix | PanelPRMatrix the pr stage ran
@@ -569,24 +567,12 @@ def _sell_stages(res, want, csr_k, seg_map, x_dt, y_ref, y_dt, xt, xh, xl,
     if "sell_dd" not in want:
         return
 
-    # fp64-class: slot-packed sg bins sum several slots onto one row, which
-    # the dd kernels refuse, so such a SELL is rebuilt in rows mode (the
-    # same sigma rule; run_matrix builds no column panels)
-    sell_dd = sell
-    if any(b.sg_slots for b in sell.bins):
-        t0 = time.perf_counter()
-        sell_dd = _build_sell(csr_k, name, log, layout=cfg.sell_layout,
-                              sg_slots=False)
-        fstats["convert_sell_dd_s"] = time.perf_counter() - t0
-        log(f"[{name}] slot-packed sg bins -> rows-mode SELL for sell_dd "
-            f"in {fstats['convert_sell_dd_s']:.2f} s")
-    res.sell_dd = sell_dd
-    d = device_put_sell_dd(sell_dd, device=device)
+    res.sell_dd = sell
+    d = device_put_sell_dd(sell, device=device)
     flush_hbm(device)
     y64 = combine_f64(*sell_spmv_dd(d, xh, xl)).cpu().numpy()
-    ids_dd = _kernel_ids(sell_dd, seg_map, csr_k.nrows)
-    if ids_dd is not None:  # host-exact f64 segment reduction
-        y64 = np.bincount(ids_dd, weights=y64, minlength=res.nrows)[:res.nrows]
+    if ids is not None:  # host-exact f64 segment reduction
+        y64 = np.bincount(ids, weights=y64, minlength=res.nrows)[:res.nrows]
     _record(res, device, log, "sell_dd",
             _timed(cfg, device, sell_spmv_dd, d, xh, xl), y_ref, y64,
             " (fp64-class)")

@@ -2,8 +2,9 @@
 //
 // A group is 1024 rows: 8 row-blocks of 128 rows. Every kernel here runs one
 // block of 128 threads per (group, row-block), or sg one block of 1024 per
-// group, and one thread per output row, so thread j of a block reads lane j
-// of every (., 128) plane row: the value and index streams coalesce.
+// group (or per chunk of a group's tiles), and one thread per output row, so
+// thread j of a block reads lane j of every (., 128) plane row: the value
+// and index streams coalesce.
 //
 // A kernel decodes each slot of its layout into the slot's plane offset and
 // its x column, and hands both to a sum policy, which holds the value, x and
@@ -16,6 +17,13 @@
 //     product by dd::mul_dd, the row's sum by dd::add_dd (dd.cuh), which
 //     nvcc cannot contract. With `accumulate` the row's sum is added onto y
 //     (f32 add, or dd::add_dd of y's pair and the sum), else stored.
+// The wl and sg kernels batch their loads: a slot's value is loaded apart
+// from its add (`load`, then `add(acc, v, col)`), and partial sums of one
+// row are joined by `combine`:
+//   F32Slots<T>: F32Sum's arithmetic; `combine` one f32 add;
+//   DDPairs: one (hi, lo) float2 value plane and one interleaved (hi, lo)
+//     x table, so a slot is one 8-byte value load and one 8-byte gather;
+//     DDSum's arithmetic, y still two f32 planes; `combine` dd::add_dd.
 #pragma once
 
 #include <cstdint>
@@ -42,9 +50,6 @@ struct F32Sum {
   float* y;
 
   __device__ __forceinline__ Acc zero() const { return 0.f; }
-  __device__ __forceinline__ float product(int64_t off, int col) const {
-    return widen(__ldg(as + off)) * __ldg(x + col);
-  }
   __device__ __forceinline__ void add(Acc& acc, int64_t off, int col) const {
     acc = fmaf(widen(__ldg(as + off)), __ldg(x + col), acc);
   }
@@ -55,7 +60,7 @@ struct F32Sum {
 };
 
 struct DDSum {
-  struct Acc {
+  struct alignas(8) Acc {
     float hi, lo;
   };
   const float* as_hi;
@@ -81,6 +86,39 @@ struct DDSum {
     }
     y_hi[row] = acc.hi;
     y_lo[row] = acc.lo;
+  }
+};
+
+template <typename T>
+struct F32Slots : F32Sum<T> {
+  using Val = T;
+  __device__ __forceinline__ Val load(int64_t off) const {
+    return __ldg(this->as + off);
+  }
+  __device__ __forceinline__ void add(float& acc, Val v, int col) const {
+    acc = fmaf(widen(v), __ldg(this->x + col), acc);
+  }
+  __device__ __forceinline__ static float combine(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+};
+
+struct DDPairs : DDSum {
+  using Val = float2;  // (hi, lo)
+  const float2* as2;
+  const float2* x2;
+  __device__ __forceinline__ Val load(int64_t off) const {
+    return __ldg(as2 + off);
+  }
+  __device__ __forceinline__ void add(Acc& acc, Val v, int col) const {
+    const float2 xv = __ldg(x2 + col);
+    float ph, pl;
+    dd::mul_dd(v.x, v.y, xv.x, xv.y, ph, pl);
+    dd::add_dd(acc.hi, acc.lo, ph, pl);
+  }
+  __device__ __forceinline__ static Acc combine(Acc a, Acc b) {
+    dd::add_dd(a.hi, a.lo, b.hi, b.lo);
+    return a;
   }
 };
 

@@ -1,140 +1,217 @@
 // SG (shared-window) SELL SpMV on Hopper, for scattered short-row matrices,
-// f32 and double-double.
+// f32, bf16 and double-double, slots and rows mode.
 //
 // Replaces the TPU kernels sparsematrixvectormultiplication_tpu/ops/pallas_sell.py
-// `_kernel_sg` and ops/pallas_sell_dd.py `_kernel_sg_dd` (rows mode only: dd
-// sums need row-unique positions). A bin group g holds T tiles of (8, 128)
-// slots; slot (p, j) of tile t sits at plane row (g*T + t)*8 + p, lane j.
-// Its index word
-// md = (doff*8 + sigma)*128 + m names column 128*(w0 + doff) + m, with the
-// tile's window base w0 = table[g, t*stride] (stride 2 for dynamic bins,
-// whose table also holds pass counts, else 1). Its product lands on row
-// sigma*128 + j of the group: sigma = md bits 7-9 in slots mode, or the
-// position p itself in rows mode. Only the first slab_count[g] tiles are
-// real; padding tiles hold zero values and are not read. The TPU kernel
-// swept the window in V masked passes because a TPU core gathers only within
-// a 128-lane row; the static V and the dynamic pass counts bound those
-// passes and do not change what an entry computes, so they are not read here.
+// `_kernel_sg` and ops/pallas_sell_dd.py `_kernel_sg_dd`. A bin group g
+// holds T tiles of (8, 128) slots; slot (p, j) of tile t sits at plane row
+// (g*T + t)*8 + p, lane j. Its index word md = (doff*8 + sigma)*128 + m
+// names column 128*(w0 + doff) + m, with the tile's window base
+// w0 = table[g, t*stride] (stride 2 for dynamic bins, whose table also
+// holds pass counts, else 1). Its product lands on row sigma*128 + j of the
+// group: sigma = md bits 7-9 in slots mode, or the position p itself in
+// rows mode. Only the first slab_count[g] tiles are real; padding tiles
+// hold zero values and are not read. The TPU kernel swept the window in V
+// masked passes because a TPU core gathers only within a 128-lane row; the
+// static V and the dynamic pass counts bound those passes and do not change
+// what an entry computes, so they are not read here. The TPU dd kernel took
+// rows mode only: its error-free transforms could add one product per
+// output position. A GPU thread keeps a dd sum per sigma instead.
 //
 // What bounds it on an H100: bytes and, at small group counts, occupancy.
-// Every slot streams its value (4 B f32, 2 B bf16, 8 B dd) and its 4-byte
-// md; x is re-read through L1/L2. Design: one 1024-thread block per group, thread
-// (p, j) walks slot (p, j) of every real tile, so a warp reads 128
-// consecutive bytes of each plane row. Slots mode keeps 8 register sums
-// selected by sigma and reduces them over p through shared memory in a fixed
-// order (no atomics: the f32 sum is the same on every run); rows mode needs
-// no reduction and takes either sum policy (f32 or dd). One block per group
-// gives few blocks on small bins: a 196-group bin is 196 blocks of 1024
-// threads for 132 SMs.
+// Every real tile streams its values (f32 4 B, bf16 2, dd one 8-byte (hi,
+// lo) pair a slot) and its 4-byte md; x is gathered through L1/L2 (dd: one
+// 8-byte pair from the interleaved table). Design: a 1024-thread block per
+// (group, chunk); thread (p, j) walks slot (p, j) of the chunk's tiles in
+// tile order, kTileBatch tiles' loads in flight, so a warp reads 128
+// consecutive lanes of each plane row. Slots mode keeps thread (p, j)'s 8
+// sigma sums in shared memory, part[p][sigma][j], which only that thread
+// touches while it sums (one load and one store a slot, no select over 8
+// registers); after a barrier thread (p, j) joins row sigma = p over q =
+// 0..7 in that order. Rows mode sums in a register. With chunks == 1 the
+// block writes its rows (stored, or added onto y with `accumulate`). A bin
+// of few groups is split (ops/sell.py:_sg_chunks): chunk c of group g takes
+// its real tiles [c*n/chunks, (c+1)*n/chunks), n = min(slab_count[g], T),
+// writes its partial rows to scratch[g, c, 1024], and a second launch joins
+// each row's partials in chunk order and writes y once. No atomics: every
+// sum has one fixed order, so y is the same on every run.
 
 #include "sell_common.cuh"
 
 namespace sell {
 
 constexpr int kGroupThreads = kSublanes * kLanes;  // 1024: thread (p, j)
+constexpr int kTileBatch = 4;  // tiles whose loads are in flight together
+constexpr int kJoinThreads = 256;
 
 template <typename Sum, bool kSlots>
 __global__ void __launch_bounds__(kGroupThreads)
 sg_kernel(const int* __restrict__ group_ids, const int* __restrict__ table,
           const int* __restrict__ counts, const int* __restrict__ ja, Sum sum,
-          int T_tiles, int stride, int accumulate) {
-  const int64_t g = blockIdx.x;
+          typename Sum::Acc* __restrict__ scratch, int T_tiles, int stride,
+          int chunks, int accumulate) {
+  using Acc = typename Sum::Acc;
+  const int64_t g = blockIdx.x / chunks;
+  const int c = blockIdx.x % chunks;
   const int p = threadIdx.x / kLanes;
   const int j = threadIdx.x % kLanes;
-  const int n_tiles = min(counts[g], T_tiles);
+  const int n = min(__ldg(counts + g), T_tiles);
+  const int t0 = int(int64_t(c) * n / chunks);
+  const int t1 = int(int64_t(c + 1) * n / chunks);
   const int* w0 = table + g * T_tiles * stride;
-  int64_t off = (g * T_tiles * kSublanes + p) * kLanes + j;
-  const int64_t tile_step = int64_t(kSublanes) * kLanes;
-  if constexpr (kSlots) {  // f32 sums only
-    float acc[kSublanes] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int t = 0; t < n_tiles; ++t, off += tile_step) {
-      const int md = ja[off];
-      const int col =
-          (w0[t * stride] + (md >> 10)) * kLanes + (md & (kLanes - 1));
-      const float prod = sum.product(off, col);
-      const int sigma = (md >> 7) & (kSublanes - 1);
+  constexpr int64_t kTile = int64_t(kSublanes) * kLanes;
+  const int64_t off0 = ((g * T_tiles + t0) * kSublanes + p) * kLanes + j;
+
+  // thread (p, j)'s sums: 8 sigma rows in shared memory, or one register
+  extern __shared__ __align__(16) unsigned char smem[];
+  Acc* part = reinterpret_cast<Acc*>(smem);  // [p][sigma][j] (slots mode)
+  Acc* mine = part + p * kGroupThreads + j;  // mine[sigma*128]
+  Acc r = sum.zero();
+  if constexpr (kSlots) {
 #pragma unroll
-      for (int s = 0; s < kSublanes; ++s) acc[s] += sigma == s ? prod : 0.f;
+    for (int s = 0; s < kSublanes; ++s) mine[s * kLanes] = sum.zero();
+  }
+  for (int t = t0; t < t1; t += kTileBatch) {
+    int md[kTileBatch];
+    typename Sum::Val v[kTileBatch];
+#pragma unroll
+    for (int u = 0; u < kTileBatch; ++u) {
+      if (t + u < t1) {
+        const int64_t off = off0 + int64_t(t - t0 + u) * kTile;
+        md[u] = __ldg(ja + off);
+        v[u] = sum.load(off);
+      }
     }
-    __shared__ float part[kSublanes][kSublanes][kLanes];  // [p][sigma][j]
 #pragma unroll
-    for (int s = 0; s < kSublanes; ++s) part[p][s][j] = acc[s];
+    for (int u = 0; u < kTileBatch; ++u) {
+      if (t + u < t1) {
+        const int col = (__ldg(w0 + (t + u) * stride) + (md[u] >> 10)) *
+                            kLanes + (md[u] & (kLanes - 1));
+        if constexpr (kSlots) {
+          const int sigma = (md[u] >> 7) & (kSublanes - 1);
+          sum.add(mine[sigma * kLanes], v[u], col);
+        } else {
+          sum.add(r, v[u], col);
+        }
+      }
+    }
+  }
+  if constexpr (kSlots) {
     __syncthreads();
-    float result = 0.f;  // this thread now sums row sigma = p over the 8 slots
+    // thread (p, j) now joins row sigma = p: part[q][p][j] over q in order
+    const Acc* row = part + p * kLanes + j;
+    r = row[0];
 #pragma unroll
-    for (int q = 0; q < kSublanes; ++q) result += part[q][p][j];
-    sum.store(result, int64_t(group_ids[g]) * kGroupRows + p * kLanes + j,
+    for (int q = 1; q < kSublanes; ++q) {
+      r = Sum::combine(r, row[q * kGroupThreads]);
+    }
+  }
+  if (chunks == 1) {
+    sum.store(r, int64_t(group_ids[g]) * kGroupRows + threadIdx.x,
               accumulate);
   } else {
-    typename Sum::Acc acc = sum.zero();
-    for (int t = 0; t < n_tiles; ++t, off += tile_step) {
-      const int md = ja[off];
-      sum.add(acc, off,
-              (w0[t * stride] + (md >> 10)) * kLanes + (md & (kLanes - 1)));
-    }
-    sum.store(acc, int64_t(group_ids[g]) * kGroupRows + p * kLanes + j,
-              accumulate);
+    scratch[(g * chunks + c) * kGroupThreads + threadIdx.x] = r;
   }
 }
 
+// Row i of group g: its chunks' partials joined in chunk order, written once.
+template <typename Sum>
+__global__ void __launch_bounds__(kJoinThreads)
+sg_join_kernel(const int* __restrict__ group_ids,
+               const typename Sum::Acc* __restrict__ scratch, Sum sum,
+               int64_t n_groups, int chunks, int accumulate) {
+  const int64_t id = int64_t(blockIdx.x) * kJoinThreads + threadIdx.x;
+  if (id >= n_groups * kGroupThreads) return;
+  const int64_t g = id / kGroupThreads;
+  const int i = int(id % kGroupThreads);
+  const typename Sum::Acc* src = scratch + g * chunks * kGroupThreads + i;
+  typename Sum::Acc r = src[0];
+  for (int c = 1; c < chunks; ++c) r = Sum::combine(r, src[c * kGroupThreads]);
+  sum.store(r, int64_t(group_ids[g]) * kGroupRows + i, accumulate);
+}
+
 template <bool kSlots, typename Sum>
-int launch_sg(const int* group_ids, const int* table, const int* counts,
-              const int* ja, Sum sum, int64_t n_groups, int T_tiles,
-              int stride, int accumulate, void* stream) {
-  if (n_groups > 0) {
-    sg_kernel<Sum, kSlots><<<dim3(unsigned(n_groups)), kGroupThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        group_ids, table, counts, ja, sum, T_tiles, stride, accumulate);
+int launch_sg_mode(const int* group_ids, const int* table, const int* counts,
+                   const int* ja, Sum sum, void* scratch, int64_t n_groups,
+                   int T_tiles, int stride, int chunks, int accumulate,
+                   cudaStream_t stream) {
+  using Acc = typename Sum::Acc;
+  const auto kernel = sg_kernel<Sum, kSlots>;
+  const size_t smem = kSlots ? size_t(kSublanes) * kGroupThreads * sizeof(Acc)
+                             : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+  }
+  kernel<<<dim3(unsigned(n_groups * chunks)), kGroupThreads, smem, stream>>>(
+      group_ids, table, counts, ja, sum, static_cast<Acc*>(scratch), T_tiles,
+      stride, chunks, accumulate);
+  if (chunks > 1) {
+    const int64_t rows = n_groups * kGroupThreads;
+    sg_join_kernel<Sum><<<dim3(unsigned((rows + kJoinThreads - 1) /
+                                        kJoinThreads)),
+                          kJoinThreads, 0, stream>>>(
+        group_ids, static_cast<const Acc*>(scratch), sum, n_groups, chunks,
+        accumulate);
   }
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int launch_sg_f32(const int* group_ids, const int* table, const int* counts,
-                  const int* ja, const T* as, const float* x, float* y,
-                  int64_t n_groups, int T_tiles, int stride, int slots,
-                  int accumulate, void* stream) {
-  const F32Sum<T> sum{as, x, y};
-  return slots ? launch_sg<true>(group_ids, table, counts, ja, sum, n_groups,
-                                 T_tiles, stride, accumulate, stream)
-               : launch_sg<false>(group_ids, table, counts, ja, sum, n_groups,
-                                  T_tiles, stride, accumulate, stream);
+template <typename Sum>
+int launch_sg(const int* group_ids, const int* table, const int* counts,
+              const int* ja, Sum sum, void* scratch, int64_t n_groups,
+              int T_tiles, int stride, int slots, int chunks, int accumulate,
+              void* stream) {
+  if (n_groups <= 0) return int(cudaGetLastError());
+  if (chunks < 1 || (chunks > 1 && scratch == nullptr)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  return slots ? launch_sg_mode<true>(group_ids, table, counts, ja, sum,
+                                      scratch, n_groups, T_tiles, stride,
+                                      chunks, accumulate, s)
+               : launch_sg_mode<false>(group_ids, table, counts, ja, sum,
+                                       scratch, n_groups, T_tiles, stride,
+                                       chunks, accumulate, s);
 }
 
 }  // namespace sell
 
+// scratch: (n_groups, chunks, 1024) partial sums when chunks > 1 (f32, or
+// (hi, lo) pairs in dd), else unused
 extern "C" int sell_sg_f32(const int* group_ids, const int* table,
                            const int* counts, const int* ja, const float* as,
-                           const float* x, float* y, int64_t n_groups,
-                           int T_tiles, int stride, int slots, int accumulate,
+                           const float* x, float* y, void* scratch,
+                           int64_t n_groups, int T_tiles, int stride,
+                           int slots, int chunks, int accumulate,
                            void* stream) {
-  return sell::launch_sg_f32<float>(group_ids, table, counts, ja, as, x, y,
-                                    n_groups, T_tiles, stride, slots,
-                                    accumulate, stream);
+  return sell::launch_sg(group_ids, table, counts, ja,
+                         sell::F32Slots<float>{{as, x, y}}, scratch, n_groups,
+                         T_tiles, stride, slots, chunks, accumulate, stream);
 }
 
 extern "C" int sell_sg_bf16(const int* group_ids, const int* table,
                             const int* counts, const int* ja,
                             const __nv_bfloat16* as, const float* x, float* y,
-                            int64_t n_groups, int T_tiles, int stride,
-                            int slots, int accumulate, void* stream) {
-  return sell::launch_sg_f32<__nv_bfloat16>(group_ids, table, counts, ja, as,
-                                            x, y, n_groups, T_tiles, stride,
-                                            slots, accumulate, stream);
+                            void* scratch, int64_t n_groups, int T_tiles,
+                            int stride, int slots, int chunks, int accumulate,
+                            void* stream) {
+  return sell::launch_sg(group_ids, table, counts, ja,
+                         sell::F32Slots<__nv_bfloat16>{{as, x, y}}, scratch,
+                         n_groups, T_tiles, stride, slots, chunks, accumulate,
+                         stream);
 }
 
-// rows mode only: the dd sums need one destination row per slot position,
-// so a slots-mode bin is refused without a launch
+// as2: (hi, lo) value pairs; x2: the interleaved (hi, lo) x table
 extern "C" int sell_sg_dd(const int* group_ids, const int* table,
-                          const int* counts, const int* ja,
-                          const float* as_hi, const float* as_lo,
-                          const float* x_hi, const float* x_lo, float* y_hi,
-                          float* y_lo, int64_t n_groups, int T_tiles,
-                          int stride, int slots, int accumulate,
+                          const int* counts, const int* ja, const float2* as2,
+                          const float2* x2, float* y_hi, float* y_lo,
+                          void* scratch, int64_t n_groups, int T_tiles,
+                          int stride, int slots, int chunks, int accumulate,
                           void* stream) {
-  if (slots) return int(cudaErrorInvalidValue);
-  return sell::launch_sg<false>(
+  return sell::launch_sg(
       group_ids, table, counts, ja,
-      sell::DDSum{as_hi, as_lo, x_hi, x_lo, y_hi, y_lo}, n_groups, T_tiles,
-      stride, accumulate, stream);
+      sell::DDPairs{{nullptr, nullptr, nullptr, nullptr, y_hi, y_lo}, as2,
+                    x2},
+      scratch, n_groups, T_tiles, stride, slots, chunks, accumulate, stream);
 }

@@ -21,14 +21,14 @@
 // crops. Pad slots of a bin have value 0 and name a real or the spare
 // all-zero slab, so the x table must hold slab_table_rows(ncols)*128 rows.
 //
-// wl reads the packed index plane (four 7-bit lane indices per int32, byte
-// t % 4 of packed tile t / 4) that the port's upload always writes, so one
-// DeviceSell serves SpMV and SpMM. This departs from the JAX function,
-// whose `_kernel_wl_spmm` reads unpacked lane offsets and returns wrong
-// values on its own default (packed) upload.
+// wl reads the compacted planes that the port's upload writes (sell_wl.cu:
+// per (group, row-block) a plane as wide as its longest row, each real slot
+// a value and a 2-byte code), so one DeviceSell serves SpMV and SpMM. This
+// departs from the JAX function, whose `_kernel_wl_spmm` reads unpacked
+// lane offsets and returns wrong values on its own default (packed) upload.
 //
-// What bounds it on an H100: bytes. Every padded slot streams its value
-// (4 B f32, 2 B bf16) and its index (4 B k-major, 1 B wl) once for all R;
+// What bounds it on an H100: bytes. Every slot streams its value (4 B f32,
+// 2 B bf16) and its index (4 B k-major, a 2 B code wl) once for all R;
 // y is written once, R f32 per row. The x table (R*4 B per column: 41 MB
 // for the headline matrix at R = 16) is re-read through L1/L2 and fits the
 // 50 MB L2 at the sizes the harness runs. R*2 FLOP per entry against 6-8 B
@@ -105,40 +105,32 @@ k_major_spmm_kernel(const int* __restrict__ group_ids,
 template <typename T, int NACC>
 __global__ void __launch_bounds__(kLanes)
 wl_spmm_kernel(const int* __restrict__ group_ids, const int* __restrict__ slabs,
-               const int* __restrict__ packed, const T* __restrict__ as,
+               const int* __restrict__ plane_off,
+               const int* __restrict__ row_len,
+               const int16_t* __restrict__ codes, const T* __restrict__ as,
                const float* __restrict__ x, float* __restrict__ y, int NW,
-               int L, int nq, int64_t ldx, int64_t ldy, int accumulate) {
+               int nq, int64_t ldx, int64_t ldy, int accumulate) {
   extern __shared__ int x_base[];  // NW*8 slot columns 128*slab
-  const int64_t g = blockIdx.x / kSublanes;
-  const int rb = blockIdx.x % kSublanes;
+  const int b = blockIdx.x;        // g*8 + rb
   const int j = threadIdx.x;
   const int nslot = NW * 8;
-  const int* block_slabs = slabs + (g * kSublanes + rb) * nslot;
-  for (int q = j; q < nslot; q += kLanes) x_base[q] = block_slabs[q] * kLanes;
+  const int* block_slabs = slabs + int64_t(b) * nslot;
+  for (int q = j; q < nslot; q += kLanes) {
+    x_base[q] = __ldg(block_slabs + q) * kLanes;
+  }
   __syncthreads();
 
-  const int Tn = kSublanes * NW * L;
-  const int Tp = (Tn + 3) / 4;
-  const int64_t vals = g * Tn * 8 * kLanes + j;  // plane offset of tile 0
-  const int* idx = packed + g * Tp * 8 * kLanes + j;
+  const int n = __ldg(row_len + int64_t(b) * kLanes + j);
+  int64_t off = int64_t(__ldg(plane_off + b)) * kLanes + j;
   RowSums<NACC> acc;
   acc.zero();
-  int t = rb * NW * L;
-  for (int w = 0; w < NW; ++w) {
-    const int* wbase = x_base + w * 8;
-    for (int l = 0; l < L; ++l, ++t) {
-      const int shift = 8 * (t & 3);
-      const int64_t vt = vals + int64_t(t) * 8 * kLanes;
-      const int* it = idx + int64_t(t >> 2) * 8 * kLanes;
-#pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const int m = (it[s * kLanes] >> shift) & (kLanes - 1);
-        acc.add(widen(__ldg(as + vt + s * kLanes)),
-                x + int64_t(wbase[s] + m) * ldx, nq);
-      }
-    }
+  for (int q = 0; q < n; ++q, off += kLanes) {
+    const int c = __ldg(codes + off);
+    acc.add(widen(__ldg(as + off)),
+            x + int64_t(x_base[c >> 7] + (c & (kLanes - 1))) * ldx, nq);
   }
-  const int64_t row = int64_t(group_ids[g]) * kGroupRows + rb * kLanes + j;
+  const int64_t row = int64_t(group_ids[b / kSublanes]) * kGroupRows +
+                      (b % kSublanes) * kLanes + j;
   acc.store(y + row * ldy, nq, accumulate);
 }
 
@@ -171,18 +163,18 @@ int launch_k_major_spmm(const int* group_ids, const int* ja, const T* as,
 }
 
 template <typename T>
-int launch_wl_spmm(const int* group_ids, const int* slabs, const int* packed,
-                   const T* as, const float* x, float* y, int64_t n_groups,
-                   int NW, int L, int W, int64_t ldx, int64_t ldy,
-                   int accumulate, void* stream) {
+int launch_wl_spmm(const int* group_ids, const int* slabs, const int* plane_off,
+                   const int* row_len, const int16_t* codes, const T* as,
+                   const float* x, float* y, int64_t n_groups, int NW, int W,
+                   int64_t ldx, int64_t ldy, int accumulate, void* stream) {
   return with_nacc(W, [&](auto nacc) {
     if (n_groups > 0) {
       wl_spmm_kernel<T, decltype(nacc)::value>
           <<<dim3(unsigned(n_groups * kSublanes)), kLanes,
              size_t(NW) * 8 * sizeof(int),
              static_cast<cudaStream_t>(stream)>>>(
-              group_ids, slabs, packed, as, x, y, NW, L, W / 4, ldx, ldy,
-              accumulate);
+              group_ids, slabs, plane_off, row_len, codes, as, x, y, NW,
+              W / 4, ldx, ldy, accumulate);
     }
     return int(cudaGetLastError());
   });
@@ -209,19 +201,24 @@ extern "C" int sell_k_major_spmm_bf16(const int* group_ids, const int* ja,
 }
 
 extern "C" int sell_wl_spmm_f32(const int* group_ids, const int* slabs,
-                                const int* packed, const float* as,
+                                const int* plane_off, const int* row_len,
+                                const int16_t* codes, const float* as,
                                 const float* x, float* y, int64_t n_groups,
-                                int NW, int L, int W, int64_t ldx, int64_t ldy,
+                                int NW, int W, int64_t ldx, int64_t ldy,
                                 int accumulate, void* stream) {
-  return sell::launch_wl_spmm(group_ids, slabs, packed, as, x, y, n_groups,
-                              NW, L, W, ldx, ldy, accumulate, stream);
+  return sell::launch_wl_spmm(group_ids, slabs, plane_off, row_len, codes, as,
+                              x, y, n_groups, NW, W, ldx, ldy, accumulate,
+                              stream);
 }
 
 extern "C" int sell_wl_spmm_bf16(const int* group_ids, const int* slabs,
-                                 const int* packed, const __nv_bfloat16* as,
-                                 const float* x, float* y, int64_t n_groups,
-                                 int NW, int L, int W, int64_t ldx,
-                                 int64_t ldy, int accumulate, void* stream) {
-  return sell::launch_wl_spmm(group_ids, slabs, packed, as, x, y, n_groups,
-                              NW, L, W, ldx, ldy, accumulate, stream);
+                                 const int* plane_off, const int* row_len,
+                                 const int16_t* codes,
+                                 const __nv_bfloat16* as, const float* x,
+                                 float* y, int64_t n_groups, int NW, int W,
+                                 int64_t ldx, int64_t ldy, int accumulate,
+                                 void* stream) {
+  return sell::launch_wl_spmm(group_ids, slabs, plane_off, row_len, codes, as,
+                              x, y, n_groups, NW, W, ldx, ldy, accumulate,
+                              stream);
 }

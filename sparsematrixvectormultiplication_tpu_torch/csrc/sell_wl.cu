@@ -1,80 +1,97 @@
-// Window-layered (wl) SELL-C-128 SpMV on Hopper, f32 and double-double.
+// Window-layered (wl) SELL-C-128 SpMV on Hopper over compacted planes, f32,
+// bf16 and double-double.
 //
 // Replaces the TPU kernels sparsematrixvectormultiplication_tpu/ops/pallas_sell.py
-// `_kernel_wl` and ops/pallas_sell_dd.py `_kernel_wl_dd` (packed index
-// plane). Layout of one bin group g, with NW windows of 8 slab slots per
-// row-block and L layer tiles per window:
-//   tile t = (rb*NW + w)*L + l of the group, for row-block rb < 8, w < NW, l < L;
-//   value of slot s < 8, row rb*128+j: as[(g*Tn + t)*8 + s, j], Tn = 8*NW*L;
-//   lane index m: byte t%4 of packed[(g*Tp + t/4)*8 + s, j], Tp = ceil(Tn/4);
-//   slab of (rb, w, s): slabs[g, (rb*NW + w)*8 + s]; pad slots name the spare
-//   all-zero slab, so x must be padded to slab_table_rows(ncols)*128;
-//   y[gid*1024 + rb*128 + j] = sum over w, l, s of as * x[128*slab + m].
-// The TPU kernel built an 8-row window table and lane-gathered it once per
-// tile; a GPU thread gathers x[128*slab + m] directly.
+// `_kernel_wl` and ops/pallas_sell_dd.py `_kernel_wl_dd`. The host layout of
+// one bin group g, with NW windows of 8 slab slots per row-block and L layer
+// tiles per window: tile t = (rb*NW + w)*L + l, slot s < 8 of tile t holds,
+// for row rb*128 + j, a value and a lane index m; its column is
+// 128*slabs[g, (rb*NW + w)*8 + s] + m. Every row has NW*L*8 slots, and a
+// slot serves its lane's row whether that row has an entry there or not.
 //
-// What bounds it on an H100: bytes. Every padded slot streams its value
-// (4 B f32, 2 B bf16, 8 B dd) and one byte of packed lane index; x is re-read
-// through L1/L2. The fem3d_cube matrix (fem_3d(60,60,60,dof=3)) has 92.3M
-// padded wl slots: 0.46 GB per SpMV with f32 values, 0.28 GB with bf16, 0.83
-// GB dd. Design: one thread per row, one 128-thread block per (group,
-// row-block). The block's NW*8 slab ids are uniform across its threads, so
-// they are read once into shared memory as x offsets. Each packed index word
-// is read once per tile (four times per word, the repeats hit L1). Sums are
-// f32 whatever the value type, or dd pairs; y is written with a plain store,
-// or added onto with `accumulate` (column panels); rows within a bin are
-// unique, so neither needs atomics.
+// The upload (ops/sell.py:_compact_wl) keeps only the slots whose value is
+// not zero, row by row, in the order (w, l, s) in which the TPU kernel and
+// the previous padded kernel added them:
+//   block b = g*8 + rb owns plane rows [plane_off[b], plane_off[b + 1]), as
+//   many as its longest row has real slots; slot q < row_len[b*128 + j] of
+//   row rb*128 + j sits at (plane_off[b] + q)*128 + j, as its value and a
+//   2-byte code ((w*8 + s) << 7) | m, so its column is
+//   128*slabs[b*NW*8 + (code >> 7)] + (code & 127);
+//   y[gid*1024 + rb*128 + j] = sum over q < row_len, in q order.
+// A dropped slot only ever added an exact 0 (value 0 times a finite x), so y
+// equals the padded kernel's bit for bit on finite x, up to the sign of a
+// zero sum: fmaf(0, x, acc) == acc, and dd::add_dd of (0, 0) leaves a
+// normalised pair as it is.
+//
+// What bounds it on an H100: bytes. A slot streams its value (f32 4 B, bf16
+// 2, dd one 8-byte (hi, lo) pair) and its 2-byte code, coalesced (thread j
+// reads lane j of each 128-slot row), and gathers x through L1/L2 (dd: one
+// 8-byte (hi, lo) pair from the interleaved table). The headline
+// fem_3d(60,60,60,dof=3) has 50.8M entries in 92.3M padded wl slots; the
+// compacted planes hold about 1.015x the entries. Design: one thread per
+// row, one 128-thread block per (group, row-block); the block's NW*8 slab
+// ids are read once into shared memory as x offsets; each thread loads the
+// codes and values of kBatch slots before it adds them, in order, so it has
+// up to 2*kBatch loads in flight. Sums are f32 (one fmaf a slot, bf16
+// widened) or dd pairs; y is stored, or added onto with `accumulate`
+// (column panels); rows within a bin are unique, so neither needs atomics.
 
 #include "sell_common.cuh"
 
 namespace sell {
 
+constexpr int kBatch = 8;  // slots whose loads are in flight together
+
 template <typename Sum>
 __global__ void __launch_bounds__(kLanes)
 wl_kernel(const int* __restrict__ group_ids, const int* __restrict__ slabs,
-          const int* __restrict__ packed, Sum sum, int NW, int L,
+          const int* __restrict__ plane_off, const int* __restrict__ row_len,
+          const int16_t* __restrict__ codes, Sum sum, int NW,
           int accumulate) {
   extern __shared__ int x_base[];  // NW*8 slot offsets 128*slab into x
-  const int64_t g = blockIdx.x / kSublanes;
-  const int rb = blockIdx.x % kSublanes;
+  const int b = blockIdx.x;        // g*8 + rb
   const int j = threadIdx.x;
   const int nslot = NW * 8;
-  const int* block_slabs = slabs + (g * kSublanes + rb) * nslot;
-  for (int q = j; q < nslot; q += kLanes) x_base[q] = block_slabs[q] * kLanes;
+  const int* block_slabs = slabs + int64_t(b) * nslot;
+  for (int q = j; q < nslot; q += kLanes) {
+    x_base[q] = __ldg(block_slabs + q) * kLanes;
+  }
   __syncthreads();
 
-  const int Tn = kSublanes * NW * L;
-  const int Tp = (Tn + 3) / 4;
-  const int64_t vals = g * Tn * 8 * kLanes + j;  // plane offset of tile 0
-  const int* idx = packed + g * Tp * 8 * kLanes + j;
+  const int n = __ldg(row_len + int64_t(b) * kLanes + j);
+  int64_t off = int64_t(__ldg(plane_off + b)) * kLanes + j;
   typename Sum::Acc acc = sum.zero();
-  int t = rb * NW * L;
-  for (int w = 0; w < NW; ++w) {
-    const int* wbase = x_base + w * 8;
-    for (int l = 0; l < L; ++l, ++t) {
-      const int shift = 8 * (t & 3);
-      const int64_t vt = vals + int64_t(t) * 8 * kLanes;
-      const int* it = idx + int64_t(t >> 2) * 8 * kLanes;
+  for (int q0 = 0; q0 < n; q0 += kBatch, off += kBatch * kLanes) {
+    int col[kBatch];
+    typename Sum::Val v[kBatch];
 #pragma unroll
-      for (int s = 0; s < 8; ++s) {
-        const int m = (it[s * kLanes] >> shift) & (kLanes - 1);
-        sum.add(acc, vt + s * kLanes, wbase[s] + m);
+    for (int u = 0; u < kBatch; ++u) {
+      if (q0 + u < n) {
+        const int c = __ldg(codes + off + u * kLanes);
+        col[u] = x_base[c >> 7] + (c & (kLanes - 1));
+        v[u] = sum.load(off + u * kLanes);
       }
     }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (q0 + u < n) sum.add(acc, v[u], col[u]);
+    }
   }
-  sum.store(acc, int64_t(group_ids[g]) * kGroupRows + rb * kLanes + j,
+  sum.store(acc,
+            int64_t(group_ids[b / kSublanes]) * kGroupRows +
+                (b % kSublanes) * kLanes + j,
             accumulate);
 }
 
 template <typename Sum>
-int launch_wl(const int* group_ids, const int* slabs, const int* packed,
-              Sum sum, int64_t n_groups, int NW, int L, int accumulate,
-              void* stream) {
+int launch_wl(const int* group_ids, const int* slabs, const int* plane_off,
+              const int* row_len, const int16_t* codes, Sum sum,
+              int64_t n_groups, int NW, int accumulate, void* stream) {
   if (n_groups > 0) {
     wl_kernel<Sum><<<dim3(unsigned(n_groups * kSublanes)), kLanes,
                      size_t(NW) * 8 * sizeof(int),
                      static_cast<cudaStream_t>(stream)>>>(
-        group_ids, slabs, packed, sum, NW, L, accumulate);
+        group_ids, slabs, plane_off, row_len, codes, sum, NW, accumulate);
   }
   return int(cudaGetLastError());
 }
@@ -82,30 +99,35 @@ int launch_wl(const int* group_ids, const int* slabs, const int* packed,
 }  // namespace sell
 
 extern "C" int sell_wl_f32(const int* group_ids, const int* slabs,
-                           const int* packed, const float* as, const float* x,
-                           float* y, int64_t n_groups, int NW, int L,
+                           const int* plane_off, const int* row_len,
+                           const int16_t* codes, const float* as,
+                           const float* x, float* y, int64_t n_groups, int NW,
                            int accumulate, void* stream) {
-  return sell::launch_wl(group_ids, slabs, packed,
-                         sell::F32Sum<float>{as, x, y}, n_groups, NW, L,
+  return sell::launch_wl(group_ids, slabs, plane_off, row_len, codes,
+                         sell::F32Slots<float>{{as, x, y}}, n_groups, NW,
                          accumulate, stream);
 }
 
 extern "C" int sell_wl_bf16(const int* group_ids, const int* slabs,
-                            const int* packed, const __nv_bfloat16* as,
+                            const int* plane_off, const int* row_len,
+                            const int16_t* codes, const __nv_bfloat16* as,
                             const float* x, float* y, int64_t n_groups, int NW,
-                            int L, int accumulate, void* stream) {
-  return sell::launch_wl(group_ids, slabs, packed,
-                         sell::F32Sum<__nv_bfloat16>{as, x, y}, n_groups, NW,
-                         L, accumulate, stream);
+                            int accumulate, void* stream) {
+  return sell::launch_wl(group_ids, slabs, plane_off, row_len, codes,
+                         sell::F32Slots<__nv_bfloat16>{{as, x, y}}, n_groups,
+                         NW, accumulate, stream);
 }
 
+// as2: (hi, lo) value pairs; x2: the interleaved (hi, lo) x table
 extern "C" int sell_wl_dd(const int* group_ids, const int* slabs,
-                          const int* packed, const float* as_hi,
-                          const float* as_lo, const float* x_hi,
-                          const float* x_lo, float* y_hi, float* y_lo,
-                          int64_t n_groups, int NW, int L, int accumulate,
+                          const int* plane_off, const int* row_len,
+                          const int16_t* codes, const float2* as2,
+                          const float2* x2, float* y_hi, float* y_lo,
+                          int64_t n_groups, int NW, int accumulate,
                           void* stream) {
-  return sell::launch_wl(group_ids, slabs, packed,
-                         sell::DDSum{as_hi, as_lo, x_hi, x_lo, y_hi, y_lo},
-                         n_groups, NW, L, accumulate, stream);
+  return sell::launch_wl(
+      group_ids, slabs, plane_off, row_len, codes,
+      sell::DDPairs{{nullptr, nullptr, nullptr, nullptr, y_hi, y_lo}, as2,
+                    x2},
+      n_groups, NW, accumulate, stream);
 }

@@ -35,18 +35,20 @@ _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 # C entry -> argument types; every entry returns cudaGetLastError() as an int.
-# The dd entries take, in place of (as, x, y), the hi/lo pairs (as_hi,
-# as_lo, x_hi, x_lo, y_hi, y_lo); sg dd refuses `slots` (rows mode only).
+# The k-major and sb dd entries take, in place of (as, x, y), the hi/lo
+# planes (as_hi, as_lo, x_hi, x_lo, y_hi, y_lo); the wl and sg dd entries
+# (as2, x2, y_hi, y_lo): (hi, lo) value pairs and an interleaved x table.
 _DD = (_P,) * 6
 _ENTRIES = {
     # group_ids, ja, as, x, y, n_groups, K, accumulate, stream
     **{f"sell_k_major_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P)
        for v in ("f32", "bf16")},
     "sell_k_major_dd": (_P, _P, *_DD, _I64, _I32, _I32, _P),
-    # group_ids, slabs, packed, as, x, y, n_groups, NW, L, accumulate, stream
-    **{f"sell_wl_{v}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P)
+    # group_ids, slabs, plane_off, row_len, codes, as, x, y, n_groups, NW,
+    # accumulate, stream
+    **{f"sell_wl_{v}": (*(_P,) * 8, _I64, _I32, _I32, _P)
        for v in ("f32", "bf16")},
-    "sell_wl_dd": (_P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _P),
+    "sell_wl_dd": (*(_P,) * 9, _I64, _I32, _I32, _P),
     # group_ids, table, ja, as, x, y, n_groups, K, ck, span, accumulate, stream
     **{f"sell_{lay}_{v}_{i}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                                _I32, _P)
@@ -55,12 +57,11 @@ _ENTRIES = {
     **{f"sell_{lay}_dd_{i}": (_P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32,
                               _P)
        for lay in ("sb_major", "sb_list") for i in ("i32", "i16")},
-    # group_ids, table, counts, ja, as, x, y, n_groups, T, stride, slots,
-    # accumulate, stream
-    **{f"sell_sg_{v}": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                        _I32, _P)
+    # group_ids, table, counts, ja, as, x, y, scratch, n_groups, T, stride,
+    # slots, chunks, accumulate, stream; dd: as2, x2, y_hi, y_lo, scratch
+    **{f"sell_sg_{v}": (*(_P,) * 8, _I64, _I32, _I32, _I32, _I32, _I32, _P)
        for v in ("f32", "bf16")},
-    "sell_sg_dd": (_P, _P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32, _P),
+    "sell_sg_dd": (*(_P,) * 9, _I64, _I32, _I32, _I32, _I32, _I32, _P),
     # bins, n_bins, dst_col, dst_val, x, y, n_groups, stream; dd: dst_val
     # holds (hi, lo) pairs, then x_hi, x_lo, y_hi, y_lo
     **{f"pr_spmv_{v}": (_P, _I32, _P, _P, _P, _P, _I64, _P)
@@ -71,10 +72,10 @@ _ENTRIES = {
     **{f"sell_k_major_spmm_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
                                   _I64, _I32, _P)
        for v in ("f32", "bf16")},
-    # group_ids, slabs, packed, as, x, y, n_groups, NW, L, W, ldx, ldy,
-    # accumulate, stream
-    **{f"sell_wl_spmm_{v}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
-                             _I64, _I64, _I32, _P)
+    # group_ids, slabs, plane_off, row_len, codes, as, x, y, n_groups, NW, W,
+    # ldx, ldy, accumulate, stream
+    **{f"sell_wl_spmm_{v}": (*(_P,) * 8, _I64, _I32, _I32, _I64, _I64, _I32,
+                             _P)
        for v in ("f32", "bf16")},
     # block_cols, tile_mask, blocks, x, y, n_block_rows, n_block_cols, kb,
     # B, ldx, ldy, stream

@@ -4,16 +4,21 @@ Counterpart of the JAX package's ``ops/pallas_sell.py``, one CUDA kernel per
 bin layout:
 
 * ``k-major`` (``_kernel_k_major``) -> ``csrc/sell_k_major.cu``
-* ``wl`` window-layered (``_kernel_wl``, packed index plane) -> ``csrc/sell_wl.cu``
+* ``wl`` window-layered (``_kernel_wl``) -> ``csrc/sell_wl.cu``, on planes
+  the upload compacts (:func:`_compact_wl`: the pad slots are dropped and
+  each real slot carries a 2-byte column code)
 * ``sb-major`` and ``sb-list`` (``_kernel_sb_major``, ``_kernel_sb_list``),
   int32 or int16 index planes -> ``csrc/sell_sb.cu``
 * ``sg`` shared-window tiles (``_kernel_sg``), slots or rows mode, static or
-  dynamic pass tables -> ``csrc/sell_sg.cu``
+  dynamic pass tables -> ``csrc/sell_sg.cu``; a bin of few groups is split
+  into chunks of tiles (:func:`_sg_chunks`) joined in a fixed order
 
 Each kernel has a wrapper (:func:`k_major_bin`, :func:`wl_bin`,
 :func:`sb_major_bin`, :func:`sb_list_bin`, :func:`sg_bin`) and a plain
 PyTorch version (``*_bin_plain``) computing the same function: values
-widened to f32, x and the sums in f32. A wrapper given CUDA tensors launches
+widened to f32, x and the sums in f32. The wl and sg plain versions add the
+slots in the kernels' order with the kernels' rounding (:func:`fma_f32`), so
+the card can hold them bit for bit. A wrapper given CUDA tensors launches
 its kernel, or raises; given CPU tensors it runs the plain version. Each
 wrapper counts its kernel launches in ``.launches``, and those made with
 ``accumulate=True`` (the bin's sums added onto y instead of stored) also in
@@ -28,6 +33,8 @@ per panel, every bin accumulating.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,10 +71,15 @@ class DeviceBinIndex:
       :func:`_pack_sb_i16` / :func:`_pack_sl_i16`. ``slab_list`` is the
       per-chunk qbase table ``(n_groups, 8*k/chunk_k)`` (sb-major) or the
       per-chunk distinct-slab lists ``(n_groups, 8*k/chunk_k*span)``.
-    * ``wl``: ``k = 8*nw*L`` with ``nw = chunk_k`` windows and ``L = span``
-      layer tiles; ``ja`` is the packed lane-index plane
-      ``(n_groups*Tp*8, 128)``, ``Tp = ceil(8*nw*L/4)``; ``slab_list`` the
-      ``(n_groups, 8*nw*8)`` window slab ids.
+    * ``wl``: ``k = 8*nw*L`` slots a row on the host, ``nw = chunk_k``
+      windows and ``L = span`` layer tiles; on the device only the real
+      slots (:func:`_compact_wl`): block ``b = g*8 + rb`` owns plane rows
+      ``plane_off[b] .. plane_off[b+1]``, row ``rb*128 + j``'s slot ``q <
+      row_len[b*128 + j]`` sits at plane row ``plane_off[b] + q``, lane
+      j, and ``ja`` (int16, ``(plane_rows, 128)``) holds its code ``((w*8 +
+      s) << 7) | m`` for column ``128*slab_list[b*nw*8 + (code >> 7)] +
+      (code & 127)``; ``slab_list`` the ``(n_groups, 8*nw*8)`` window slab
+      ids. The value planes are ``(plane_rows, 128)``.
     * ``sg``: ``k`` tiles per group; ``ja`` holds ``md``; ``slab_list`` the
       ``(n_groups, k*stride)`` window bases (stride 2 when ``span == 0``:
       dynamic bins also carry pass counts); ``slab_count`` the real tiles.
@@ -77,13 +89,15 @@ class DeviceBinIndex:
     k: int
     n_groups: int
     group_ids: torch.Tensor   # (n_groups,) int32
-    ja: torch.Tensor          # int32 | int16 (sb layouts)
+    ja: torch.Tensor          # int32 | int16 (sb layouts, wl)
     slab_list: torch.Tensor   # int32, layout's table (see above)
     slab_count: torch.Tensor  # (n_groups,) int32
     span: int = 0
     chunk_k: int = CHUNK_K
     add_into: bool = False    # accumulates onto rows another bin wrote
     sg_slots: bool = False    # sg: destination row from md's sigma bits
+    row_len: torch.Tensor | None = None    # wl: (n_groups*1024,) int32
+    plane_off: torch.Tensor | None = None  # wl: (n_groups*8 + 1,) int32
 
     @property
     def nw(self) -> int:
@@ -100,7 +114,7 @@ class DeviceBinIndex:
 class DeviceSellBin(DeviceBinIndex):
     """One rectangular bin on a device with f32 or bf16 values."""
 
-    as_: torch.Tensor         # (n_groups*k*8, 128) float32 | bfloat16
+    as_: torch.Tensor         # (n_groups*k*8 | plane_rows, 128) f32 | bf16
 
 
 @dataclass
@@ -123,27 +137,6 @@ class DevicePanelSell:
     num_groups: int
     bounds: tuple
     panels: list
-
-
-def _pack_wl_ja(ja_h: np.ndarray, rows_per_group: int) -> np.ndarray:
-    """Pack a wl bin's lane-index plane 4 tiles -> 1 int32 tile, per group:
-    (8,128) tile ``t`` lands in byte ``t % 4`` of packed tile ``t // 4``; the
-    per-group tile count pads to a multiple of 4 with zero tiles. Lane
-    indices are 0..127, so the top byte stays <= 0x7F and the int32 view is
-    never negative."""
-    ng = ja_h.shape[0] // rows_per_group
-    Tn = rows_per_group // 8
-    Tp = -(-Tn // 4)
-    tiles = ja_h.reshape(ng, Tn, 8, LANES).astype(np.uint32)
-    if Tp * 4 != Tn:
-        tiles = np.concatenate(
-            [tiles, np.zeros((ng, Tp * 4 - Tn, 8, LANES), np.uint32)], axis=1)
-    tiles = tiles.reshape(ng, Tp, 4, 8, LANES)
-    packed = (tiles[:, :, 0]
-              | (tiles[:, :, 1] << np.uint32(8))
-              | (tiles[:, :, 2] << np.uint32(16))
-              | (tiles[:, :, 3] << np.uint32(24)))
-    return packed.reshape(ng * Tp * 8, LANES).astype(np.int32)
 
 
 def _pack_sb_i16(ja_h: np.ndarray, sl_h: np.ndarray, ng: int, K: int,
@@ -205,7 +198,9 @@ def _ints(a, device, dtype=np.int32) -> torch.Tensor:
 
 def _put_bin_index(b, device, sb_i16: bool) -> dict:
     """The :class:`DeviceBinIndex` fields of host bin ``b`` on ``device``
-    (wl planes packed; sb planes int16 with ``sb_i16`` where the span fits)."""
+    (sb planes int16 with ``sb_i16`` where the span fits). A wl bin's ``ja``
+    is still its padded lane-index plane (uint8): :func:`_compact_wl` turns
+    it into codes together with the values."""
     if b.layout not in _KERNEL:
         raise ValueError(f"unknown SELL bin layout {b.layout!r}; the port "
                          f"runs {', '.join(_KERNEL)}")
@@ -216,7 +211,7 @@ def _put_bin_index(b, device, sb_i16: bool) -> dict:
     if b.layout == "wl":
         if k != 8 * ck * span:
             raise ValueError(f"wl bin k={k} != 8*NW*L = 8*{ck}*{span}")
-        ja = _pack_wl_ja(ja, k * SUBLANES)
+        ja = ja.astype(np.uint8)  # lane indices 0..127
     elif b.layout == "k-major":
         table = np.zeros(0, np.int32)  # the kernel gathers x[ja] directly
     elif b.layout in _SB_LAYOUTS:
@@ -229,11 +224,78 @@ def _put_bin_index(b, device, sb_i16: bool) -> dict:
     return dict(
         layout=b.layout, k=k, n_groups=ng,
         group_ids=_ints(b.group_ids, device),
-        ja=_ints(ja, device, np.int16 if ja.dtype == np.int16 else np.int32),
+        ja=_ints(ja, device, ja.dtype if ja.dtype in (np.int16, np.uint8)
+                 else np.int32),
         slab_list=_ints(table.reshape(-1), device),
         slab_count=_ints(np.asarray(b.slab_count).reshape(-1), device),
         span=span, chunk_k=ck, add_into=bool(getattr(b, "add_into", False)),
         sg_slots=bool(getattr(b, "sg_slots", False)))
+
+
+def _compact_wl(index: dict, planes: list) -> tuple:
+    """Drop the pad slots of a wl bin, on the bin's device, with torch ops.
+
+    ``index`` holds the bin's fields from :func:`_put_bin_index` (``ja`` the
+    padded lane-index plane) and ``planes`` its padded value planes (f32 or
+    bf16, or the dd hi and lo planes). A slot is kept when its value is not
+    zero in some plane: that drops the pads and any stored zero, which
+    changes y only where x is not finite (a dropped ``0 * inf``). Each
+    (group, row-block) gets a plane as wide as its longest row, and a row's
+    real slots keep the order (w, l, s) in which the kernel adds them.
+    Returns the index fields, with ``ja`` the int16 codes ``((w*8 + s) << 7)
+    | m``, ``row_len`` and ``plane_off`` (see :class:`DeviceBinIndex`), and
+    the compacted planes; the padded ones are not kept."""
+    ng, nw, L, k = (index[f] for f in ("n_groups", "chunk_k", "span", "k"))
+    dev = index["ja"].device
+
+    def by_row(t):  # (rows g*1024 + rb*128 + j, the k slots in (w, l, s))
+        return t.view(ng, SUBLANES, nw, L, 8, LANES).permute(
+            0, 1, 5, 2, 3, 4).reshape(ng * GROUP_ROWS, k)
+
+    keep = by_row(planes[0] != 0)
+    for p in planes[1:]:
+        keep |= by_row(p != 0)
+    row_len = keep.sum(1, dtype=torch.int32)
+    plane_off = torch.zeros(ng * SUBLANES + 1, dtype=torch.int32, device=dev)
+    plane_off[1:] = torch.cumsum(row_len.view(-1, LANES).amax(1), 0,
+                                 dtype=torch.int32)
+    rows = int(plane_off[-1])
+    r, slot = keep.nonzero(as_tuple=True)
+    rank = keep.cumsum(1, dtype=torch.int32)[r, slot] - 1
+    dest = (plane_off[r // LANES].long() + rank) * LANES + r % LANES
+    del keep
+    code = (((slot // (8 * L) * 8 + slot % 8) << 7)
+            | by_row(index["ja"])[r, slot].long())
+
+    def scatter(src):
+        out = torch.zeros(rows * LANES, dtype=src.dtype, device=dev)
+        out[dest] = src
+        return out.view(rows, LANES)
+
+    index = {**index, "ja": scatter(code.to(torch.int16)),
+             "row_len": row_len, "plane_off": plane_off}
+    return index, [scatter(by_row(p)[r, slot]) for p in planes]
+
+
+def _on(device: torch.device, put):
+    """``put(d)`` builds a bin on device ``d``. A meta device holds no
+    values to compact, so the bin is built on the host and moved there."""
+    if device.type != "meta":
+        return put(device)
+    b = put(torch.device("cpu"))
+    return dataclasses.replace(b, **{
+        f.name: getattr(b, f.name).to(device) for f in dataclasses.fields(b)
+        if isinstance(getattr(b, f.name), torch.Tensor)})
+
+
+def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
+    def put(dev):
+        index = _put_bin_index(b, dev, sb_i16)
+        vals = _values(b.as_, dtype, dev)
+        if b.layout == "wl":
+            index, (vals,) = _compact_wl(index, [vals])
+        return DeviceSellBin(**index, as_=vals)
+    return _on(device, put)
 
 
 def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
@@ -242,8 +304,9 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
     ``sell`` is this package's :class:`~..formats.sell.SellMatrix` or
     :class:`~..formats.sell.PanelSellMatrix` (returns a
     :class:`DevicePanelSell`), or the JAX package's host counterparts: only
-    bin attributes are read. wl index planes are always packed 4 lane bytes
-    per int32. ``sb_i16=True`` stores sb-major and sb-list index planes as
+    bin attributes are read. wl bins are compacted on the device
+    (:func:`_compact_wl`): their pad slots, and any stored zero, are
+    dropped. ``sb_i16=True`` stores sb-major and sb-list index planes as
     int16 (as the JAX package's ``SPMV_SB_I16=1`` does) for bins whose span
     fits 8 bits; other bins keep int32 columns."""
     if dtype not in (torch.float32, torch.bfloat16):
@@ -258,9 +321,7 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
     device = torch.device(device)
     return DeviceSell(int(sell.nrows), int(sell.ncols), int(sell.nnz),
                       int(sell.num_groups),
-                      [DeviceSellBin(**_put_bin_index(b, device, sb_i16),
-                                     as_=_values(b.as_, dtype, device))
-                       for b in sell.bins])
+                      [_put_bin(b, dtype, device, sb_i16) for b in sell.bins])
 
 
 def pack_x_table(x: torch.Tensor, ncols: int) -> torch.Tensor:
@@ -290,24 +351,41 @@ def _k_major_slots(b: DeviceBinIndex):
     return shape, b.ja.view(shape).long(), None, (1,)
 
 
-def _unpack_wl_ja(b: DeviceBinIndex) -> torch.Tensor:
-    """Packed plane -> lane indices m, shaped (ng, 8 rb, NW, L, 8 s, 128)."""
-    ng, Tn = b.n_groups, SUBLANES * b.nw * b.L
-    Tp = -(-Tn // 4)
-    shifts = torch.arange(0, 32, 8, dtype=torch.int32, device=b.ja.device)
-    m = (b.ja.view(ng, Tp, 1, 8, LANES) >> shifts.view(1, 1, 4, 1, 1)) \
-        & (LANES - 1)
-    return m.reshape(ng, Tp * 4, 8, LANES)[:, :Tn].reshape(
-        ng, SUBLANES, b.nw, b.L, 8, LANES)
-
-
 def _wl_slots(b: DeviceBinIndex):
-    """Slot s of tile ``t = (rb*NW + w)*L + l`` of group g, row rb*128+j,
-    gathers ``x[128*slab[g,rb,w,s] + m]``."""
-    ng, nw, L = b.n_groups, b.nw, b.L
-    slab = b.slab_list.view(ng, SUBLANES, nw, 1, 8, 1).long()
-    return ((ng, SUBLANES, nw, L, 8, LANES), slab * LANES + _unpack_wl_ja(b),
-            None, (2, 3, 4))
+    """Slot (r, j) of the compacted planes (:class:`DeviceBinIndex`): its
+    column ``128*slab_list[blk*nw*8 + (code >> 7)] + (code & 127)``, ``blk``
+    the block whose plane holds row r, and whether it is a real slot (within
+    its row's ``row_len``). No axes sum the planes into rows: the plain
+    versions walk each row's slots (:func:`_wl_steps`)."""
+    widths = (b.plane_off[1:] - b.plane_off[:-1]).long()
+    blk = torch.repeat_interleave(
+        torch.arange(widths.numel(), device=b.ja.device), widths)
+    code = b.ja.long()
+    slab = b.slab_list.view(-1, b.nw * 8).long()[blk[:, None], code >> 7]
+    q = torch.arange(blk.numel(), device=blk.device) - b.plane_off.long()[blk]
+    keep = q[:, None] < b.row_len.view(-1, LANES).long()[blk]
+    return (tuple(b.ja.shape), slab * LANES + (code & (LANES - 1)), keep,
+            None)
+
+
+def _wl_steps(b: DeviceBinIndex):
+    """Each step q of the wl kernel's row loops: the plane position of every
+    row's q-th slot (0 where the row has none), its column, and whether the
+    row has one; rows ``g*1024 + rb*128 + j``."""
+    n_rows = b.n_groups * GROUP_ROWS
+    if n_rows == 0:
+        return
+    r = torch.arange(n_rows, device=b.ja.device)
+    blk = r // LANES
+    base = b.plane_off.long()[blk] * LANES + r % LANES
+    slab_x = b.slab_list.view(-1, b.nw * 8).long() * LANES
+    n = b.row_len.long()
+    codes = b.ja.view(-1)
+    for q in range(int(n.max())):
+        has = q < n
+        pos = torch.where(has, base + q * LANES, 0)
+        code = codes[pos].long()
+        yield pos, slab_x[blk, code >> 7] + (code & (LANES - 1)), has
 
 
 def _chunk_table(b: DeviceBinIndex, per_chunk: int) -> torch.Tensor:
@@ -367,6 +445,24 @@ _SLOTS = {"k-major": _k_major_slots, "wl": _wl_slots, "sb-major": _sb_slots,
 # ---------------------------------------------------------------------------
 
 
+def fma_f32(p: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, acc)`` from the exact f64 product ``p = a*b`` of two f32
+    values: ``p + acc`` rounded once to f32, as the kernels' fused
+    multiply-add rounds it. The f64 sum is made round-to-odd (an inexact sum
+    whose last bit is even moves one f64 ulp toward the exact sum), and a
+    round-to-odd result of 53 >= 24 + 2 bits rounds to f32 as the exact sum
+    would (Boldo and Melquiond). Sums that are not finite are left as
+    they are."""
+    c = acc.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    odd = torch.where((e != 0) & torch.isfinite(e)
+                      & ((s.view(torch.int64) & 1) == 0),
+                      torch.nextafter(s, e * math.inf), s)
+    return odd.float()
+
+
 def _products(b: DeviceSellBin, x_tab: torch.Tensor):
     """f32 product of each slot (0 where it contributes nothing) and the
     axes that sum them into rows."""
@@ -388,9 +484,50 @@ def k_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
 
 
 def wl_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, rb, j] = sum_{w,l,s} as * x[128*slab[g,rb,w,s] + m]`` over the
-    tiles ``t = (rb*NW + w)*L + l`` of group g."""
-    return _row_sums(b, x_tab)
+    """``out[g, rb, j]``: row rb*128 + j's real slots (:func:`_wl_steps`) in
+    the kernel's order, ``acc = fmaf(v, x[col], acc)`` from 0
+    (:func:`fma_f32`), so the kernel equals it bit for bit."""
+    acc = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
+                      device=x_tab.device)
+    vals = b.as_.view(-1)
+    for pos, cols, has in _wl_steps(b):
+        new = fma_f32(vals[pos].double() * x_tab[cols].double(), acc)
+        acc = torch.where(has, new, acc)
+    return acc.view(b.n_groups, SUBLANES, LANES)
+
+
+def _wl_padded(hb, device):
+    """Host wl bin ``hb`` as the padded layout holds it: returns
+    ``by_step``, which lays a plane of it out as ``(k, n_groups*1024)``,
+    every row's ``k`` slots in the order (w, l, s), and the slots' columns
+    laid out so."""
+    ng, nw, L, k = hb.n_groups, hb.chunk_k, hb.span, hb.k
+
+    def by_step(t):
+        return t.reshape(ng, SUBLANES, nw, L, 8, LANES).permute(
+            2, 3, 4, 0, 1, 5).reshape(k, ng * GROUP_ROWS)
+
+    slab = torch.from_numpy(np.asarray(hb.slab_list, np.int64)).to(device)
+    m = torch.from_numpy(np.asarray(hb.ja, np.int64)).to(device)
+    return by_step, by_step(slab.view(ng, SUBLANES, nw, 1, 8, 1) * LANES
+                            + m.view(ng, SUBLANES, nw, L, 8, LANES))
+
+
+def wl_padded_plain(hb, x_tab: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """The padded wl kernel's function, which the compaction must keep: host
+    bin ``hb``'s values rounded to ``dtype`` as the upload rounds them, and
+    every one of a row's ``k`` slots, pads included, added in the order (w,
+    l, s) with one fmaf each (:func:`fma_f32`); ``(n_groups, 8, 128)``. On
+    finite x :func:`wl_bin_plain` of the compacted bin equals it bit for
+    bit, up to the sign of a zero sum."""
+    by_step, cols = _wl_padded(hb, x_tab.device)
+    vals = by_step(_values(hb.as_, dtype, x_tab.device))
+    acc = torch.zeros(cols.shape[1], dtype=torch.float32,
+                      device=x_tab.device)
+    for q in range(cols.shape[0]):
+        acc = fma_f32(vals[q].double() * x_tab[cols[q]].double(), acc)
+    return acc.view(hb.n_groups, SUBLANES, LANES)
 
 
 def sb_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
@@ -404,19 +541,80 @@ def sb_list_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     return _row_sums(b, x_tab)
 
 
-def sg_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """Each real slot's product ``as * x[col]`` (:func:`_sg_slots`) lands on
-    row ``sigma*128 + j`` with ``sigma = (md>>7)&7`` (slots mode) or
-    ``sigma = p`` (rows mode)."""
-    prod, dims = _products(b, x_tab)
-    if not b.sg_slots:
-        return prod.sum(dim=dims)
+# sg bins of fewer groups than two 1024-thread blocks an SM of an H100 (132
+# SMs) are split into chunks of tiles, enough for about four waves of two
+# blocks an SM, each chunk at least _SG_MIN_CHUNK tiles
+_SG_SPLIT_BELOW = 2 * 132
+_SG_SPLIT_BLOCKS = 8 * 132
+_SG_MIN_CHUNK = 16
+
+
+def _sg_chunks(b: DeviceBinIndex) -> int:
+    """Chunks of tiles per group of sg bin ``b``: a function of the bin's
+    shape only, so that the plain version sums in the kernel's order."""
+    if b.n_groups == 0 or b.n_groups >= _SG_SPLIT_BELOW:
+        return 1
+    return max(1, min(-(-_SG_SPLIT_BLOCKS // b.n_groups),
+                      b.k // _SG_MIN_CHUNK))
+
+
+def _sg_sums(b: DeviceBinIndex, prods: tuple, add, combine,
+             chunks: int) -> tuple:
+    """sg bin ``b``'s row sums in the kernel's order: chunk c of group g
+    takes its real tiles ``[c*n/chunks, (c+1)*n/chunks)``, ``n =
+    min(slab_count[g], k)``; slot (p, j) of each adds, in tile order, onto
+    its own sum for row sigma (slots mode) or p (rows mode); slots mode
+    joins row sigma's 8 sums over p in order, and the chunks are joined in
+    order. ``prods``: the slots' products, a tuple of ``(n_groups, k, 8,
+    128)`` tensors; ``add(acc, prod)`` and ``combine(a, b)`` take and return
+    tuples like it. Returns the tuple of ``(n_groups, 8, 128)`` sums."""
     ng, T = b.n_groups, b.k
-    sigma = (b.ja.view(ng, T, SUBLANES, LANES).long() >> 7) & (SUBLANES - 1)
-    out = torch.zeros(ng, SUBLANES, LANES, dtype=torch.float32,
-                      device=prod.device)
-    return out.scatter_add_(1, sigma.view(ng, T * SUBLANES, LANES),
-                            prod.view(ng, T * SUBLANES, LANES))
+    dev = prods[0].device
+    n = b.slab_count.long().clamp(max=T)
+    c = torch.arange(chunks, device=dev)
+    t0 = c[None, :] * n[:, None] // chunks
+    length = (c[None, :] + 1) * n[:, None] // chunks - t0  # (ng, chunks)
+    gi = torch.arange(ng, device=dev)[:, None]
+    shape = (ng, chunks, SUBLANES) + ((SUBLANES,) if b.sg_slots else ()) \
+        + (LANES,)
+    acc = tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
+                for _ in prods)
+    if b.sg_slots:
+        sigma = (b.ja.view(ng, T, SUBLANES, LANES).long() >> 7) \
+            & (SUBLANES - 1)
+    for s in range(int(length.max()) if length.numel() else 0):
+        t = (t0 + s).clamp(max=T - 1)
+        live = (s < length)[:, :, None, None]
+        step = tuple(pr[gi, t] for pr in prods)  # (ng, chunks, 8 p, 128)
+        if b.sg_slots:
+            idx = sigma[gi, t].unsqueeze(3)
+            cur = tuple(a.gather(3, idx).squeeze(3) for a in acc)
+            for a, new, old in zip(acc, add(cur, step), cur):
+                a.scatter_(3, idx, torch.where(live, new, old).unsqueeze(3))
+        else:
+            acc = tuple(torch.where(live, new, old)
+                        for new, old in zip(add(acc, step), acc))
+    rows = tuple(a[:, :, 0] for a in acc) if b.sg_slots else acc
+    for q in range(1, SUBLANES if b.sg_slots else 1):
+        rows = combine(rows, tuple(a[:, :, q] for a in acc))
+    out = tuple(r[:, 0] for r in rows)
+    for ch in range(1, chunks):
+        out = combine(out, tuple(r[:, ch] for r in rows))
+    return out
+
+
+def sg_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor,
+                 chunks: int | None = None) -> torch.Tensor:
+    """Each real slot's ``as * x[col]`` (:func:`_sg_slots`) added with one
+    fmaf (:func:`fma_f32`) onto row ``sigma*128 + j``, ``sigma =
+    (md>>7)&7`` (slots mode) or ``sigma = p`` (rows mode), in the kernel's
+    order (:func:`_sg_sums`); ``chunks`` defaults to the kernel's
+    (:func:`_sg_chunks`)."""
+    shape, cols, _, _ = _sg_slots(b)
+    prod = b.as_.view(shape).double() * x_tab[cols].double()
+    (out,) = _sg_sums(b, (prod,), lambda a, p: (fma_f32(p[0], a[0]),),
+                      lambda u, v: (u[0] + v[0],), chunks or _sg_chunks(b))
+    return out
 
 
 _PLAIN = {"k-major": k_major_bin_plain, "wl": wl_bin_plain,
@@ -430,44 +628,61 @@ _PLAIN = {"k-major": k_major_bin_plain, "wl": wl_bin_plain,
 
 
 def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
-               value_types: tuple):
+               value_types: tuple, pairs: bool = False):
     """Check a bin's own tensors for a launch on ``device`` (x's): there and
     contiguous, int32 tables, the layout's index type, ``value_types``
-    values, and matching sizes."""
+    values (``pairs``: (hi, lo) pairs, a trailing axis of 2), and matching
+    sizes."""
     tensors = {"group_ids": b.group_ids, "ja": b.ja, "slab_list": b.slab_list,
                "slab_count": b.slab_count, **values}
+    tables = ["group_ids", "slab_list", "slab_count"]
+    if b.layout == "wl":
+        if b.row_len is None or b.plane_off is None:
+            raise ValueError("wl bin without row_len / plane_off: upload it "
+                             "with device_put_sell")
+        tensors.update(row_len=b.row_len, plane_off=b.plane_off)
+        tables += ["row_len", "plane_off"]
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, x on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    for name in ("group_ids", "slab_list", "slab_count"):
+    for name in tables:
         if tensors[name].dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {tensors[name].dtype}")
-    ja_types = (torch.int32, torch.int16) if b.layout in _SB_LAYOUTS \
-        else (torch.int32,)
+    ja_types = {"wl": (torch.int16,), "sb-major": (torch.int32, torch.int16),
+                "sb-list": (torch.int32, torch.int16)}.get(b.layout,
+                                                           (torch.int32,))
     if b.ja.dtype not in ja_types:
         raise ValueError(f"{b.layout} index plane must be "
                          f"{' or '.join(map(str, ja_types))}, got {b.ja.dtype}")
-    plane = b.n_groups * b.k * SUBLANES * LANES
+    slots = b.ja.numel() if b.layout == "wl" \
+        else b.n_groups * b.k * SUBLANES * LANES
     for name, t in values.items():
         if t.dtype not in value_types:
             raise ValueError(f"{name} must be "
                              f"{' or '.join(map(str, value_types))}, got "
                              f"{t.dtype}")
-        if t.numel() != plane:
+        if t.numel() != slots * (2 if pairs else 1) or (
+                pairs and t.shape[-1] != 2):
             raise ValueError(f"{name} does not match the bin's shape")
-    if b.layout != "wl" and b.ja.numel() != plane:
+    if b.layout == "wl":
+        if (b.ja.numel() % LANES or b.row_len.numel() != b.n_groups
+                * GROUP_ROWS or b.plane_off.numel() != b.n_groups * SUBLANES
+                + 1):
+            raise ValueError("wl planes do not match the bin's groups")
+    elif b.ja.numel() != slots:
         raise ValueError("index plane does not match the value plane")
     if b.n_groups * SUBLANES > _INT32_MAX:
         raise ValueError("the bin's grid is beyond 32-bit indexing")
 
 
 def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
-                 value_types: tuple):
+                  value_types: tuple, pairs: bool = False):
     """Check what a kernel launch reads and writes: every tensor on the
     device of the first x and contiguous, the bin's tensors as
-    :func:`_check_bin` says, f32 x and y, and matching sizes."""
+    :func:`_check_bin` says (``pairs``: (hi, lo) value pairs), f32 x and y,
+    and matching sizes."""
     x0 = next(iter(xs.values()))
     if x0.device.type != "cuda":
         raise RuntimeError(
@@ -477,7 +692,7 @@ def _check_launch(b: DeviceBinIndex, values: dict, xs: dict, ys: dict,
             raise ValueError(f"{name} is on {t.device}, x on {x0.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    _check_bin(b, values, x0.device, value_types)
+    _check_bin(b, values, x0.device, value_types, pairs)
     if any(t.dtype != torch.float32 for t in (*xs.values(), *ys.values())):
         raise ValueError("x and y must be float32")
     if x0.numel() > _INT32_MAX:
@@ -499,12 +714,9 @@ def _k_major_call(b):
 
 
 def _wl_call(b):
-    Tp = -(-SUBLANES * b.nw * b.L // 4)
-    if b.ja.numel() != b.n_groups * Tp * 8 * LANES:
-        raise ValueError("wl index plane does not match the bin")
     _check_table(b, b.n_groups * SUBLANES * b.nw * 8, "slab table")
-    return ("sell_wl", "", (b.group_ids, b.slab_list, b.ja),
-            (b.n_groups, b.nw, b.L))
+    return ("sell_wl", "", (b.group_ids, b.slab_list, b.plane_off, b.row_len,
+                            b.ja), (b.n_groups, b.nw))
 
 
 def _sb_call(b):
@@ -526,7 +738,19 @@ def _sg_call(b):
     if b.slab_count.numel() != b.n_groups:
         raise ValueError("sg tile counts do not match the bin's groups")
     return ("sell_sg", "", (b.group_ids, b.slab_list, b.slab_count, b.ja),
-            (b.n_groups, b.k, stride, int(b.sg_slots)))
+            (b.n_groups, b.k, stride, int(b.sg_slots), _sg_chunks(b)))
+
+
+def _scratch(b: DeviceBinIndex, device, pairs: bool = False) -> tuple:
+    """The sg kernel's last operand: its split's partial sums, ``(n_groups,
+    chunks, 1024)`` f32 (``pairs``: (hi, lo) pairs), empty when it is not
+    split; no operand for the other layouts."""
+    if b.layout != "sg":
+        return ()
+    chunks = _sg_chunks(b)
+    n = b.n_groups * chunks * GROUP_ROWS * (2 if pairs else 1)
+    return (torch.empty(n if chunks > 1 else 0, dtype=torch.float32,
+                        device=device),)
 
 
 # layout -> (entry stem, entry suffix, pointer arguments before the value/x/y
@@ -567,9 +791,9 @@ def _bin(wrapper, b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
     if x_tab.device.type == "cpu":
         return _write_plain(b, x_tab, y, accumulate)
     _check_launch(b, {"as_": b.as_}, {"x": x_tab}, {"y": y},
-                 (torch.float32, torch.bfloat16))
+                  (torch.float32, torch.bfloat16))
     _launch(wrapper, b, "bf16" if b.as_.dtype == torch.bfloat16 else "f32",
-           (b.as_, x_tab, y), accumulate)
+            (b.as_, x_tab, y, *_scratch(b, x_tab.device)), accumulate)
 
 
 def k_major_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,

@@ -9,25 +9,27 @@ per bin layout, each the dd instantiation of the f32 kernel's source:
 
 * ``k-major`` (``_kernel_k_major_dd``) -> ``csrc/sell_k_major.cu``
   ``sell_k_major_dd``
-* ``wl`` (``_kernel_wl_dd``, packed index plane) -> ``csrc/sell_wl.cu``
-  ``sell_wl_dd``
+* ``wl`` (``_kernel_wl_dd``) -> ``csrc/sell_wl.cu`` ``sell_wl_dd``, on the
+  compacted planes of :func:`~.sell._compact_wl`
 * ``sb-major`` / ``sb-list`` (``_kernel_sb_major_dd``, ``_kernel_sb_list_dd``),
   int32 or int16 index planes -> ``csrc/sell_sb.cu``
   ``sell_{sb_major,sb_list}_dd_{i32,i16}``
-* ``sg`` rows mode (``_kernel_sg_dd``) -> ``csrc/sell_sg.cu`` ``sell_sg_dd``
+* ``sg`` (``_kernel_sg_dd``), rows mode and, unlike the TPU kernel, slots
+  mode -> ``csrc/sell_sg.cu`` ``sell_sg_dd``
 
 The bins share their index planes, tables and column decode with
-:mod:`.sell`. Each kernel has a wrapper (``*_bin_dd``) and a plain PyTorch
+:mod:`.sell`. k-major and sb bins keep separate hi and lo value planes; wl
+and sg bins keep one plane of interleaved (hi, lo) pairs (``as_pair``, one
+8-byte load a slot), and their kernels gather x from one interleaved table
+(:func:`pack_x_pair`) that :func:`sell_spmv_dd` builds once per call from
+the two halves. Each kernel has a wrapper (``*_bin_dd``) and a plain PyTorch
 version (``*_bin_plain_dd``) returning the ``(hi, lo)`` row sums ``(n_groups,
 8, 128)``: the same slot products, reduced over each row's entries by a
-pairwise tree of ``dd_add_dd``. A wrapper given CUDA tensors launches its
-kernel, or raises; given CPU tensors it runs the plain version. Each wrapper
-counts its launches in ``.launches``, and those with ``accumulate=True``
-(``y = dd_add_dd(y, bin sums)``) also in ``.accumulating``.
-
-Slot-packed sg bins (``sg_slots``) are refused: several slots of one lane
-may land on one row there, and the TPU kernels' error-free transforms need
-one product per output position; convert with ``sg_slots=False``.
+pairwise tree of ``dd_add_dd`` (k-major, sb) or in the kernel's own order
+(wl, sg: bit for bit). A wrapper given CUDA tensors launches its kernel, or
+raises; given CPU tensors it runs the plain version. Each wrapper counts its
+launches in ``.launches``, and those with ``accumulate=True`` (``y =
+dd_add_dd(y, bin sums)``) also in ``.accumulating``.
 """
 
 from __future__ import annotations
@@ -37,11 +39,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..formats.sell import LANES, SUBLANES
+from ..formats.sell import GROUP_ROWS, LANES, SUBLANES
 from .doubledouble import combine_f64, dd_add_dd, dd_mul_dd, split_f64
 from .sell import (DeviceBinIndex, _assemble, _assemble_panels,
-                   _check_launch, _check_panel_x, _launch, _put_bin_index,
-                   _SLOTS, pack_x_table)
+                   _check_launch, _check_panel_x, _compact_wl, _launch, _on,
+                   _put_bin_index, _scratch, _sg_chunks, _sg_slots, _sg_sums,
+                   _SLOTS, _wl_padded, _wl_steps, pack_x_table)
 
 __all__ = [
     "DeviceSellBinDD", "DeviceSellDD", "DevicePanelSellDD",
@@ -50,16 +53,21 @@ __all__ = [
     "wl_bin_plain_dd", "sb_major_bin_plain_dd", "sb_list_bin_plain_dd",
     "sg_bin_plain_dd", "sell_spmv_dd", "sell_spmv_dd_plain",
     "panel_sell_spmv_dd", "panel_sell_spmv_dd_plain", "sell_spmv_dd_f64",
+    "pack_x_pair", "wl_padded_plain_dd",
 ]
+
+_PAIR_LAYOUTS = ("wl", "sg")  # bins whose values and x travel as pairs
 
 
 @dataclass(kw_only=True)
 class DeviceSellBinDD(DeviceBinIndex):
-    """One rectangular bin on a device with its fp64 values split into two
-    f32 planes (see :class:`~.sell.DeviceBinIndex` for the index side)."""
+    """One rectangular bin on a device with its fp64 values split into f32
+    (hi, lo) pairs (see :class:`~.sell.DeviceBinIndex` for the index side):
+    two planes (k-major, sb) or one plane of pairs (wl, sg)."""
 
-    as_hi: torch.Tensor   # (n_groups*k*8, 128) float32
-    as_lo: torch.Tensor   # (n_groups*k*8, 128) float32
+    as_hi: torch.Tensor | None = None    # (n_groups*k*8, 128) float32
+    as_lo: torch.Tensor | None = None    # (n_groups*k*8, 128) float32
+    as_pair: torch.Tensor | None = None  # (value plane rows, 128, 2) float32
 
 
 @dataclass
@@ -85,15 +93,16 @@ class DevicePanelSellDD:
 
 
 def _put_bin_dd(b, device, sb_i16: bool) -> DeviceSellBinDD:
-    if b.layout == "sg" and getattr(b, "sg_slots", False):
-        raise ValueError(
-            "dd kernels need row-unique sg positions (their error-free "
-            "transforms sum at most one product per output); convert with "
-            "SellMatrix.from_csr(..., sg_slots=False) for the dd stage")
-    hi, lo = split_f64(np.asarray(b.as_, np.float64))
-    return DeviceSellBinDD(**_put_bin_index(b, device, sb_i16),
-                           as_hi=torch.from_numpy(hi).to(device),
-                           as_lo=torch.from_numpy(lo).to(device))
+    def put(dev):
+        index = _put_bin_index(b, dev, sb_i16)
+        hi, lo = (torch.from_numpy(v).to(dev)
+                  for v in split_f64(np.asarray(b.as_, np.float64)))
+        if b.layout not in _PAIR_LAYOUTS:
+            return DeviceSellBinDD(**index, as_hi=hi, as_lo=lo)
+        if b.layout == "wl":
+            index, (hi, lo) = _compact_wl(index, [hi, lo])
+        return DeviceSellBinDD(**index, as_pair=torch.stack([hi, lo], -1))
+    return _on(device, put)
 
 
 def device_put_sell_dd(sell, *, device, sb_i16=False):
@@ -103,8 +112,10 @@ def device_put_sell_dd(sell, *, device, sb_i16=False):
     ``sell`` is this package's :class:`~..formats.sell.SellMatrix` or
     :class:`~..formats.sell.PanelSellMatrix` (returns a
     :class:`DevicePanelSellDD`), or the JAX package's host counterparts.
-    Index planes are those of :func:`~.sell.device_put_sell`: wl planes
-    packed, sb planes int16 with ``sb_i16=True`` where the span fits."""
+    Index planes are those of :func:`~.sell.device_put_sell`: wl bins
+    compacted (a slot is dropped when both halves of its value are zero),
+    sb planes int16 with ``sb_i16=True`` where the span fits; wl and sg
+    values as one plane of (hi, lo) pairs."""
     if hasattr(sell, "panels"):
         return DevicePanelSellDD(
             int(sell.nrows), int(sell.ncols), int(sell.nnz),
@@ -121,6 +132,12 @@ def device_put_x_dd(x, ncols: int, *, device):
     """Upload fp64 host x as the padded (hi, lo) pair of f32 x tables."""
     return tuple(pack_x_table(torch.from_numpy(h), ncols).to(device)
                  for h in split_f64(np.asarray(x, np.float64)))
+
+
+def pack_x_pair(xh_tab: torch.Tensor, xl_tab: torch.Tensor) -> torch.Tensor:
+    """The wl and sg dd kernels' x table: entry c is ``(xh[c], xl[c])``, one
+    8-byte gather."""
+    return torch.stack([xh_tab, xl_tab], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -140,8 +157,6 @@ def _dd_sum(h: torch.Tensor, l: torch.Tensor):
 
 
 def _row_sums_dd(b: DeviceSellBinDD, xh: torch.Tensor, xl: torch.Tensor):
-    if b.sg_slots:
-        raise ValueError("dd sums need row-unique sg positions (rows mode)")
     shape, cols, keep, dims = _SLOTS[b.layout](b)
     ph, pl = dd_mul_dd(b.as_hi.view(shape), b.as_lo.view(shape), xh[cols],
                        xl[cols])
@@ -159,9 +174,41 @@ def k_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
     return _row_sums_dd(b, xh, xl)
 
 
+def _dd_add_step(acc: tuple, prod: tuple) -> tuple:
+    return dd_add_dd(*acc, *prod)
+
+
 def wl_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
-    """dd twin of :func:`~.sell.wl_bin_plain`."""
-    return _row_sums_dd(b, xh, xl)
+    """dd twin of :func:`~.sell.wl_bin_plain`: each row's real slots in the
+    kernel's order, ``acc = dd_add_dd(acc, dd_mul_dd(v, x[col]))`` from (0,
+    0), so the kernel equals it bit for bit."""
+    n_rows = b.n_groups * GROUP_ROWS
+    h = torch.zeros(n_rows, dtype=torch.float32, device=xh.device)
+    l = torch.zeros_like(h)
+    vals = b.as_pair.view(-1, 2)
+    for pos, cols, has in _wl_steps(b):
+        v = vals[pos]
+        nh, nl = dd_add_dd(h, l, *dd_mul_dd(v[:, 0], v[:, 1], xh[cols],
+                                            xl[cols]))
+        h, l = torch.where(has, nh, h), torch.where(has, nl, l)
+    out = (b.n_groups, SUBLANES, LANES)
+    return h.view(out), l.view(out)
+
+
+def wl_padded_plain_dd(hb, xh, xl):
+    """dd twin of :func:`~.sell.wl_padded_plain`: host bin ``hb``'s values
+    split as the upload splits them, every one of a row's ``k`` slots, pads
+    included, added in the order (w, l, s) by ``dd_add_dd`` from (0, 0)."""
+    by_step, cols = _wl_padded(hb, xh.device)
+    vh, vl = (by_step(torch.from_numpy(v).to(xh.device))
+              for v in split_f64(np.asarray(hb.as_, np.float64)))
+    h = torch.zeros(cols.shape[1], dtype=torch.float32, device=xh.device)
+    l = torch.zeros_like(h)
+    for q in range(cols.shape[0]):
+        c = cols[q]
+        h, l = dd_add_dd(h, l, *dd_mul_dd(vh[q], vl[q], xh[c], xl[c]))
+    out = (hb.n_groups, SUBLANES, LANES)
+    return h.view(out), l.view(out)
 
 
 def sb_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
@@ -174,9 +221,16 @@ def sb_list_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
     return _row_sums_dd(b, xh, xl)
 
 
-def sg_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
-    """dd twin of :func:`~.sell.sg_bin_plain`, rows mode only."""
-    return _row_sums_dd(b, xh, xl)
+def sg_bin_plain_dd(b: DeviceSellBinDD, xh, xl, chunks: int | None = None):
+    """dd twin of :func:`~.sell.sg_bin_plain`, slots and rows mode: each
+    real slot's ``dd_mul_dd(v, x[col])`` added by ``dd_add_dd`` in the
+    kernel's order (:func:`~.sell._sg_sums`), the sums joined by
+    ``dd_add_dd``; ``chunks`` defaults to the kernel's."""
+    shape, cols, _, _ = _sg_slots(b)
+    v = b.as_pair.view(*shape, 2)
+    prod = dd_mul_dd(v[..., 0], v[..., 1], xh[cols], xl[cols])
+    return _sg_sums(b, prod, _dd_add_step, _dd_add_step,
+                    chunks or _sg_chunks(b))
 
 
 _PLAIN_DD = {"k-major": k_major_bin_plain_dd, "wl": wl_bin_plain_dd,
@@ -200,45 +254,60 @@ def _write_plain_dd(b: DeviceSellBinDD, xh, xl, yh, yl,
     rows_l[idx] = l
 
 
-def _bin_dd(wrapper, b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool):
+def _bin_dd(wrapper, b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool,
+            x_pair):
     if xh.device.type == "cpu":
         return _write_plain_dd(b, xh, xl, yh, yl, accumulate)
-    if b.sg_slots:
-        raise ValueError("dd kernels need row-unique sg positions (rows mode)")
-    _check_launch(b, {"as_hi": b.as_hi, "as_lo": b.as_lo},
-                  {"x_hi": xh, "x_lo": xl}, {"y_hi": yh, "y_lo": yl},
-                  (torch.float32,))
-    _launch(wrapper, b, "dd", (b.as_hi, b.as_lo, xh, xl, yh, yl), accumulate)
+    ys = {"y_hi": yh, "y_lo": yl}
+    if b.layout not in _PAIR_LAYOUTS:
+        _check_launch(b, {"as_hi": b.as_hi, "as_lo": b.as_lo},
+                      {"x_hi": xh, "x_lo": xl}, ys, (torch.float32,))
+        return _launch(wrapper, b, "dd", (b.as_hi, b.as_lo, xh, xl, yh, yl),
+                       accumulate)
+    if x_pair is None:
+        x_pair = pack_x_pair(xh, xl)
+    if tuple(x_pair.shape) != (xh.numel(), 2):
+        raise ValueError(f"x_pair must be pack_x_pair of the x tables "
+                         f"({xh.numel()}, 2), got {tuple(x_pair.shape)}")
+    _check_launch(b, {"as_pair": b.as_pair}, {"x_pair": x_pair}, ys,
+                  (torch.float32,), pairs=True)
+    _launch(wrapper, b, "dd",
+            (b.as_pair, x_pair, yh, yl, *_scratch(b, xh.device, pairs=True)),
+            accumulate)
 
 
 def k_major_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl,
                    accumulate: bool = False):
     """Write (or dd-add) bin ``b``'s rows ``gid*1024 + i*128 + j`` of the y
     pair."""
-    _bin_dd(k_major_bin_dd, b, xh, xl, yh, yl, accumulate)
+    _bin_dd(k_major_bin_dd, b, xh, xl, yh, yl, accumulate, None)
 
 
-def wl_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool = False):
-    """Write (or dd-add) bin ``b``'s rows ``gid*1024 + rb*128 + j``."""
-    _bin_dd(wl_bin_dd, b, xh, xl, yh, yl, accumulate)
+def wl_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool = False,
+              *, x_pair=None):
+    """Write (or dd-add) bin ``b``'s rows ``gid*1024 + rb*128 + j``. The
+    kernel gathers x from ``x_pair`` (:func:`pack_x_pair` of ``xh``, ``xl``),
+    built here when it is not given."""
+    _bin_dd(wl_bin_dd, b, xh, xl, yh, yl, accumulate, x_pair)
 
 
 def sb_major_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl,
                     accumulate: bool = False):
     """Write (or dd-add) bin ``b``'s rows ``gid*1024 + sb*128 + j``."""
-    _bin_dd(sb_major_bin_dd, b, xh, xl, yh, yl, accumulate)
+    _bin_dd(sb_major_bin_dd, b, xh, xl, yh, yl, accumulate, None)
 
 
 def sb_list_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl,
                    accumulate: bool = False):
     """Write (or dd-add) bin ``b``'s rows ``gid*1024 + sb*128 + j``."""
-    _bin_dd(sb_list_bin_dd, b, xh, xl, yh, yl, accumulate)
+    _bin_dd(sb_list_bin_dd, b, xh, xl, yh, yl, accumulate, None)
 
 
-def sg_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool = False):
-    """Write (or dd-add) bin ``b``'s rows ``gid*1024 + p*128 + j`` (rows
-    mode)."""
-    _bin_dd(sg_bin_dd, b, xh, xl, yh, yl, accumulate)
+def sg_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool = False,
+              *, x_pair=None):
+    """Write (or dd-add) bin ``b``'s rows ``gid*1024 + sigma*128 + j``
+    (slots mode; rows mode: sigma = p); ``x_pair`` as :func:`wl_bin_dd`."""
+    _bin_dd(sg_bin_dd, b, xh, xl, yh, yl, accumulate, x_pair)
 
 
 _KERNEL_DD = {"k-major": k_major_bin_dd, "wl": wl_bin_dd,
@@ -249,8 +318,22 @@ for _w in _KERNEL_DD.values():
     _w.accumulating = 0
 
 
-def _run_kernel_dd(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool):
-    _KERNEL_DD[b.layout](b, xh, xl, yh, yl, accumulate)
+def _kernel_writer():
+    """The kernels' bin writer for one SpMV: the wl and sg bins of one pair
+    of x tables share one :func:`pack_x_pair` table, built at the first
+    such bin on the card."""
+    tables = {}
+
+    def write(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool):
+        if b.layout not in _PAIR_LAYOUTS:
+            return _KERNEL_DD[b.layout](b, xh, xl, yh, yl, accumulate)
+        held = tables.get("x", ())
+        if xh.device.type != "cpu" and not (held and held[0] is xh
+                                            and held[1] is xl):
+            tables["x"], tables["pair"] = (xh, xl), pack_x_pair(xh, xl)
+        _KERNEL_DD[b.layout](b, xh, xl, yh, yl, accumulate,
+                             x_pair=tables.get("pair"))
+    return write
 
 
 def _spmv_dd(d: DeviceSellDD, xh, xl, write):
@@ -270,8 +353,9 @@ def sell_spmv_dd(d: DeviceSellDD, xh_tab: torch.Tensor,
     or :func:`~.sell.pack_x_table`. Core bins store their own groups' rows,
     then ``add_into`` bins dd-add onto them (≙ the JAX private-buffer join
     ``dd_add_dd(y, far)``); CUDA tensors run the CUDA kernels, CPU tensors
-    the plain versions."""
-    return _spmv_dd(d, xh_tab, xl_tab, _run_kernel_dd)
+    the plain versions. The wl and sg kernels' interleaved x table is built
+    once per call, inside it."""
+    return _spmv_dd(d, xh_tab, xl_tab, _kernel_writer())
 
 
 def sell_spmv_dd_plain(d: DeviceSellDD, xh_tab, xl_tab):
@@ -293,7 +377,7 @@ def panel_sell_spmv_dd(dps: DevicePanelSellDD, xh: torch.Tensor,
     """``y = A @ x`` in dd over column panels: ``xh``/``xl`` are x's
     unpadded f32 halves on the device; each panel packs its own x tables
     and every bin dd-adds onto one y pair."""
-    return _panel_spmv_dd(dps, xh, xl, _run_kernel_dd)
+    return _panel_spmv_dd(dps, xh, xl, _kernel_writer())
 
 
 def panel_sell_spmv_dd_plain(dps: DevicePanelSellDD, xh, xl):

@@ -5,18 +5,19 @@ Counterpart of the JAX package's ``ops/pallas_sell_spmm.py``, one CUDA
 kernel per layout in ``csrc/sell_spmm.cu``:
 
 * ``k-major`` (``_kernel_k_major_spmm``) -> :func:`k_major_spmm_bin`
-* ``wl`` (``_kernel_wl_spmm``) -> :func:`wl_spmm_bin`, reading the packed
-  index plane that :func:`..ops.sell.device_put_sell` always writes, so one
+* ``wl`` (``_kernel_wl_spmm``) -> :func:`wl_spmm_bin`, reading the
+  compacted planes that :func:`..ops.sell.device_put_sell` writes, so one
   :class:`DeviceSell` serves SpMV and SpMM (the JAX kernel reads unpacked
   lane offsets and is wrong on its own default, packed, upload)
 
-Each has a plain PyTorch version (``*_spmm_bin_plain``): values widened to
-f32, x and the sums in f32, the slots decoded by ``ops/sell.py``'s
-``_SLOTS`` and summed a few groups at a time, so that a large bin's R-wide
-products never exist at once. A wrapper given CUDA tensors launches its
-kernel, or raises; given CPU tensors it runs the plain version. Each wrapper
-counts its launches in ``.launches`` and those with ``accumulate=True`` in
-``.accumulating``.
+Each has a plain PyTorch version (``*_spmm_bin_plain``): values widened to f32,
+x and the sums in f32. The k-major one decodes the slots by ``ops/sell.py``'s
+``_SLOTS`` and sums them a few groups at a time, so that a large bin's R-wide
+products never exist at once; the wl one walks each row's slots in the kernel's
+order with its rounding (``ops/sell.py``'s ``fma_f32``), so the kernel equals
+it bit for bit. A wrapper given CUDA tensors launches its kernel, or raises;
+given CPU tensors it runs the plain version. Each wrapper counts its launches
+in ``.launches`` and those with ``accumulate=True`` in ``.accumulating``.
 
 The x table (:func:`pack_x_multi`) is X padded to the SpMV table's rows
 (``slab_table_rows(ncols)*128``), row-major, so an entry's R values are
@@ -43,7 +44,7 @@ import torch
 from ..formats.sell import GROUP_ROWS, LANES, SUBLANES, slab_table_rows
 from . import _build
 from .sell import (_CALL, _SLOTS, DevicePanelSell, DeviceSell, DeviceSellBin,
-                   _check_bin)
+                   _check_bin, _wl_steps, fma_f32)
 
 __all__ = ["MAX_RHS", "pack_x_multi", "device_put_x_multi",
            "k_major_spmm_bin", "wl_spmm_bin", "k_major_spmm_bin_plain",
@@ -53,7 +54,7 @@ __all__ = ["MAX_RHS", "pack_x_multi", "device_put_x_multi",
 # registers (templated on 4, 8, 16 or 32 of them)
 MAX_RHS = 32
 _SPMM_LAYOUTS = ("k-major", "wl")
-_PLAIN_ELEMS = 1 << 26  # products per chunk of groups in the plain versions
+_PLAIN_ELEMS = 1 << 26  # products per chunk of groups, plain k-major
 
 
 def _width(r: int) -> int:
@@ -156,9 +157,18 @@ def k_major_spmm_bin_plain(b: DeviceSellBin,
 
 
 def wl_spmm_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, rb, j, r] = sum_{w,l,s} as * X[128*slab[g,rb,w,s] + m, r]``
-    over the tiles ``t = (rb*NW + w)*L + l`` of group g."""
-    return _sums(b, x_tab)
+    """``out[g, rb, j, r]``: row rb*128 + j's real slots (``_wl_steps``) in
+    the kernel's order, ``acc[r] = fmaf(v, X[col, r], acc[r])`` from 0 —
+    column r equals :func:`~.sell.wl_bin_plain` on ``X[:, r]``."""
+    rhs = x_tab.shape[1]
+    acc = torch.zeros(b.n_groups * GROUP_ROWS, rhs, dtype=torch.float32,
+                      device=x_tab.device)
+    vals = b.as_.view(-1)
+    for pos, cols, has in _wl_steps(b):
+        new = fma_f32(vals[pos].double()[:, None] * x_tab[cols].double(),
+                      acc)
+        acc = torch.where(has[:, None], new, acc)
+    return acc.view(b.n_groups, SUBLANES, LANES, rhs)
 
 
 _PLAIN = {"k-major": k_major_spmm_bin_plain, "wl": wl_spmm_bin_plain}

@@ -317,6 +317,166 @@ def test_dd_kernel_exact_where_f32_cancels(layout, dev):
     assert np.abs(y32 - y_ref).max() >= 1e-6 * scale
 
 
+# ---- the compacted wl kernels and the split sg kernels, bit for bit ----
+
+# matrix -> (generator, SellMatrix.from_csr keywords); each has wl bins
+WL_MATRICES = {"fem": (lambda: fem_3d(20, 20, 20, dof=3, seed=1), {}),
+               "banded": (lambda: banded(5 * 1024, 18, 40, seed=2),
+                          {"layout": "wl"})}
+PRECISIONS = ("f32", "bf16", "dd")
+
+
+def _upload(sell, precision, dev):
+    if precision == "dd":
+        return D.device_put_sell_dd(sell, device=dev)
+    return S.device_put_sell(sell, torch.bfloat16 if precision == "bf16"
+                             else torch.float32, device=dev)
+
+
+def _equal_storing_and_adding(b, precision, kernel, plain, x, dev, **kw):
+    """Bin ``b`` through ``kernel`` (storing, then adding onto a y that
+    holds values) equals ``plain(b, *x)`` bit for bit; returns the stored
+    rows."""
+    n = (int(b.group_ids.max()) + 1) * 1024
+    want = plain(b, *x, **kw)
+    want = want if precision == "dd" else (want,)
+    rows = b.group_ids.long()
+    y0 = [torch.randn(n, device=dev)]
+    if precision == "dd":
+        y0.append(y0[0] * 2.0**-30)
+    stored = None
+    for accumulate in (False, True):
+        y = [t.clone() for t in y0]
+        before = (kernel.launches, kernel.accumulating)
+        kernel(b, *x, *y, accumulate=accumulate)
+        torch.cuda.synchronize()
+        assert (kernel.launches, kernel.accumulating) == (
+            before[0] + 1, before[1] + accumulate)
+        got = [t.view(-1, 8, 128)[rows] for t in y]
+        exp = list(want)
+        if accumulate:
+            base = [t.view(-1, 8, 128)[rows] for t in y0]
+            exp = list(dd_add_dd(*base, *want)) if precision == "dd" \
+                else [base[0] + want[0]]
+        else:
+            stored = got
+        for g, e in zip(got, exp):
+            assert torch.equal(g, e), (accumulate,
+                                       (g - e).abs().max().item())
+    return stored
+
+
+def _x_for(csr, precision, dev, seed=4):
+    x = np.random.default_rng(seed).standard_normal(csr.ncols)
+    if precision == "dd":
+        return D.device_put_x_dd(x, csr.ncols, device=dev)
+    return (S.device_put_x(x, csr.ncols, device=dev),)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("matrix", sorted(WL_MATRICES))
+def test_wl_kernel_equals_plain_bit_for_bit(matrix, precision, dev):
+    """The compacted wl kernel (f32, bf16, dd) against its plain version,
+    which adds each row's slots in the kernel's order and rounding."""
+    make, kw = WL_MATRICES[matrix]
+    csr = CSRMatrix.from_coo(make())
+    d = _upload(SellMatrix.from_csr(csr, **kw), precision, dev)
+    kernel, plain = ((D.wl_bin_dd, D.wl_bin_plain_dd) if precision == "dd"
+                     else (S.wl_bin, S.wl_bin_plain))
+    x = _x_for(csr, precision, dev)
+    bins = [b for b in d.bins if b.layout == "wl"]
+    assert bins
+    for b in bins:
+        _equal_storing_and_adding(b, precision, kernel, plain, x, dev)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_wl_kernel_equals_the_padded_result(precision, dev):
+    """On finite x the compacted kernel returns what the padded layout's
+    kernel returned (``wl_padded_plain``: every slot, pads included, in the
+    order (w, l, s)), bit for bit: a pad only added an exact zero."""
+    csr = CSRMatrix.from_coo(fem_3d(20, 20, 20, dof=3, seed=1))
+    sell = SellMatrix.from_csr(csr)
+    d = _upload(sell, precision, dev)
+    x = _x_for(csr, precision, dev, seed=6)
+    pairs = [(h, b) for h, b in zip(sell.bins, d.bins) if h.layout == "wl"]
+    assert pairs
+    for h, b in pairs:
+        assert b.ja.numel() < h.ja.size  # pad slots were dropped
+        y = [torch.zeros(d.num_groups * 1024, device=dev)
+             for _ in range(2 if precision == "dd" else 1)]
+        if precision == "dd":
+            D.wl_bin_dd(b, *x, *y)
+            want = D.wl_padded_plain_dd(h, *x)
+        else:
+            S.wl_bin(b, *x, *y)
+            want = (S.wl_padded_plain(h, x[0], torch.bfloat16
+                                      if precision == "bf16"
+                                      else torch.float32),)
+        rows = b.group_ids.long()
+        for got, exp in zip(y, want):
+            assert torch.equal(got.view(-1, 8, 128)[rows], exp)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("mode", ["slots", "rows"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+def test_sg_kernel_equals_plain_bit_for_bit(precision, mode, split, dev,
+                                            monkeypatch):
+    """The sg kernel in both modes, its groups' tiles split into chunks
+    (joined by a second launch) or not, against its plain version, which
+    sums in the kernel's order: storing, and adding onto y once."""
+    monkeypatch.setattr(S, "_SG_MIN_CHUNK", 2)
+    if not split:
+        monkeypatch.setattr(S, "_SG_SPLIT_BELOW", 0)
+    csr = CSRMatrix.from_coo(road_network(20_000, seed=5))
+    sell = SellMatrix.from_csr(csr, layout="sg", sg_slots=mode == "slots")
+    d = _upload(sell, precision, dev)
+    kernel, plain = ((D.sg_bin_dd, D.sg_bin_plain_dd) if precision == "dd"
+                     else (S.sg_bin, S.sg_bin_plain))
+    x = _x_for(csr, precision, dev)
+    bins = [b for b in d.bins if b.layout == "sg"]
+    assert bins and {b.sg_slots for b in bins} == {mode == "slots"}
+    assert {S._sg_chunks(b) > 1 for b in bins} == {split}
+    for b in bins:
+        _equal_storing_and_adding(b, precision, kernel, plain, x, dev)
+    if precision == "bf16":
+        return
+    y = combine_f64(*D.sell_spmv_dd(d, *x)) if precision == "dd" \
+        else S.sell_spmv(d, *x).double()
+    ref = torch.from_numpy(csr.spmv(np.random.default_rng(4).standard_normal(
+        csr.ncols))).to(dev)
+    tol = 1e-12 if precision == "dd" else 1e-5
+    assert (y - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("rhs", [1, 6, 16])
+def test_wl_spmm_equals_plain_bit_for_bit(rhs, dev):
+    """The wl SpMM kernel on the compacted planes against its plain
+    version, storing and adding, and each column against the SpMV kernel."""
+    csr = CSRMatrix.from_coo(fem_3d(20, 20, 20, dof=3, seed=1))
+    d = S.device_put_sell(SellMatrix.from_csr(csr), device=dev)
+    X = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (csr.ncols, rhs))).float().to(dev)
+    x_tab = SM.pack_x_multi(X, csr.ncols)
+    y0 = torch.randn(d.num_groups * 1024, 32, device=dev)[:, :rhs]
+    for b in (b for b in d.bins if b.layout == "wl"):
+        want = SM.wl_spmm_bin_plain(b, x_tab)
+        rows = b.group_ids.long()
+        for accumulate in (False, True):
+            y = torch.zeros(d.num_groups * 1024, 32, device=dev)[:, :rhs]
+            y.copy_(y0)
+            SM.wl_spmm_bin(b, x_tab, y, accumulate=accumulate)
+            got = y.view(-1, 8, 128, rhs)[rows]
+            exp = y0.reshape(-1, 8, 128, rhs)[rows] + want if accumulate \
+                else want
+            assert torch.equal(got, exp), accumulate
+        for j in range(rhs):
+            y = torch.zeros(d.num_groups * 1024, device=dev)
+            S.wl_bin(b, S.pack_x_table(X[:, j], csr.ncols), y)
+            assert torch.equal(y.view(-1, 8, 128)[rows], want[..., j])
+
+
 # ---- the PR kernels and the locality split ----
 
 # tests/test_pr.py's cases, and the panel case (several problems)

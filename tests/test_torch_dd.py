@@ -148,6 +148,35 @@ CASES = {
 }
 
 
+def _by_row(h, plane):
+    """A host wl plane as (rows, k): each row's slots in the order (w, l,
+    s)."""
+    ng, nw, L = h.n_groups, h.chunk_k, h.span
+    return np.asarray(plane).reshape(ng, 8, nw, L, 8, 128).transpose(
+        0, 1, 5, 2, 3, 4).reshape(ng * 1024, h.k)
+
+
+def _kept_rows(h, plane, keep):
+    """Each row's kept slots of a host wl plane first, in order, then 0s."""
+    v, k = _by_row(h, plane), _by_row(h, keep)
+    order = np.argsort(~k, axis=1, kind="stable")
+    return np.where(np.take_along_axis(k, order, 1),
+                    np.take_along_axis(v, order, 1), 0)
+
+
+def _wl_rows(b, plane):
+    """A compacted wl plane as (rows, k) in each row's slot order, 0 past the
+    row's length."""
+    rows, k = b.n_groups * 1024, b.k
+    n = b.row_len.numpy()
+    r = np.arange(rows)
+    pos = (b.plane_off.numpy()[r // 128].astype(np.int64)[:, None] * 128
+           + (r % 128)[:, None] + np.arange(k)[None, :] * 128)
+    live = np.arange(k)[None, :] < n[:, None]
+    flat = plane.reshape(-1).numpy()
+    return np.where(live, flat[np.where(live, pos, 0)], 0)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
     make, kw, i16, layouts = CASES[case]
@@ -168,14 +197,23 @@ def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
     d = D.device_put_sell_dd(sell, device="cpu", sb_i16=i16)
     assert len(d.bins) == len(jd.bins) == len(sell.bins)
     for b, jb, h in zip(d.bins, jd.bins, sell.bins):
-        # the hi/lo planes are the JAX split of the same bin, and the index
+        # the hi/lo planes are the JAX split of the same bin (wl: its real
+        # slots, row by row; wl and sg: as (hi, lo) pairs), and the index
         # planes the JAX upload's (which may append padding groups)
         hi, lo = jdd.split_f64(np.asarray(h.as_, np.float64))
-        assert np.array_equal(b.as_hi.numpy(), hi)
-        assert np.array_equal(b.as_lo.numpy(), lo)
-        n = b.as_hi.shape[0]
-        assert np.array_equal(b.as_hi.numpy(), np.asarray(jb.as_hi)[:n])
-        assert np.array_equal(b.as_lo.numpy(), np.asarray(jb.as_lo)[:n])
+        n = hi.shape[0]
+        jhi, jlo = np.asarray(jb.as_hi)[:n], np.asarray(jb.as_lo)[:n]
+        assert np.array_equal(jhi, hi) and np.array_equal(jlo, lo)
+        if b.layout == "wl":
+            for half, want in ((0, jhi), (1, jlo)):
+                assert np.array_equal(
+                    _wl_rows(b, b.as_pair[..., half]),
+                    _kept_rows(h, want, (jhi != 0) | (jlo != 0)))
+            continue
+        got = (b.as_pair[..., 0], b.as_pair[..., 1]) if b.layout == "sg" \
+            else (b.as_hi, b.as_lo)
+        assert np.array_equal(got[0].numpy(), jhi)
+        assert np.array_equal(got[1].numpy(), jlo)
         assert np.array_equal(b.ja.numpy(),
                               np.asarray(jb.ja)[:b.ja.shape[0]])
         if b.layout in ("sb-major", "sb-list"):
@@ -208,7 +246,7 @@ def test_dd_panels_match_pallas_interpret():
     assert _norm_err(y, csr.spmv(x)) < ORACLE_REL
 
 
-# ---- the port's own: oracle, f32, refusals, f64 entry point ----
+# ---- the port's own: oracle, f32, slot-packed sg, f64 entry point ----
 
 
 def test_dd_panels_with_wl_against_fp64_oracle():
@@ -262,12 +300,20 @@ def test_dd_exact_on_cancelling_rows(layout):
     assert np.abs(y32 - y_ref).max() >= 1e-6 * np.abs(y_ref).max()
 
 
-def test_sg_slots_bin_is_refused():
-    csr = CSRMatrix.from_coo(syn.road_network(8000, seed=5))
-    sell = SellMatrix.from_csr(csr.split_heavy_rows(256)[0], layout="sg")
+def test_sg_slots_bin_is_accepted():
+    """A slot-packed sg bin uploads in dd (one plane of (hi, lo) pairs) and
+    its plain version, which sums each sigma row's slots in dd, returns the
+    fp64 oracle's y."""
+    csr = CSRMatrix.from_coo(syn.road_network(8000, seed=5)).split_heavy_rows(
+        256)[0]
+    sell = SellMatrix.from_csr(csr, layout="sg")
     assert any(b.sg_slots for b in sell.bins)
-    with pytest.raises(ValueError, match="row-unique sg positions"):
-        D.device_put_sell_dd(sell, device="cpu")
+    d = D.device_put_sell_dd(sell, device="cpu")
+    for b in d.bins:
+        assert (b.as_pair is None) == (b.layout == "k-major")
+    x = _x(csr.ncols, seed=9)
+    y = D.sell_spmv_dd_f64(d, torch.from_numpy(x)).numpy()
+    assert _norm_err(y, csr.spmv(x)) < ORACLE_REL
 
 
 def test_dd_wrappers_on_cpu_count_nothing_and_check_inputs():
@@ -297,7 +343,7 @@ def test_dd_wrappers_on_cpu_count_nothing_and_check_inputs():
 RUN_MATRIX = {
     # short rows: 16-entry segments reduced back in f64 on the host
     "entry_banded": lambda: syn.banded(8192, 24, 512, seed=0),
-    # slot-packed sg bins: rebuilt in rows mode for the stage
+    # slot-packed sg bins: the dd stage runs the same SELL
     "uniform_sg_slots": lambda: syn.random_general(20000, 20000, 2.5e-4,
                                                    seed=8),
     # SELL-sigma fallback: kernel rows map back through row_perm
@@ -316,15 +362,13 @@ def test_run_matrix_sell_dd_stage(matrix):
     # an f32 segment sum or f32 join would leave ~1e-7
     assert st.norm_err < ORACLE_REL
     assert st.seconds > 0 and st.gflops > 0
-    assert not any(b.sg_slots for b in res.sell_dd.bins)
+    assert res.sell_dd is res.sell
+    assert not any("rows-mode" in m for m in logs)
+    assert "convert_sell_dd_s" not in res.format_stats
     if matrix == "entry_banded":
         assert res.format_stats["heavy_row_segments"] > 0
     if matrix == "uniform_sg_slots":
         assert any(b.sg_slots for b in res.sell.bins)
         assert {b.layout for b in res.sell_dd.bins} >= {"sg"}
-        assert res.format_stats["convert_sell_dd_s"] > 0
-        assert any("rows-mode SELL for sell_dd" in m for m in logs)
-    else:
-        assert res.sell_dd is res.sell
     if matrix == "power_law_sigma":
         assert res.sell_dd.row_perm is not None

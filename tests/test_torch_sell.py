@@ -96,25 +96,81 @@ def test_plain_version_matches_pallas_interpret(layout, interpret_runs):
     _close(S.sell_spmv(d, x_tab), y_ref)
 
 
+def _unpack(packed, ng, tiles):
+    """The JAX package's packed wl plane back to its lane indices, (ng,
+    tiles, 8, 128): byte t % 4 of packed tile t // 4."""
+    p = np.asarray(packed).astype(np.uint32).reshape(ng, -1, 1, 8, 128)
+    m = (p >> (8 * np.arange(4, dtype=np.uint32))[None, None, :, None, None]
+         ) & 127
+    return m.reshape(ng, -1, 8, 128)[:, :tiles]
+
+
+def _compacted_rows(b, plane, fill=-1):
+    """A compacted wl plane as (rows, width) in each row's slot order,
+    ``fill`` past the row's length."""
+    rows = b.n_groups * 1024
+    n = b.row_len.numpy()
+    width = int(n.max()) if rows else 0
+    r = np.arange(rows)
+    base = b.plane_off.numpy()[r // 128].astype(np.int64) * 128 + r % 128
+    q = np.arange(width)
+    pos = base[:, None] + q[None, :] * 128
+    live = q[None, :] < n[:, None]
+    flat = plane.reshape(-1).numpy()
+    return np.where(live, flat[np.where(live, pos, 0)], fill)
+
+
 def test_wl_packing_bit_identical_to_jax():
+    """The compacted plane's 2-byte codes carry the JAX package's packed
+    lane indices: row by row, the codes of the real slots are ``((w*8 + s)
+    << 7) | m`` with m unpacked from ``_pack_wl_ja``'s plane, in the order
+    (w, l, s), and the values those slots' values."""
     sell = SellMatrix.from_csr(CSRMatrix.from_coo(fem_3d(10, 10, 10, dof=3)),
                                layout="wl")
     d = S.device_put_sell(sell, device="cpu")
     wl = [(h, b) for h, b in zip(sell.bins, d.bins) if h.layout == "wl"]
     assert wl
     for h, b in wl:
-        want = _pack_wl_ja(np.asarray(h.ja), h.k * 8)
-        assert b.ja.dtype == torch.int32
-        assert np.array_equal(b.ja.numpy(), want)
-        assert b.ja.numel() * 4 == b.as_.numel()  # 1 byte per slot
+        ng, nw, L = h.n_groups, h.chunk_k, h.span
+        m = _unpack(_pack_wl_ja(np.asarray(h.ja), h.k * 8), ng, h.k)
+        slot = np.arange(h.k)
+        code = ((slot // (8 * L) * 8 + slot % 8) << 7)[None, :] \
+            + m.reshape(ng, 8, nw, L, 8, 128).transpose(
+                0, 1, 5, 2, 3, 4).reshape(ng * 1024, h.k)
+        v = np.asarray(h.as_).reshape(ng, 8, nw, L, 8, 128).transpose(
+            0, 1, 5, 2, 3, 4).reshape(ng * 1024, h.k)
+        assert b.ja.dtype == torch.int16
+        assert b.ja.numel() == b.as_.numel()  # 2 bytes a slot
+        got_c, got_v = _compacted_rows(b, b.ja), _compacted_rows(b, b.as_, 0)
+        for r in range(0, ng * 1024, 97):
+            keep = v[r] != 0
+            n = int(keep.sum())
+            assert np.array_equal(got_c[r, :n], code[r, keep])
+            assert np.array_equal(got_v[r, :n], v[r, keep].astype(np.float32))
+            assert (got_c[r, n:] == -1).all()
 
 
 def test_wl_packing_pads_to_whole_words():
-    rng = np.random.default_rng(3)
-    ja = rng.integers(0, 128, size=(2 * 6 * 8, 128)).astype(np.int32)
-    got = S._pack_wl_ja(ja, 6 * 8)  # 6 tiles per group -> 2 packed tiles
-    assert np.array_equal(got, _pack_wl_ja(ja, 6 * 8))
-    assert got.shape == (2 * 2 * 8, 128) and (got >= 0).all()
+    """Each (group, row-block) plane is as wide as its longest row, in whole
+    128-lane plane rows; a shorter row's slots past its length hold a zero
+    value and code, and its real slots are the host bin's nonzeros."""
+    sell = SellMatrix.from_csr(CSRMatrix.from_coo(banded(4096, 18, 40,
+                                                         seed=2)),
+                               layout="wl")
+    (h, b), = [(h, b) for h, b in zip(sell.bins, S.device_put_sell(
+        sell, device="cpu").bins) if h.layout == "wl"]
+    n = b.row_len.view(-1, 128)
+    widths = b.plane_off[1:] - b.plane_off[:-1]
+    assert torch.equal(widths, n.amax(1))
+    assert b.ja.shape == b.as_.shape == (int(b.plane_off[-1]), 128)
+    assert int(n.sum()) == int((np.asarray(h.as_) != 0).sum())
+    assert (n < widths[:, None]).any()  # some rows are padded
+    flat = torch.arange(b.ja.numel()).view(b.ja.shape)
+    real = _compacted_rows(b, flat)  # plane positions of the real slots
+    pad = torch.ones(b.ja.numel(), dtype=torch.bool)
+    pad[torch.from_numpy(real[real >= 0])] = False
+    assert pad.any() and (b.as_.view(-1)[~pad] != 0).all()
+    assert not b.ja.view(-1)[pad].any() and not b.as_.view(-1)[pad].any()
 
 
 # matrix -> (generator, SellMatrix.from_csr keywords)

@@ -6,7 +6,7 @@ those are held against ``sell_spmm_pallas(..., interpret=True)`` on the same
 host SELL at rtol=1e-5, atol=1e-5*max|Y| (both sum in f32, in another
 order). The JAX wl SpMM kernel reads unpacked lane offsets, so its side of
 the wl comparison runs with ``SPMV_WL_PACK=0``; the port's side uses its
-default packed upload.
+own upload, whose wl planes are compacted.
 """
 
 import dataclasses
@@ -134,15 +134,17 @@ def test_panels_match_pallas_interpret():
 
 @pytest.mark.parametrize("r", [1, 2])
 def test_wl_matches_pallas_interpret_unpacked(r, monkeypatch):
-    """The port's wl SpMM on its packed upload against the JAX kernel on the
-    unpacked plane it reads (SPMV_WL_PACK=0); both against the oracle."""
+    """The port's wl SpMM on its compacted upload against the JAX kernel on
+    the unpacked plane it reads (SPMV_WL_PACK=0); both against the
+    oracle."""
     jsell = JSell.from_csr(JCSR.from_coo(jsyn.banded(1024, 18, 40, seed=2)),
                            layout="wl")
     assert [(b.layout, b.k) for b in jsell.bins] == [("wl", 48)]
     X = _X(jsell.ncols, r, 5)
     got = _port_spmm(jsell, X)
     d = S.device_put_sell(jsell, device="cpu")
-    assert d.bins[0].ja.numel() * 4 == d.bins[0].as_.numel()  # packed
+    b = d.bins[0]  # compacted: a 2-byte code a real slot
+    assert b.ja.dtype == torch.int16 and b.ja.numel() == b.as_.numel()
     monkeypatch.setenv("SPMV_WL_PACK", "0")
     want = _jax_spmm(jsell, X)
     _close(got, want)
