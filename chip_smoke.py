@@ -99,25 +99,31 @@ int16 sb index planes, is run through its kernel, storing and accumulating, and
 through its plain PyTorch version on the card; they must agree within
 rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order), or for the dd kernels
 within 1e-12*max|y| on the fp64-combined result (dd sums in another order); the
-wl and sg kernels, whose plain versions add in the kernels' order and rounding,
-bit for bit. Each wl bin's kernel (f32 and dd) must also return what the padded
-layout before compaction returned (``wl_padded_plain``: every slot, pads
-included) bit for bit, and the smoke prints each wl bin's padded and compacted
-slots and bytes, the headline's upload seconds, and scattered_uniform's dd SpMV
-bin by bin. So are webbase_pr's PR panels through the PR and PR-dd kernels,
-road_scattered's split (its K=1 far problem through the PR kernels, and the
-composite), every bin of the SELL SpMM runs (the sell_spmm SELLs at R=16, the
-headline's wl bins at R=8 and 16; f32, and bf16 values on the headline and
-banded_adversarial, at the same tolerance: the plain versions widen bf16
-exactly as the kernels do, so only the order of the f32 sums differs), and
-band64_250k's blocks through both BSR routes (f32 and bf16, B=128 and 512, the
-same tolerance for the same reason). Column j of each SELL SpMM result must
-equal the SpMV kernel on X[:, j] bit for bit on the headline and
-banded_adversarial. Kernel and
+k-major, wl, sb-list and sg kernels (dd: wl, sb-list and sg), whose plain
+versions add in the kernels' order and rounding, bit for bit. Each compacted
+bin's kernel (wl, and sb-list with int32 planes; f32 and dd) must also return
+what the padded layout before compaction returned (``wl_padded_plain``,
+``sb_list_padded_plain``: every slot, pads included) bit for bit, and the
+smoke prints each such bin's padded and compacted slots and bytes, the
+headline's upload seconds, and scattered_uniform's dd SpMV bin by bin. So are
+webbase_pr's PR panels through the PR and PR-dd kernels, road_scattered's
+split (its K=1 far problem through the PR kernels, and the composite), and
+band64_250k's blocks through both BSR routes (f32 and bf16, B=128 and 512, at
+the f32 tolerance: the plain version widens bf16 exactly as the kernels do,
+so only the order of the f32 sums differs). Every bin of the SELL SpMM runs
+(the sell_spmm SELLs at R=16, the headline's wl bins at R=8 and 16; f32, and
+bf16 values on the headline and banded_adversarial) must equal its plain
+version bit for bit, storing and adding; each k-major SpMM bin prints how
+many of its blocks ran on x staged in shared memory and how many on the x
+table, and where some staged, its time with staging off; band64_250k's and
+banded_adversarial's k-major bins also run at R = 1, 4, 8 and 32. Column j
+of each SELL SpMM result must equal the SpMV kernel on X[:, j] bit for bit on
+the headline and banded_adversarial. Kernel and
 plain version are each timed twice: device time (CUDA events around calls
 queued back to back behind a spin kernel, per call) and call time (CUDA
-events around each call, host included); the wl and sg plain versions,
-which queue a few kernels for every slot step, only by call time over
+events around each call, host included); the plain versions that add slot
+step by slot step (k-major, wl, sb-list and sg, the SpMM and dd twins among
+them), which queue a few kernels for every step, only by call time over
 ``PLAIN_SEQ_REPS`` calls. Beside each phase's SpMV, the
 device time of cuSPARSE's CSR SpMV (``torch.sparse_csr_tensor @ x``) on the
 phase's whole matrix, f32 values beside the f32/bf16 kernels and fp64
@@ -147,8 +153,9 @@ The kernel-variant rows of the JSON summary are the phase's own records:
 (``library_ms``: ``a.sum(0)``), each ``bound_ms`` the variant's planes and
 tables, the distinct x entries it reads and its output over 3.35 TB/s.
 
-The JSON summary's ``ms`` and ``plain_ms`` are device times, at each kernel's
-main-path bin with the most entries among those whose planes exceed twice the
+The JSON summary's ``ms`` is a device time and ``plain_ms`` one too (a call
+time for a plain version that adds step by step), at each kernel's main-path
+bin with the most entries among those whose planes exceed twice the
 L2 (so they stream from HBM and their time can be held against the bound; the
 largest bin where none does; PR: webbase_pr's panel 0; SELL SpMM at R=16; BSR:
 band64_250k at B=128) with f32 (or dd) values and int32 index planes;
@@ -201,15 +208,20 @@ PLAIN_PR_DD_REPS = 1
 # a plain SELL SpMM call on the headline's main bin at R=16 queues ~220
 # kernels in 22 chunks of groups, a plain BSR call at B=512 ~70
 PLAIN_SPMM_REPS = 1
-# the wl and sg plain versions add slot step by slot step, a few kernels a
-# step (the headline's wl bins ~1,400 a call in f32, ~2,800 dd): more than
-# fit behind device_time_fn's spin, so they get call times over few calls
+# the k-major, wl, sb-list and sg plain versions add slot step by slot step,
+# a few kernels a step (the headline's wl bins ~1,400 a call in f32, ~2,800
+# dd): more than fit behind device_time_fn's spin, so they get call times
+# over few calls
 PLAIN_SEQ_REPS = 3
-SEQ_LAYOUTS = ("wl", "sg")
+# layouts whose plain versions add in the kernel's order: kernel == plain bit
+# for bit (dd: the k-major plain sums by a pairwise tree)
+SEQ_LAYOUTS = ("k-major", "wl", "sb-list", "sg")
+SEQ_LAYOUTS_DD = ("wl", "sb-list", "sg")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 SPMM_RHS = 16              # R of the SELL SpMM runs (the sell_spmm stage's)
+SPMM_SWEEP_RHS = (1, 4, 8, 32)  # the other R of the k-major SpMM bins
 HEADLINE_RHS = (8, 16)
 BSR_RHS = (128, 512)       # B of the direct bsr_spmm calls
 BSR_BF16_TOL = (1e-2, 0.02)  # abs, rel: probes/bsr_spmm_tpu.py:110
@@ -912,7 +924,8 @@ def main() -> int:
 
     def tables(b):
         return tuple(t for t in (b.slab_list, b.slab_count, b.group_ids,
-                                 b.row_len, b.plane_off) if t is not None)
+                                 b.row_len, b.plane_off, b.row_table)
+                     if t is not None)
 
     def device_bytes(d):
         return sum(t.numel() * t.element_size() for b in d.bins
@@ -964,10 +977,11 @@ def main() -> int:
                        2 if b.layout == "wl" else 4), nnz
 
     def plain_ms(plain, *args, reps=None):
-        """``(device ms, call ms)`` of a plain version; a wl or sg one
-        only by call time (:data:`PLAIN_SEQ_REPS`)."""
-        if plain in (plains["wl"], plains["sg"], dd_plains["wl"],
-                     dd_plains["sg"], SM.wl_spmm_bin_plain):
+        """``(device ms, call ms)`` of a plain version; one that adds slot
+        step by slot step only by call time (:data:`PLAIN_SEQ_REPS`)."""
+        if plain in (*(plains[lay] for lay in SEQ_LAYOUTS),
+                     *(dd_plains[lay] for lay in SEQ_LAYOUTS_DD),
+                     SM.wl_spmm_bin_plain, SM.k_major_spmm_bin_plain):
             ms = time_fn(plain, *args, device=dev, reps=PLAIN_SEQ_REPS,
                          skip=1) * 1e3
             return ms, ms
@@ -1028,8 +1042,8 @@ def main() -> int:
         want = plain(b, xh, xl)
         rows = b.group_ids.long()
         base = (y0h.view(-1, 8, 128)[rows], y0l.view(-1, 8, 128)[rows])
-        exact = b.layout in SEQ_LAYOUTS
-        kw = {"x_pair": D.pack_x_pair(xh, xl)} if exact else {}
+        exact = b.layout in SEQ_LAYOUTS_DD
+        kw = {"x_pair": D.pack_x_pair(xh, xl)} if D._pairs(b) else {}
         err = 0.0
         for accumulate in (False, True):
             yh, yl = y0h.clone(), y0l.clone()
@@ -1068,32 +1082,48 @@ def main() -> int:
                                   bound, phase, bytes_read(b)))
         return ms_k
 
-    def wl_padded(tag, hb, b, xs, dd):
-        """A wl bin's padded and compacted slots and bytes, and its kernel
-        (storing) against the padded layout's result, bit for bit."""
+    def compacted(b):
+        """Whether ``b``'s planes were compacted at upload: wl, and sb-list
+        with int32 planes."""
+        return b.layout == "wl" or b.row_table is not None
+
+    def padded_check(tag, hb, b, xs, dd):
+        """A compacted bin's padded and compacted slots and bytes, and its
+        kernel (storing) against the padded layout's result, bit for
+        bit."""
         n = (int(b.group_ids.max()) + 1) * 1024
         ys = [torch.zeros(n, device=dev) for _ in xs]
         if dd:
-            D.wl_bin_dd(b, *xs, *ys)
-            want = D.wl_padded_plain_dd(hb, *xs)
+            dd_wrappers[b.layout](b, *xs, *ys)
+            want = (D.wl_padded_plain_dd if b.layout == "wl"
+                    else D.sb_list_padded_plain_dd)(hb, *xs)
         else:
-            S.wl_bin(b, *xs, *ys)
-            want = (S.wl_padded_plain(hb, xs[0], b.as_.dtype),)
+            wrappers[b.layout](b, *xs, *ys)
+            want = ((S.wl_padded_plain if b.layout == "wl"
+                     else S.sb_list_padded_plain)(hb, xs[0], b.as_.dtype),)
         rows = b.group_ids.long()
         if not all(torch.equal(y.view(-1, 8, 128)[rows], w)
                    for y, w in zip(ys, want)):
-            fail(f"{tag}: the compacted wl kernel differs from the padded "
-                 "layout's result")
+            fail(f"{tag}: the compacted {b.layout} kernel differs from the "
+                 "padded layout's result")
         padded, kept = int(np.asarray(hb.ja).size), b.ja.numel()
         entries = int((np.asarray(hb.as_) != 0).sum())
         vb = value_bytes(b)
-        print(f"{tag} wl k={hb.k} groups={hb.n_groups}: padded {padded} "
-              f"slots ({padded * (vb + 1)} B at {vb} B a value and the "
-              f"packed 1 B lane index), compacted {kept} slots "
-              f"({bytes_read(b)} B with 2 B codes, row lengths and block "
-              f"offsets); {entries} entries, {kept / max(entries, 1):.4f}x "
-              f"of them, {padded / max(kept, 1):.3f}x fewer slots; kernel "
-              f"equals the padded result bit for bit", flush=True)
+        if b.layout == "wl":
+            was = "the packed 1 B lane index"
+            now = "2 B codes, row lengths and block offsets"
+            index_bytes = 1
+        else:
+            was = "a 4 B column"
+            now = "4 B columns, the row table and warp offsets"
+            index_bytes = 4
+        print(f"{tag} {b.layout} k={hb.k} groups={hb.n_groups}: padded "
+              f"{padded} slots ({padded * (vb + index_bytes)} B at {vb} B a "
+              f"value and {was}), compacted {kept} slots ({bytes_read(b)} B "
+              f"with {now}); {entries} entries, "
+              f"{kept / max(entries, 1):.4f}x of them, "
+              f"{padded / max(kept, 1):.3f}x fewer slots; kernel equals the "
+              f"padded result bit for bit", flush=True)
 
     for name, sell, _, x, csr in runs:
         uploads = [(dt, False) for dt in (torch.float32, torch.bfloat16)]
@@ -1141,8 +1171,9 @@ def main() -> int:
             for i, b in enumerate(d.bins):
                 check_bin(f"{tag} bin {i}", b, xt, y0,
                           name if dtype == torch.float32 and not i16 else None)
-                if b.layout == "wl" and not i16:
-                    wl_padded(f"{tag} bin {i}", sell.bins[i], b, (xt,), False)
+                if compacted(b):
+                    padded_check(f"{tag} bin {i}", sell.bins[i], b, (xt,),
+                                 False)
             del d, xt, y_k, y_p, y0
             torch.cuda.empty_cache()
 
@@ -1191,9 +1222,9 @@ def main() -> int:
                                   None if i16 else name)
                 per_bin.append((f"{b.layout} k={b.k} g={b.n_groups}"
                                 f"{' add_into' if b.add_into else ''}", ms))
-                if b.layout == "wl" and not i16:
-                    wl_padded(f"{tag} bin {i}", sell.bins[i], b, (xh, xl),
-                              True)
+                if compacted(b):
+                    padded_check(f"{tag} bin {i}", sell.bins[i], b,
+                                 (xh, xl), True)
             launched0 = sum(w.launches for w in dd_wrappers.values())
             D.sell_spmv_dd(d, xh, xl)
             launched = sum(w.launches for w in dd_wrappers.values()) - launched0
@@ -1421,26 +1452,28 @@ def main() -> int:
         rhs = xt.shape[1]
         kernel, plain = spmm_wrappers[b.layout], SM._PLAIN[b.layout]
         want = plain(b, xt)
-        atol = ATOL_REL * float(want.abs().max())
         rows = b.group_ids.long()
-        exact = b.layout == "wl"  # its plain version: the kernel's order
         err = 0.0
+        # both plain versions add in the kernels' order: equal bit for bit
         for accumulate in (False, True):
             y = rhs_copy(y0)
             kernel(b, xt, y, accumulate=accumulate)
             got = y.view(-1, 8, 128, rhs)[rows]
-            exp = want
-            if accumulate:
-                if exact:
-                    exp = y0.view(-1, 8, 128, rhs)[rows] + want
-                else:
-                    got = got - y0.view(-1, 8, 128, rhs)[rows]
+            exp = y0.view(-1, 8, 128, rhs)[rows] + want if accumulate \
+                else want
             e = (got - exp).abs().max().item()
-            if not (torch.equal(got, exp) if exact else torch.allclose(
-                    got, exp, rtol=RTOL, atol=atol)):
+            if not torch.equal(got, exp):
                 fail(f"{tag} ({b.layout} SpMM, accumulate={accumulate}): "
-                     f"max|k-p| = {e}{' (must be equal)' if exact else ''}")
+                     f"max|k-p| = {e} (must be equal)")
             err = max(err, e)
+        path = ""
+        if b.layout == "k-major":
+            staged = SM.staged_blocks(b)
+            span = b.x_window[:, 1].float()
+            path = (f"; blocks on x staged in shared memory {staged}, on "
+                    f"the x table {b.n_groups * 8 - staged} (window spans "
+                    f"median {int(span.median())}, max {int(span.max())} "
+                    f"rows; staged up to {b.window_rows})")
         st = mm_stats[b.layout]
         st["max_abs_err"] = max(st["max_abs_err"], err)
         if phase is None:
@@ -1449,16 +1482,27 @@ def main() -> int:
         ms_k = device_time_fn(kernel, b, xt, y, device=dev) * 1e3
         ms_p = plain_ms(plain, b, xt, reps=PLAIN_SPMM_REPS)[0]
         call_k = time_fn(kernel, b, xt, y, device=dev) * 1e3
+        if b.layout == "k-major" and b.window_rows:
+            # the same bin with staging off: every block on the x table
+            off = dataclasses.replace(b, window_rows=0)
+            y_off = rhs_copy(y0)
+            kernel(off, xt, y_off)
+            if not torch.equal(y_off.view(-1, 8, 128, rhs)[rows], want):
+                fail(f"{tag}: the k-major SpMM kernel without staging "
+                     "differs from its plain version")
+            ms_off = device_time_fn(kernel, off, xt, y_off, device=dev) * 1e3
+            path += f"; staging off {ms_off:.4f} ms"
         nnz, n_x, n_y = bin_counts(b, xt.shape[0])
         bound, by = spmm_need(nnz, b.as_.element_size(), n_x, n_y, rhs,
-                              col_bytes=2 if exact else 4)
+                              col_bytes=2 if b.layout == "wl" else 4)
         planes = nbytes(b.ja, b.as_) + (n_x + n_y) * rhs * 4
         print(f"{tag} {b.layout} SpMM R={rhs} k={b.k} groups={b.n_groups}: "
               f"device kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; call "
               f"kernel {call_k:.4f} ms; planes, x and y rows {planes} B "
               f"({planes / ms_k / 1e9:.3f} TB/s); "
               f"{2 * nnz * rhs / ms_k / 1e6:.1f} GFLOPS; bound {bound:.4f} "
-              f"ms ({by}, {nnz} entries); max|k-p| {err:.3e}", flush=True)
+              f"ms ({by}, {nnz} entries); max|k-p| {err:.3e}{path}",
+              flush=True)
         if rhs == SPMM_RHS and (st["best"] is None or nnz > st["best"][0]):
             st["best"] = (nnz, ms_k, ms_p, tag, b.k, b.n_groups, bound, by,
                           phase, bytes_read(b))
@@ -1502,10 +1546,35 @@ def main() -> int:
                 check_spmm_bin(f"[{name}] bf16 bin {i}", b, xt, y0, None)
             del db
 
+    def rhs_sweep(name, d):
+        """Each bin of ``d`` (k-major) through its SpMM kernel at every R of
+        :data:`SPMM_SWEEP_RHS`, storing: equal to its plain version bit for
+        bit, and its device time."""
+        times = []
+        for rhs in SPMM_SWEEP_RHS:
+            X = np.random.default_rng(SEED).standard_normal((d.ncols, rhs),
+                                                            dtype=np.float32)
+            xt = SM.device_put_x_multi(X, d.ncols, device=dev)
+            for i, b in enumerate(d.bins):
+                y = SM._rhs_buffer(d.num_groups * 1024, rhs, dev)
+                SM.k_major_spmm_bin(b, xt, y)
+                if not torch.equal(y.view(-1, 8, 128, rhs)[b.group_ids.long()],
+                                   SM.k_major_spmm_bin_plain(b, xt)):
+                    fail(f"[{name}] bin {i} k-major SpMM R={rhs}: the kernel "
+                         "differs from its plain version")
+                ms = device_time_fn(SM.k_major_spmm_bin, b, xt, y,
+                                    device=dev) * 1e3
+                times.append(f"bin {i} R={rhs} {ms:.4f}")
+        print(f"[{name}] k-major SpMM by R (device ms, storing; each equal "
+              f"to its plain version bit for bit): {'; '.join(times)}",
+              flush=True)
+
     for name, sell_mm, csr in spmm_runs:
         d = S.device_put_sell(sell_mm, device=dev)
         big = name == "banded_adversarial"
         spmm_phase(name, d, csr, SPMM_RHS, name, sell_mm if big else None)
+        if name in ("banded_adversarial", "band64_250k"):
+            rhs_sweep(name, d)
         if big:
             columns_equal_spmv(f"[{name}] k-major", d, np.random.default_rng(
                 SEED).standard_normal((csr.ncols, SPMM_RHS),

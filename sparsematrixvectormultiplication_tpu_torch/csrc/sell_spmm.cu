@@ -4,19 +4,18 @@
 // Replaces the TPU kernels sparsematrixvectormultiplication_tpu/ops/
 // pallas_sell_spmm.py `_kernel_k_major_spmm` and `_kernel_wl_spmm`: Y = A·X
 // over one bin for R <= 32 right-hand sides. The point of both TPU kernels
-// is to load each entry's value and column ONCE for all R; here each thread
-// keeps R f32 sums in registers and reads its entries once.
+// is to load each entry's value and column ONCE for all R.
 //
 // Layouts and order are those of the SpMV kernels (sell_k_major.cu,
-// sell_wl.cu): one thread per output row, one 128-thread block per (group,
-// row-block), entries in the same order, each added with one fmaf as
-// F32Sum does, and y stored or (with `accumulate`) added onto the same way.
-// So column j of the result equals the SpMV kernel on X[:, j] bit for bit.
+// sell_wl.cu): one 128-row block per (group, row-block), each row's entries
+// in the same order, each added with one fmaf per column as F32Sum does, and
+// y stored or (with `accumulate`) added onto the same way. So column j of
+// the result equals the SpMV kernel on X[:, j] bit for bit.
 //
 // The x table is row-major: row c holds X[c, 0..R) in its first R floats,
 // row stride ldx (a multiple of 4 floats, 16-byte aligned rows), so an
 // entry's R x values are contiguous (64 B at R = 16) and read as float4s.
-// y is row-major the same way (stride ldy). The kernel computes W = R
+// y is row-major the same way (stride ldy). The kernels compute W = R
 // rounded up to 4 columns; the extra ones land in columns the caller
 // crops. Pad slots of a bin have value 0 and name a real or the spare
 // all-zero slab, so the x table must hold slab_table_rows(ncols)*128 rows.
@@ -26,13 +25,35 @@
 // a value and a 2-byte code), so one DeviceSell serves SpMV and SpMM. This
 // departs from the JAX function, whose `_kernel_wl_spmm` reads unpacked
 // lane offsets and returns wrong values on its own default (packed) upload.
+// Its thread keeps a row's R f32 sums in registers and reads the row's x
+// rows whole.
 //
-// What bounds it on an H100: bytes. Every slot streams its value (4 B f32,
+// What bounds them on an H100: bytes. Every slot streams its value (4 B f32,
 // 2 B bf16) and its index (4 B k-major, a 2 B code wl) once for all R;
 // y is written once, R f32 per row. The x table (R*4 B per column: 41 MB
 // for the headline matrix at R = 16) is re-read through L1/L2 and fits the
 // 50 MB L2 at the sizes the harness runs. R*2 FLOP per entry against 6-8 B
 // is still below the f32 rate's ridge at R = 32.
+//
+// k-major: what holds a thread-per-row kernel back is how x is read, not
+// HBM bytes: at R = 16 its warp's four float4 loads of an entry name 32
+// different x rows each (about 16 cache lines a load), and a 128-row block
+// whose columns lie far apart re-reads its x rows from L2. So the k-major
+// kernel splits R across lanes: G = W/4 rounded up to 1, 2, 4 or 8 lanes own
+// one row, each lane one float4 of columns (four f32 sums), so a warp-wide x
+// load spans 32/G rows (8 at R = 16), and a block of 128*G threads covers
+// the row-block. A warp then reads 32/G rows' plane bytes per load, G times
+// fewer than a thread per row did, so the G lanes of a row load different
+// slots' columns and values (kSpmmBatch<G> each, all in flight together)
+// and pass them on by __shfl_sync as the row's sums take the slots in
+// order; each slot's value and column is still read once for all R. Where
+// the columns of a block's slots span at most stage_rows x rows (the
+// upload's window table x_window, ops/sell.py `_x_window`: first column and
+// span per block), the block first copies those rows, nq = W/4 float4s
+// each, into shared memory with cp.async and gathers from there
+// (banded_adversarial's blocks, whose windows span about 5,100 rows, read x
+// from global memory). Rows a warp reads at once are near each other on
+// banded matrices, so their float4s mostly fall in different banks.
 
 #include <type_traits>
 
@@ -82,24 +103,119 @@ struct RowSums {
   }
 };
 
-template <typename T, int NACC>
-__global__ void __launch_bounds__(kLanes)
+// slots whose column and value loads a lane keeps in flight: 8 when a row
+// has one lane, 4 when it has more (G*4 slots a row; fewer registers, so
+// more warps an SM: faster at R = 8, 16 and 32 on the H100)
+template <int G>
+constexpr int kSpmmBatch = G == 1 ? 8 : 4;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Four f32 sums of a row, one column each: acc = fmaf(a, x, acc).
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 x) {
+  acc.x = fmaf(a, x.x, acc.x);
+  acc.y = fmaf(a, x.y, acc.y);
+  acc.z = fmaf(a, x.z, acc.z);
+  acc.w = fmaf(a, x.w, acc.w);
+}
+
+// Lane p's four sums of one row over its K entries, from plane offset `off`
+// on: x rows gathered from the staged window xs (rows c0..) or from x. The
+// G lanes of the row load the columns and values of G*kSpmmBatch<G> slots
+// at once, lane p those of slots k0 + u*G + p, and pass each on with
+// __shfl_sync as the sums take the slots in order.
+template <typename T, int G, bool kStaged>
+__device__ __forceinline__ float4 k_major_sums(
+    const int* __restrict__ ja, const T* __restrict__ as,
+    const float4* xs, int c0, const float* __restrict__ x, int64_t ldx,
+    int K, int nq, int p, int64_t off) {
+  constexpr int B = kSpmmBatch<G>;
+  const int64_t stride = int64_t(kSublanes) * kLanes;  // entry k to k+1
+  const int first = (threadIdx.x & 31) - p;            // the row's lane 0
+  const bool live = p < nq;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int k0 = 0; k0 < K; k0 += G * B, off += G * B * stride) {
+    int col[B];
+    float a[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      col[u] = 0;
+      a[u] = 0.f;
+      if (k0 + u * G + p < K) {
+        col[u] = __ldg(ja + off + (u * G + p) * stride);
+        a[u] = widen(__ldg(as + off + (u * G + p) * stride));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        if (k0 + u * G + q < K) {  // uniform across the warp
+          const int c = G == 1 ? col[u] : __shfl_sync(~0u, col[u], first + q);
+          const float v = G == 1 ? a[u] : __shfl_sync(~0u, a[u], first + q);
+          float4 xv = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (live) {
+            if constexpr (kStaged) {
+              xv = xs[(c - c0) * nq + p];
+            } else {
+              xv = __ldg(reinterpret_cast<const float4*>(x + int64_t(c) * ldx)
+                         + p);
+            }
+          }
+          fma4(acc, v, xv);
+        }
+      }
+    }
+  }
+  return acc;
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kLanes* G)
 k_major_spmm_kernel(const int* __restrict__ group_ids,
-                    const int* __restrict__ ja, const T* __restrict__ as,
-                    const float* __restrict__ x, float* __restrict__ y, int K,
-                    int nq, int64_t ldx, int64_t ldy, int accumulate) {
+                    const int* __restrict__ ja,
+                    const int2* __restrict__ x_window,
+                    const T* __restrict__ as, const float* __restrict__ x,
+                    float* __restrict__ y, int K, int stage_rows, int nq,
+                    int64_t ldx, int64_t ldy, int accumulate) {
+  extern __shared__ float4 xs[];  // the staged window, nq float4s a row
   const int64_t g = blockIdx.x / kSublanes;
   const int i = blockIdx.x % kSublanes;
-  const int j = threadIdx.x;
-  const int64_t stride = int64_t(kSublanes) * kLanes;  // from entry k to k+1
-  int64_t off = (g * K * kSublanes + i) * kLanes + j;
-  RowSums<NACC> acc;
-  acc.zero();
-  for (int k = 0; k < K; ++k, off += stride) {
-    acc.add(widen(__ldg(as + off)), x + int64_t(__ldg(ja + off)) * ldx, nq);
+  const int j = threadIdx.x / G;  // the block's row
+  const int p = threadIdx.x % G;  // its float4 of columns
+  const int2 win = __ldg(x_window + blockIdx.x);  // (first column, span)
+  const int64_t off = (g * K * kSublanes + i) * kLanes + j;
+  float4 acc;
+  if (win.y <= stage_rows) {  // uniform across the block
+    const float* base = x + int64_t(win.x) * ldx;
+    for (int e = threadIdx.x; e < win.y * nq; e += kLanes * G) {
+      const int r = e / nq;
+      cp_async16(xs + e, base + int64_t(r) * ldx + 4 * (e - r * nq));
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    acc = k_major_sums<T, G, true>(ja, as, xs, win.x, x, ldx, K, nq, p, off);
+  } else {
+    acc = k_major_sums<T, G, false>(ja, as, xs, 0, x, ldx, K, nq, p, off);
   }
-  const int64_t row = int64_t(group_ids[g]) * kGroupRows + i * kLanes + j;
-  acc.store(y + row * ldy, nq, accumulate);
+  if (p < nq) {
+    const int64_t row = int64_t(group_ids[g]) * kGroupRows + i * kLanes + j;
+    float4* yr = reinterpret_cast<float4*>(y + row * ldy) + p;
+    if (accumulate) {
+      const float4 o = *yr;
+      acc = make_float4(o.x + acc.x, o.y + acc.y, o.z + acc.z, o.w + acc.w);
+    }
+    *yr = acc;
+  }
 }
 
 template <typename T, int NACC>
@@ -147,16 +263,27 @@ int with_nacc(int W, Launch launch) {
 }
 
 template <typename T>
-int launch_k_major_spmm(const int* group_ids, const int* ja, const T* as,
-                        const float* x, float* y, int64_t n_groups, int K,
+int launch_k_major_spmm(const int* group_ids, const int* ja,
+                        const int2* x_window, const T* as, const float* x,
+                        float* y, int64_t n_groups, int K, int stage_rows,
                         int W, int64_t ldx, int64_t ldy, int accumulate,
                         void* stream) {
   return with_nacc(W, [&](auto nacc) {
+    constexpr int G = decltype(nacc)::value / 4;  // lanes a row
+    const int nq = W / 4;
+    const size_t smem = size_t(stage_rows) * nq * sizeof(float4);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          k_major_spmm_kernel<T, G>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      if (e != cudaSuccess) return int(e);
+    }
     if (n_groups > 0) {
-      k_major_spmm_kernel<T, decltype(nacc)::value>
-          <<<dim3(unsigned(n_groups * kSublanes)), kLanes, 0,
+      k_major_spmm_kernel<T, G>
+          <<<dim3(unsigned(n_groups * kSublanes)), kLanes * G, smem,
              static_cast<cudaStream_t>(stream)>>>(
-              group_ids, ja, as, x, y, K, W / 4, ldx, ldy, accumulate);
+              group_ids, ja, x_window, as, x, y, K, stage_rows, nq, ldx, ldy,
+              accumulate);
     }
     return int(cudaGetLastError());
   });
@@ -182,22 +309,29 @@ int launch_wl_spmm(const int* group_ids, const int* slabs, const int* plane_off,
 
 }  // namespace sell
 
+// x_window: (n_groups*8) (first column, span) pairs; stage_rows: the widest
+// span a block stages (its shared memory), 0 for none
 extern "C" int sell_k_major_spmm_f32(const int* group_ids, const int* ja,
-                                     const float* as, const float* x, float* y,
-                                     int64_t n_groups, int K, int W,
-                                     int64_t ldx, int64_t ldy, int accumulate,
-                                     void* stream) {
-  return sell::launch_k_major_spmm(group_ids, ja, as, x, y, n_groups, K, W,
-                                   ldx, ldy, accumulate, stream);
+                                     const int2* x_window, const float* as,
+                                     const float* x, float* y,
+                                     int64_t n_groups, int K, int stage_rows,
+                                     int W, int64_t ldx, int64_t ldy,
+                                     int accumulate, void* stream) {
+  return sell::launch_k_major_spmm(group_ids, ja, x_window, as, x, y,
+                                   n_groups, K, stage_rows, W, ldx, ldy,
+                                   accumulate, stream);
 }
 
 extern "C" int sell_k_major_spmm_bf16(const int* group_ids, const int* ja,
+                                      const int2* x_window,
                                       const __nv_bfloat16* as, const float* x,
-                                      float* y, int64_t n_groups, int K, int W,
-                                      int64_t ldx, int64_t ldy, int accumulate,
+                                      float* y, int64_t n_groups, int K,
+                                      int stage_rows, int W, int64_t ldx,
+                                      int64_t ldy, int accumulate,
                                       void* stream) {
-  return sell::launch_k_major_spmm(group_ids, ja, as, x, y, n_groups, K, W,
-                                   ldx, ldy, accumulate, stream);
+  return sell::launch_k_major_spmm(group_ids, ja, x_window, as, x, y,
+                                   n_groups, K, stage_rows, W, ldx, ldy,
+                                   accumulate, stream);
 }
 
 extern "C" int sell_wl_spmm_f32(const int* group_ids, const int* slabs,

@@ -52,11 +52,17 @@ _ENTRIES = {
     # group_ids, table, ja, as, x, y, n_groups, K, ck, span, accumulate, stream
     **{f"sell_{lay}_{v}_{i}": (_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32,
                                _I32, _P)
-       for lay in ("sb_major", "sb_list") for v in ("f32", "bf16")
-       for i in ("i32", "i16")},
+       for lay, i in (("sb_major", "i32"), ("sb_major", "i16"),
+                      ("sb_list", "i16")) for v in ("f32", "bf16")},
     **{f"sell_{lay}_dd_{i}": (_P, _P, _P, *_DD, _I64, _I32, _I32, _I32, _I32,
                               _P)
-       for lay in ("sb_major", "sb_list") for i in ("i32", "i16")},
+       for lay, i in (("sb_major", "i32"), ("sb_major", "i16"),
+                      ("sb_list", "i16"))},
+    # compacted sb-list: group_ids, plane_off, row_table, ja, as, x, y,
+    # n_groups, accumulate, stream; dd: as2, x2, y_hi, y_lo
+    **{f"sell_sb_list_{v}": (*(_P,) * 7, _I64, _I32, _P)
+       for v in ("f32", "bf16")},
+    "sell_sb_list_dd": (*(_P,) * 8, _I64, _I32, _P),
     # group_ids, table, counts, ja, as, x, y, scratch, n_groups, T, stride,
     # slots, chunks, accumulate, stream; dd: as2, x2, y_hi, y_lo, scratch
     **{f"sell_sg_{v}": (*(_P,) * 8, _I64, _I32, _I32, _I32, _I32, _I32, _P)
@@ -68,8 +74,9 @@ _ENTRIES = {
        for v in ("f32", "bf16")},
     "pr_spmv_dd": (_P, _I32, _P, *(_P,) * 5, _I64, _P),
     # SpMM, x and y row-major with row strides ldx, ldy; W columns computed
-    # group_ids, ja, as, x, y, n_groups, K, W, ldx, ldy, accumulate, stream
-    **{f"sell_k_major_spmm_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I64,
+    # group_ids, ja, x_window, as, x, y, n_groups, K, stage_rows, W, ldx,
+    # ldy, accumulate, stream
+    **{f"sell_k_major_spmm_{v}": (*(_P,) * 6, _I64, _I32, _I32, _I32, _I64,
                                   _I64, _I32, _P)
        for v in ("f32", "bf16")},
     # group_ids, slabs, plane_off, row_len, codes, as, x, y, n_groups, NW, W,

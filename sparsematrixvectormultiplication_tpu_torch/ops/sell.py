@@ -8,7 +8,9 @@ bin layout:
   the upload compacts (:func:`_compact_wl`: the pad slots are dropped and
   each real slot carries a 2-byte column code)
 * ``sb-major`` and ``sb-list`` (``_kernel_sb_major``, ``_kernel_sb_list``),
-  int32 or int16 index planes -> ``csrc/sell_sb.cu``
+  int32 or int16 index planes -> ``csrc/sell_sb.cu``; the upload compacts
+  sb-list bins with int32 planes (:func:`_compact_sl`: each group's rows
+  sorted by length, pad slots dropped, one plane per 32 sorted rows)
 * ``sg`` shared-window tiles (``_kernel_sg``), slots or rows mode, static or
   dynamic pass tables -> ``csrc/sell_sg.cu``; a bin of few groups is split
   into chunks of tiles (:func:`_sg_chunks`) joined in a fixed order
@@ -16,13 +18,13 @@ bin layout:
 Each kernel has a wrapper (:func:`k_major_bin`, :func:`wl_bin`,
 :func:`sb_major_bin`, :func:`sb_list_bin`, :func:`sg_bin`) and a plain
 PyTorch version (``*_bin_plain``) computing the same function: values
-widened to f32, x and the sums in f32. The wl and sg plain versions add the
-slots in the kernels' order with the kernels' rounding (:func:`fma_f32`), so
-the card can hold them bit for bit. A wrapper given CUDA tensors launches
-its kernel, or raises; given CPU tensors it runs the plain version. Each
-wrapper counts its kernel launches in ``.launches``, and those made with
-``accumulate=True`` (the bin's sums added onto y instead of stored) also in
-``.accumulating``.
+widened to f32, x and the sums in f32. The k-major, wl, sb-list and sg plain
+versions add the slots in the kernels' order with the kernels' rounding
+(:func:`fma_f32`), so the card can hold them bit for bit. A wrapper given
+CUDA tensors launches its kernel, or raises; given CPU tensors it runs the
+plain version. Each wrapper counts its kernel launches in ``.launches``,
+and those made with ``accumulate=True`` (the bin's sums added onto y
+instead of stored) also in ``.accumulating``.
 
 :func:`sell_spmv` runs a :class:`DeviceSell`: the core bins store their
 rows, then every ``add_into`` bin (the sg far remainder) accumulates onto
@@ -54,6 +56,11 @@ __all__ = [
 _INT32_MAX = 2**31 - 1
 _SB_LAYOUTS = ("sb-major", "sb-list")
 _SB_I16_MAX_SPAN = 255  # the int16 planes hold dq or js in 8 bits
+_WARP = 32      # compacted sb-list: sorted rows that share one plane
+_ROW_BITS = 10  # compacted sb-list row table: (length << 10) | row in group
+# the k-major SpMM kernel stages a block's x window in shared memory when it
+# spans at most this many x rows (64 KB at R = 32)
+_STAGE_ROWS = 512
 
 
 @dataclass(kw_only=True)
@@ -67,10 +74,19 @@ class DeviceBinIndex:
       group g at row ``(g*k + e)*8 + i``. ``slab_list`` is not read.
     * ``sb-major`` / ``sb-list``: entry e of row sb*128+j at row
       ``g*8k + sb*k + e``, in chunks of ``chunk_k`` entries. ``ja`` holds
-      absolute columns (int32) or the int16 planes of
+      absolute columns (int32, sb-major) or the int16 planes of
       :func:`_pack_sb_i16` / :func:`_pack_sl_i16`. ``slab_list`` is the
       per-chunk qbase table ``(n_groups, 8*k/chunk_k)`` (sb-major) or the
       per-chunk distinct-slab lists ``(n_groups, 8*k/chunk_k*span)``.
+    * ``sb-list`` with int32 planes, compacted (:func:`_compact_sl`): each
+      group's rows sorted by their real length, longest first, ties in row
+      order; sorted row ``s = g*1024 + rank``. The 32 sorted rows of warp
+      ``w = s // 32`` own plane rows ``plane_off[w] .. plane_off[w+1]``, as
+      many as the longest of them has real slots; slot q of sorted row s
+      sits at plane row ``plane_off[w] + q``, lane ``s % 32``, and ``ja``
+      (int32, ``(plane_rows, 32)``) holds its column. ``row_table[s] =
+      (length << 10) | r``, r the row's index within its group. The value
+      planes are ``(plane_rows, 32)``; ``slab_list`` is empty.
     * ``wl``: ``k = 8*nw*L`` slots a row on the host, ``nw = chunk_k``
       windows and ``L = span`` layer tiles; on the device only the real
       slots (:func:`_compact_wl`): block ``b = g*8 + rb`` owns plane rows
@@ -97,7 +113,9 @@ class DeviceBinIndex:
     add_into: bool = False    # accumulates onto rows another bin wrote
     sg_slots: bool = False    # sg: destination row from md's sigma bits
     row_len: torch.Tensor | None = None    # wl: (n_groups*1024,) int32
-    plane_off: torch.Tensor | None = None  # wl: (n_groups*8 + 1,) int32
+    # wl: (n_groups*8 + 1,) int32; compacted sb-list: (n_groups*32 + 1,)
+    plane_off: torch.Tensor | None = None
+    row_table: torch.Tensor | None = None  # sb-list: (n_groups*1024,) int32
 
     @property
     def nw(self) -> int:
@@ -112,9 +130,17 @@ class DeviceBinIndex:
 
 @dataclass(kw_only=True)
 class DeviceSellBin(DeviceBinIndex):
-    """One rectangular bin on a device with f32 or bf16 values."""
+    """One rectangular bin on a device with f32 or bf16 values.
 
-    as_: torch.Tensor         # (n_groups*k*8 | plane_rows, 128) f32 | bf16
+    A k-major bin also carries the SpMM kernel's x windows
+    (:func:`_x_window`): ``x_window[g*8 + i] = (first column, span)`` of
+    the columns that block (g, i)'s slots name, and ``window_rows``, the
+    widest span of at most ``_STAGE_ROWS`` columns (0 when none is), the x
+    rows of shared memory its launches reserve."""
+
+    as_: torch.Tensor         # (n_groups*k*8 | plane_rows, 128 | 32) f32|bf16
+    x_window: torch.Tensor | None = None  # k-major: (n_groups*8, 2) int32
+    window_rows: int = 0
 
 
 @dataclass
@@ -277,6 +303,85 @@ def _compact_wl(index: dict, planes: list) -> tuple:
     return index, [scatter(by_row(p)[r, slot]) for p in planes]
 
 
+def _sl_compacts(index: dict) -> bool:
+    """Whether :func:`_compact_sl` takes the bin: sb-list with int32
+    planes (int16 planes decode a slot by its chunk, which the compaction
+    does not keep, so they stay padded)."""
+    return index["layout"] == "sb-list" and index["ja"].dtype == torch.int32
+
+
+def _compact_sl(index: dict, planes: list) -> tuple:
+    """Drop the pad slots of an sb-list bin with int32 planes, on the bin's
+    device, with torch ops.
+
+    ``index`` holds the bin's fields from :func:`_put_bin_index` and
+    ``planes`` its padded value planes (f32 or bf16, or the dd hi and lo
+    planes). A slot is kept when its value is not zero in some plane, as
+    :func:`_compact_wl` keeps it. Each group's rows are sorted by their
+    real length, longest first, in a stable order; each 32 sorted rows get
+    a plane as wide as the longest of them, and a row's real slots keep
+    their entry order. Returns the index fields, with ``ja`` the columns,
+    ``row_table`` and ``plane_off`` (see :class:`DeviceBinIndex`), and the
+    compacted planes; the padded ones are not kept."""
+    ng, k = index["n_groups"], index["k"]
+    dev = index["ja"].device
+
+    def by_row(t):  # (rows g*1024 + sb*128 + j, the k slots in entry order)
+        return t.view(ng, SUBLANES, k, LANES).transpose(2, 3).reshape(
+            ng * GROUP_ROWS, k)
+
+    keep = by_row(planes[0] != 0)
+    for p in planes[1:]:
+        keep |= by_row(p != 0)
+    length = keep.sum(1, dtype=torch.int32).view(ng, GROUP_ROWS)
+    lens, local = torch.sort(length, dim=1, descending=True, stable=True)
+    plane_off = torch.zeros(ng * GROUP_ROWS // _WARP + 1, dtype=torch.int32,
+                            device=dev)
+    plane_off[1:] = torch.cumsum(lens.view(-1, _WARP).amax(1), 0,
+                                 dtype=torch.int32)
+    rows = int(plane_off[-1])
+    rank = torch.empty_like(local)
+    rank.scatter_(1, local, torch.arange(GROUP_ROWS, device=dev).expand(
+        ng, GROUP_ROWS))
+    sorted_of = (rank + torch.arange(ng, device=dev)[:, None] * GROUP_ROWS
+                 ).view(-1)  # row g*1024 + r -> its sorted row
+    r, slot = keep.nonzero(as_tuple=True)
+    q = keep.cumsum(1, dtype=torch.int32)[r, slot] - 1
+    del keep
+    s = sorted_of[r]
+    dest = (plane_off[s // _WARP].long() + q) * _WARP + s % _WARP
+
+    def scatter(src):
+        out = torch.zeros(rows * _WARP, dtype=src.dtype, device=dev)
+        out[dest] = src
+        return out.view(rows, _WARP)
+
+    row_table = ((lens.long() << _ROW_BITS) | local).view(-1).to(torch.int32)
+    index = {**index, "ja": scatter(by_row(index["ja"])[r, slot]),
+             "slab_list": torch.zeros(0, dtype=torch.int32, device=dev),
+             "row_table": row_table, "plane_off": plane_off}
+    return index, [scatter(by_row(p)[r, slot]) for p in planes]
+
+
+def _x_window(index: dict) -> dict:
+    """The k-major SpMM kernel's window table of a k-major bin: for block
+    (g, i) the first column its slots name, pads included, and the span to
+    the last, ``(n_groups*8, 2)`` int32; and ``window_rows``, the widest
+    span of at most ``_STAGE_ROWS`` columns (0 when none is)."""
+    ng, k = index["n_groups"], index["k"]
+    ja = index["ja"].view(ng, k, SUBLANES, LANES)
+    if ja.numel() == 0:
+        win = torch.zeros(ng * SUBLANES, 2, dtype=torch.int32,
+                          device=ja.device)
+    else:
+        lo, hi = ja.amin(dim=(1, 3)), ja.amax(dim=(1, 3))
+        win = torch.stack([lo, hi - lo + 1], -1).view(-1, 2).to(torch.int32)
+    span = win[:, 1]
+    fits = span[span <= _STAGE_ROWS]
+    return {"x_window": win.contiguous(),
+            "window_rows": int(fits.max()) if fits.numel() else 0}
+
+
 def _on(device: torch.device, put):
     """``put(d)`` builds a bin on device ``d``. A meta device holds no
     values to compact, so the bin is built on the host and moved there."""
@@ -294,7 +399,10 @@ def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
         vals = _values(b.as_, dtype, dev)
         if b.layout == "wl":
             index, (vals,) = _compact_wl(index, [vals])
-        return DeviceSellBin(**index, as_=vals)
+        elif _sl_compacts(index):
+            index, (vals,) = _compact_sl(index, [vals])
+        window = _x_window(index) if b.layout == "k-major" else {}
+        return DeviceSellBin(**index, **window, as_=vals)
     return _on(device, put)
 
 
@@ -305,10 +413,13 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
     :class:`~..formats.sell.PanelSellMatrix` (returns a
     :class:`DevicePanelSell`), or the JAX package's host counterparts: only
     bin attributes are read. wl bins are compacted on the device
-    (:func:`_compact_wl`): their pad slots, and any stored zero, are
+    (:func:`_compact_wl`), and so are sb-list bins with int32 planes
+    (:func:`_compact_sl`): their pad slots, and any stored zero, are
     dropped. ``sb_i16=True`` stores sb-major and sb-list index planes as
     int16 (as the JAX package's ``SPMV_SB_I16=1`` does) for bins whose span
-    fits 8 bits; other bins keep int32 columns."""
+    fits 8 bits; those sb-list bins stay padded, and other bins keep int32
+    columns. k-major bins carry the SpMM kernel's window table
+    (:func:`_x_window`)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"value dtype {dtype} not supported "
                          "(torch.float32 or torch.bfloat16)")
@@ -436,8 +547,49 @@ def _sg_slots(b: DeviceBinIndex):
     return shape, cols, real[:, :, None, None], (1,)
 
 
+def _sl_slots(b: DeviceBinIndex):
+    """sb-list: the padded layout's slots (:func:`_sb_slots`), or, for a
+    compacted bin, slot (r, l) of its planes: its column ``ja[r, l]`` and
+    whether it is a real slot (within its sorted row's length). No axes sum
+    the compacted planes into rows: the plain versions walk each row's
+    slots (:func:`_sl_steps`)."""
+    if b.row_table is None:
+        return _sb_slots(b)
+    widths = (b.plane_off[1:] - b.plane_off[:-1]).long()
+    warp = torch.repeat_interleave(
+        torch.arange(widths.numel(), device=b.ja.device), widths)
+    q = torch.arange(warp.numel(), device=warp.device) \
+        - b.plane_off.long()[warp]
+    length = (b.row_table >> _ROW_BITS).view(-1, _WARP).long()
+    return tuple(b.ja.shape), b.ja.long(), q[:, None] < length[warp], None
+
+
+def _sl_steps(b: DeviceBinIndex):
+    """Each step q of the compacted sb-list kernel's row loops: the plane
+    position of every sorted row's q-th slot (0 where the row has none) and
+    whether the row has one; sorted rows ``s = g*1024 + rank``."""
+    n_rows = b.n_groups * GROUP_ROWS
+    if n_rows == 0:
+        return
+    s = torch.arange(n_rows, device=b.ja.device)
+    base = b.plane_off.long()[s // _WARP] * _WARP + s % _WARP
+    n = (b.row_table >> _ROW_BITS).long()
+    for q in range(int(n.max())):
+        has = q < n
+        yield torch.where(has, base + q * _WARP, 0), has
+
+
+def _unsort(b: DeviceBinIndex, t: torch.Tensor) -> torch.Tensor:
+    """Sums ``t`` of a compacted sb-list bin's sorted rows, ``(n_groups *
+    1024,)``, in row order: ``(n_groups, 8, 128)``."""
+    g = torch.arange(t.numel(), device=t.device) // GROUP_ROWS
+    out = torch.empty_like(t)
+    out[g * GROUP_ROWS + (b.row_table & (GROUP_ROWS - 1)).long()] = t
+    return out.view(b.n_groups, SUBLANES, LANES)
+
+
 _SLOTS = {"k-major": _k_major_slots, "wl": _wl_slots, "sb-major": _sb_slots,
-         "sb-list": _sb_slots, "sg": _sg_slots}
+         "sb-list": _sl_slots, "sg": _sg_slots}
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +630,27 @@ def _row_sums(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     return prod.sum(dim=dims)
 
 
+def _in_order(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """A padded bin's row sums in its kernel's order: each row's slots along
+    the layout's entry axis (:data:`_SLOTS`), ``acc = fmaf(v, x[col], acc)``
+    from 0 (:func:`fma_f32`), masked slots skipped."""
+    shape, cols, keep, (axis,) = _SLOTS[b.layout](b)
+    vals = b.as_.view(shape)
+    acc = torch.zeros(shape[:axis] + shape[axis + 1:], dtype=torch.float32,
+                      device=x_tab.device)
+    for e in range(shape[axis]):
+        new = fma_f32(vals.select(axis, e).double()
+                      * x_tab[cols.select(axis, e)].double(), acc)
+        acc = new if keep is None else torch.where(keep.select(axis, e), new,
+                                                   acc)
+    return acc
+
+
 def k_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, i, j] = sum_k as[(g*K+k)*8+i, j] * x[ja[(g*K+k)*8+i, j]]``."""
-    return _row_sums(b, x_tab)
+    """``out[g, i, j]``: the entries ``as[(g*K+k)*8+i, j] *
+    x[ja[(g*K+k)*8+i, j]]`` added in k order with one fmaf each
+    (:func:`_in_order`), so the kernel equals it bit for bit."""
+    return _in_order(b, x_tab)
 
 
 def wl_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
@@ -537,8 +707,47 @@ def sb_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
 
 
 def sb_list_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """sb-major data layout, sb-list int16 decode (:func:`_sb_slots`)."""
-    return _row_sums(b, x_tab)
+    """``out[g, sb, j]``: the row's real slots in entry order, ``acc =
+    fmaf(v, x[col], acc)`` from 0 (:func:`fma_f32`), so the kernel equals it
+    bit for bit: a compacted bin's sorted rows (:func:`_sl_steps`), or a
+    padded int16 bin's slots with its pads skipped (:func:`_sb_slots`)."""
+    if b.row_table is None:
+        return _in_order(b, x_tab)
+    acc = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
+                      device=x_tab.device)
+    vals, cols = b.as_.view(-1), b.ja.view(-1)
+    for pos, has in _sl_steps(b):
+        new = fma_f32(vals[pos].double() * x_tab[cols[pos].long()].double(),
+                      acc)
+        acc = torch.where(has, new, acc)
+    return _unsort(b, acc)
+
+
+def _sb_padded(hb, device):
+    """Host sb-list bin ``hb`` with int32 planes as the padded layout holds
+    it: its columns ``(n_groups, 8, k, 128)``, every row's k entries along
+    axis 2."""
+    shape = (hb.n_groups, SUBLANES, hb.k, LANES)
+    return shape, torch.from_numpy(np.asarray(hb.ja, np.int64)).to(
+        device).view(shape)
+
+
+def sb_list_padded_plain(hb, x_tab: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """The padded sb-list kernel's function with int32 planes, which the
+    compaction must keep: host bin ``hb``'s values rounded to ``dtype`` as
+    the upload rounds them, and every one of a row's ``k`` slots, pads
+    included, added in entry order with one fmaf each (:func:`fma_f32`);
+    ``(n_groups, 8, 128)``. On finite x :func:`sb_list_bin_plain` of the
+    compacted bin equals it bit for bit, up to the sign of a zero sum."""
+    shape, cols = _sb_padded(hb, x_tab.device)
+    vals = _values(hb.as_, dtype, x_tab.device).view(shape)
+    acc = torch.zeros(hb.n_groups, SUBLANES, LANES, dtype=torch.float32,
+                      device=x_tab.device)
+    for e in range(hb.k):
+        acc = fma_f32(vals[:, :, e].double() * x_tab[cols[:, :, e]].double(),
+                      acc)
+    return acc
 
 
 # sg bins of fewer groups than two 1024-thread blocks an SM of an H100 (132
@@ -636,12 +845,20 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
     tensors = {"group_ids": b.group_ids, "ja": b.ja, "slab_list": b.slab_list,
                "slab_count": b.slab_count, **values}
     tables = ["group_ids", "slab_list", "slab_count"]
+    compact_sl = b.layout == "sb-list" and b.ja.dtype == torch.int32
     if b.layout == "wl":
         if b.row_len is None or b.plane_off is None:
             raise ValueError("wl bin without row_len / plane_off: upload it "
                              "with device_put_sell")
         tensors.update(row_len=b.row_len, plane_off=b.plane_off)
         tables += ["row_len", "plane_off"]
+    elif compact_sl:
+        if b.row_table is None or b.plane_off is None:
+            raise ValueError("sb-list bin with int32 planes without "
+                             "row_table / plane_off: upload it with "
+                             "device_put_sell")
+        tensors.update(row_table=b.row_table, plane_off=b.plane_off)
+        tables += ["row_table", "plane_off"]
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, x on {device}")
@@ -656,7 +873,7 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
     if b.ja.dtype not in ja_types:
         raise ValueError(f"{b.layout} index plane must be "
                          f"{' or '.join(map(str, ja_types))}, got {b.ja.dtype}")
-    slots = b.ja.numel() if b.layout == "wl" \
+    slots = b.ja.numel() if b.layout == "wl" or compact_sl \
         else b.n_groups * b.k * SUBLANES * LANES
     for name, t in values.items():
         if t.dtype not in value_types:
@@ -671,6 +888,11 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
                 * GROUP_ROWS or b.plane_off.numel() != b.n_groups * SUBLANES
                 + 1):
             raise ValueError("wl planes do not match the bin's groups")
+    elif compact_sl:
+        if (b.ja.numel() % _WARP or b.row_table.numel() != b.n_groups
+                * GROUP_ROWS or b.plane_off.numel() != b.n_groups
+                * GROUP_ROWS // _WARP + 1):
+            raise ValueError("sb-list planes do not match the bin's groups")
     elif b.ja.numel() != slots:
         raise ValueError("index plane does not match the value plane")
     if b.n_groups * SUBLANES > _INT32_MAX:
@@ -720,6 +942,9 @@ def _wl_call(b):
 
 
 def _sb_call(b):
+    if b.layout == "sb-list" and b.ja.dtype == torch.int32:  # _compact_sl
+        return ("sell_sb_list", "", (b.group_ids, b.plane_off, b.row_table,
+                                     b.ja), (b.n_groups,))
     if b.k % b.chunk_k:
         raise ValueError(f"k={b.k} is not a multiple of chunk_k={b.chunk_k}")
     i16 = b.ja.dtype == torch.int16

@@ -13,20 +13,22 @@ per bin layout, each the dd instantiation of the f32 kernel's source:
   compacted planes of :func:`~.sell._compact_wl`
 * ``sb-major`` / ``sb-list`` (``_kernel_sb_major_dd``, ``_kernel_sb_list_dd``),
   int32 or int16 index planes -> ``csrc/sell_sb.cu``
-  ``sell_{sb_major,sb_list}_dd_{i32,i16}``
+  ``sell_sb_major_dd_{i32,i16}``, ``sell_sb_list_dd_i16`` and, on the
+  compacted planes of :func:`~.sell._compact_sl`, ``sell_sb_list_dd``
 * ``sg`` (``_kernel_sg_dd``), rows mode and, unlike the TPU kernel, slots
   mode -> ``csrc/sell_sg.cu`` ``sell_sg_dd``
 
 The bins share their index planes, tables and column decode with
-:mod:`.sell`. k-major and sb bins keep separate hi and lo value planes; wl
-and sg bins keep one plane of interleaved (hi, lo) pairs (``as_pair``, one
-8-byte load a slot), and their kernels gather x from one interleaved table
-(:func:`pack_x_pair`) that :func:`sell_spmv_dd` builds once per call from
-the two halves. Each kernel has a wrapper (``*_bin_dd``) and a plain PyTorch
-version (``*_bin_plain_dd``) returning the ``(hi, lo)`` row sums ``(n_groups,
-8, 128)``: the same slot products, reduced over each row's entries by a
-pairwise tree of ``dd_add_dd`` (k-major, sb) or in the kernel's own order
-(wl, sg: bit for bit). A wrapper given CUDA tensors launches its kernel, or
+:mod:`.sell`. k-major, sb-major and padded sb-list bins keep separate hi
+and lo value planes; wl, sg and compacted sb-list bins keep one plane of
+interleaved (hi, lo) pairs (``as_pair``, one 8-byte load a slot), and their
+kernels gather x from one interleaved table (:func:`pack_x_pair`) that
+:func:`sell_spmv_dd` builds once per call from the two halves. Each kernel
+has a wrapper (``*_bin_dd``) and a plain PyTorch version (``*_bin_plain_dd``)
+returning the ``(hi, lo)`` row sums ``(n_groups, 8, 128)``: the same slot
+products, reduced over each row's entries by a pairwise tree of
+``dd_add_dd`` (k-major, sb-major) or in the kernel's own order (wl,
+sb-list, sg: bit for bit). A wrapper given CUDA tensors launches its kernel, or
 raises; given CPU tensors it runs the plain version. Each wrapper counts its
 launches in ``.launches``, and those with ``accumulate=True`` (``y =
 dd_add_dd(y, bin sums)``) also in ``.accumulating``.
@@ -42,9 +44,10 @@ import torch
 from ..formats.sell import GROUP_ROWS, LANES, SUBLANES
 from .doubledouble import combine_f64, dd_add_dd, dd_mul_dd, split_f64
 from .sell import (DeviceBinIndex, _assemble, _assemble_panels,
-                   _check_launch, _check_panel_x, _compact_wl, _launch, _on,
-                   _put_bin_index, _scratch, _sg_chunks, _sg_slots, _sg_sums,
-                   _SLOTS, _wl_padded, _wl_steps, pack_x_table)
+                   _check_launch, _check_panel_x, _compact_sl, _compact_wl,
+                   _launch, _on, _put_bin_index, _sb_padded, _scratch,
+                   _sg_chunks, _sg_slots, _sg_sums, _sl_compacts, _sl_steps,
+                   _SLOTS, _unsort, _wl_padded, _wl_steps, pack_x_table)
 
 __all__ = [
     "DeviceSellBinDD", "DeviceSellDD", "DevicePanelSellDD",
@@ -53,17 +56,22 @@ __all__ = [
     "wl_bin_plain_dd", "sb_major_bin_plain_dd", "sb_list_bin_plain_dd",
     "sg_bin_plain_dd", "sell_spmv_dd", "sell_spmv_dd_plain",
     "panel_sell_spmv_dd", "panel_sell_spmv_dd_plain", "sell_spmv_dd_f64",
-    "pack_x_pair", "wl_padded_plain_dd",
+    "pack_x_pair", "wl_padded_plain_dd", "sb_list_padded_plain_dd",
 ]
 
-_PAIR_LAYOUTS = ("wl", "sg")  # bins whose values and x travel as pairs
+
+def _pairs(b: DeviceBinIndex) -> bool:
+    """Whether the bin's values and x travel as (hi, lo) pairs: wl, sg and
+    compacted sb-list bins."""
+    return b.layout in ("wl", "sg") or b.row_table is not None
 
 
 @dataclass(kw_only=True)
 class DeviceSellBinDD(DeviceBinIndex):
     """One rectangular bin on a device with its fp64 values split into f32
     (hi, lo) pairs (see :class:`~.sell.DeviceBinIndex` for the index side):
-    two planes (k-major, sb) or one plane of pairs (wl, sg)."""
+    two planes (k-major, sb-major, padded sb-list) or one plane of pairs
+    (wl, sg, compacted sb-list)."""
 
     as_hi: torch.Tensor | None = None    # (n_groups*k*8, 128) float32
     as_lo: torch.Tensor | None = None    # (n_groups*k*8, 128) float32
@@ -97,10 +105,12 @@ def _put_bin_dd(b, device, sb_i16: bool) -> DeviceSellBinDD:
         index = _put_bin_index(b, dev, sb_i16)
         hi, lo = (torch.from_numpy(v).to(dev)
                   for v in split_f64(np.asarray(b.as_, np.float64)))
-        if b.layout not in _PAIR_LAYOUTS:
-            return DeviceSellBinDD(**index, as_hi=hi, as_lo=lo)
         if b.layout == "wl":
             index, (hi, lo) = _compact_wl(index, [hi, lo])
+        elif _sl_compacts(index):
+            index, (hi, lo) = _compact_sl(index, [hi, lo])
+        elif b.layout != "sg":
+            return DeviceSellBinDD(**index, as_hi=hi, as_lo=lo)
         return DeviceSellBinDD(**index, as_pair=torch.stack([hi, lo], -1))
     return _on(device, put)
 
@@ -112,10 +122,11 @@ def device_put_sell_dd(sell, *, device, sb_i16=False):
     ``sell`` is this package's :class:`~..formats.sell.SellMatrix` or
     :class:`~..formats.sell.PanelSellMatrix` (returns a
     :class:`DevicePanelSellDD`), or the JAX package's host counterparts.
-    Index planes are those of :func:`~.sell.device_put_sell`: wl bins
-    compacted (a slot is dropped when both halves of its value are zero),
-    sb planes int16 with ``sb_i16=True`` where the span fits; wl and sg
-    values as one plane of (hi, lo) pairs."""
+    Index planes are those of :func:`~.sell.device_put_sell`: wl bins and
+    sb-list bins with int32 planes compacted (a slot is dropped when both
+    halves of its value are zero), sb planes int16 with ``sb_i16=True``
+    where the span fits; wl, sg and compacted sb-list values as one plane of
+    (hi, lo) pairs."""
     if hasattr(sell, "panels"):
         return DevicePanelSellDD(
             int(sell.nrows), int(sell.ncols), int(sell.nnz),
@@ -135,9 +146,11 @@ def device_put_x_dd(x, ncols: int, *, device):
 
 
 def pack_x_pair(xh_tab: torch.Tensor, xl_tab: torch.Tensor) -> torch.Tensor:
-    """The wl and sg dd kernels' x table: entry c is ``(xh[c], xl[c])``, one
-    8-byte gather."""
-    return torch.stack([xh_tab, xl_tab], -1)
+    """The pair bins' x table (:func:`_pairs`): entry c is ``(xh[c],
+    xl[c])``, one 8-byte gather. Built as the real view of a complex64
+    tensor: one elementwise kernel, where ``torch.stack`` on the last axis
+    runs a slower strided copy."""
+    return torch.view_as_real(torch.complex(xh_tab, xl_tab))
 
 
 # ---------------------------------------------------------------------------
@@ -216,9 +229,60 @@ def sb_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
     return _row_sums_dd(b, xh, xl)
 
 
+def _in_order_dd(b: DeviceSellBinDD, xh, xl):
+    """dd twin of :func:`~.sell._in_order`: a padded bin's slots along its
+    entry axis, ``acc = dd_add_dd(acc, dd_mul_dd(v, x[col]))`` from (0, 0),
+    masked slots skipped."""
+    shape, cols, keep, (axis,) = _SLOTS[b.layout](b)
+    vh, vl = b.as_hi.view(shape), b.as_lo.view(shape)
+    h = torch.zeros(shape[:axis] + shape[axis + 1:], dtype=torch.float32,
+                    device=xh.device)
+    l = torch.zeros_like(h)
+    for e in range(shape[axis]):
+        c = cols.select(axis, e)
+        nh, nl = dd_add_dd(h, l, *dd_mul_dd(vh.select(axis, e),
+                                            vl.select(axis, e), xh[c], xl[c]))
+        if keep is None:
+            h, l = nh, nl
+        else:
+            k = keep.select(axis, e)
+            h, l = torch.where(k, nh, h), torch.where(k, nl, l)
+    return h, l
+
+
 def sb_list_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
-    """dd twin of :func:`~.sell.sb_list_bin_plain`."""
-    return _row_sums_dd(b, xh, xl)
+    """dd twin of :func:`~.sell.sb_list_bin_plain`: each row's real slots in
+    entry order, ``acc = dd_add_dd(acc, dd_mul_dd(v, x[col]))`` from (0,
+    0), so the kernel equals it bit for bit."""
+    if b.row_table is None:
+        return _in_order_dd(b, xh, xl)
+    h = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
+                    device=xh.device)
+    l = torch.zeros_like(h)
+    vals, cols = b.as_pair.view(-1, 2), b.ja.view(-1)
+    for pos, has in _sl_steps(b):
+        v, c = vals[pos], cols[pos].long()
+        nh, nl = dd_add_dd(h, l, *dd_mul_dd(v[:, 0], v[:, 1], xh[c], xl[c]))
+        h, l = torch.where(has, nh, h), torch.where(has, nl, l)
+    return _unsort(b, h), _unsort(b, l)
+
+
+def sb_list_padded_plain_dd(hb, xh, xl):
+    """dd twin of :func:`~.sell.sb_list_padded_plain`: host bin ``hb``'s
+    values split as the upload splits them, every one of a row's ``k``
+    slots, pads included, added in entry order by ``dd_add_dd`` from (0,
+    0)."""
+    shape, cols = _sb_padded(hb, xh.device)
+    vh, vl = (torch.from_numpy(v).to(xh.device).view(shape)
+              for v in split_f64(np.asarray(hb.as_, np.float64)))
+    h = torch.zeros(hb.n_groups, SUBLANES, LANES, dtype=torch.float32,
+                    device=xh.device)
+    l = torch.zeros_like(h)
+    for e in range(hb.k):
+        c = cols[:, :, e]
+        h, l = dd_add_dd(h, l, *dd_mul_dd(vh[:, :, e], vl[:, :, e], xh[c],
+                                          xl[c]))
+    return h, l
 
 
 def sg_bin_plain_dd(b: DeviceSellBinDD, xh, xl, chunks: int | None = None):
@@ -259,7 +323,7 @@ def _bin_dd(wrapper, b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool,
     if xh.device.type == "cpu":
         return _write_plain_dd(b, xh, xl, yh, yl, accumulate)
     ys = {"y_hi": yh, "y_lo": yl}
-    if b.layout not in _PAIR_LAYOUTS:
+    if not _pairs(b):
         _check_launch(b, {"as_hi": b.as_hi, "as_lo": b.as_lo},
                       {"x_hi": xh, "x_lo": xl}, ys, (torch.float32,))
         return _launch(wrapper, b, "dd", (b.as_hi, b.as_lo, xh, xl, yh, yl),
@@ -298,9 +362,11 @@ def sb_major_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl,
 
 
 def sb_list_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl,
-                   accumulate: bool = False):
-    """Write (or dd-add) bin ``b``'s rows ``gid*1024 + sb*128 + j``."""
-    _bin_dd(sb_list_bin_dd, b, xh, xl, yh, yl, accumulate, None)
+                   accumulate: bool = False, *, x_pair=None):
+    """Write (or dd-add) bin ``b``'s rows ``gid*1024 + sb*128 + j``; a
+    compacted bin's kernel gathers x from ``x_pair`` as :func:`wl_bin_dd`'s
+    does (a padded int16 bin's reads the two tables)."""
+    _bin_dd(sb_list_bin_dd, b, xh, xl, yh, yl, accumulate, x_pair)
 
 
 def sg_bin_dd(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool = False,
@@ -319,13 +385,13 @@ for _w in _KERNEL_DD.values():
 
 
 def _kernel_writer():
-    """The kernels' bin writer for one SpMV: the wl and sg bins of one pair
-    of x tables share one :func:`pack_x_pair` table, built at the first
-    such bin on the card."""
+    """The kernels' bin writer for one SpMV: the pair bins (:func:`_pairs`)
+    of one pair of x tables share one :func:`pack_x_pair` table, built at
+    the first such bin on the card."""
     tables = {}
 
     def write(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool):
-        if b.layout not in _PAIR_LAYOUTS:
+        if not _pairs(b):
             return _KERNEL_DD[b.layout](b, xh, xl, yh, yl, accumulate)
         held = tables.get("x", ())
         if xh.device.type != "cpu" and not (held and held[0] is xh
@@ -353,8 +419,8 @@ def sell_spmv_dd(d: DeviceSellDD, xh_tab: torch.Tensor,
     or :func:`~.sell.pack_x_table`. Core bins store their own groups' rows,
     then ``add_into`` bins dd-add onto them (≙ the JAX private-buffer join
     ``dd_add_dd(y, far)``); CUDA tensors run the CUDA kernels, CPU tensors
-    the plain versions. The wl and sg kernels' interleaved x table is built
-    once per call, inside it."""
+    the plain versions. The pair bins' interleaved x table is built once per
+    call, inside it."""
     return _spmv_dd(d, xh_tab, xl_tab, _kernel_writer())
 
 

@@ -11,13 +11,15 @@ kernel per layout in ``csrc/sell_spmm.cu``:
   lane offsets and is wrong on its own default, packed, upload)
 
 Each has a plain PyTorch version (``*_spmm_bin_plain``): values widened to f32,
-x and the sums in f32. The k-major one decodes the slots by ``ops/sell.py``'s
-``_SLOTS`` and sums them a few groups at a time, so that a large bin's R-wide
-products never exist at once; the wl one walks each row's slots in the kernel's
-order with its rounding (``ops/sell.py``'s ``fma_f32``), so the kernel equals
-it bit for bit. A wrapper given CUDA tensors launches its kernel, or raises;
-given CPU tensors it runs the plain version. Each wrapper counts its launches
-in ``.launches`` and those with ``accumulate=True`` in ``.accumulating``.
+x and the sums in f32. Both walk each row's slots in the kernel's order with
+its rounding (``ops/sell.py``'s ``fma_f32``), so the kernel equals it bit for
+bit; the k-major one a few groups at a time, so that a large bin's R-wide
+sums never exist at once. The k-major kernel reads the bin's window table
+(``ops/sell.py``'s ``_x_window``): blocks whose columns span at most
+``window_rows`` x rows stage them in shared memory (:func:`staged_blocks`).
+A wrapper given CUDA tensors launches its kernel, or raises; given CPU
+tensors it runs the plain version. Each wrapper counts its launches in
+``.launches`` and those with ``accumulate=True`` in ``.accumulating``.
 
 The x table (:func:`pack_x_multi`) is X padded to the SpMV table's rows
 (``slab_table_rows(ncols)*128``), row-major, so an entry's R values are
@@ -36,25 +38,24 @@ and groups-per-step choice are TPU limits and have no counterpart here.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from ..formats.sell import GROUP_ROWS, LANES, SUBLANES, slab_table_rows
 from . import _build
-from .sell import (_CALL, _SLOTS, DevicePanelSell, DeviceSell, DeviceSellBin,
-                   _check_bin, _wl_steps, fma_f32)
+from .sell import (_CALL, _STAGE_ROWS, DevicePanelSell, DeviceSell,
+                   DeviceSellBin, _check_bin, _wl_steps, fma_f32)
 
 __all__ = ["MAX_RHS", "pack_x_multi", "device_put_x_multi",
            "k_major_spmm_bin", "wl_spmm_bin", "k_major_spmm_bin_plain",
-           "wl_spmm_bin_plain", "sell_spmm", "sell_spmm_plain"]
+           "wl_spmm_bin_plain", "sell_spmm", "sell_spmm_plain",
+           "staged_blocks"]
 
 # right-hand sides per call: the kernels keep one f32 sum per RHS in
 # registers (templated on 4, 8, 16 or 32 of them)
 MAX_RHS = 32
 _SPMM_LAYOUTS = ("k-major", "wl")
-_PLAIN_ELEMS = 1 << 26  # products per chunk of groups, plain k-major
+_PLAIN_ELEMS = 1 << 24  # sums per chunk of groups, plain k-major
 
 
 def _width(r: int) -> int:
@@ -121,39 +122,34 @@ def _check_rows_view(t: torch.Tensor, name: str, shape: tuple,
             f"aligned rows, got strides {t.stride()}")
 
 
-def _group_slice(b: DeviceSellBin, g0: int, g1: int) -> DeviceSellBin:
-    """Groups ``g0:g1`` of bin ``b``: every plane and table holds the same
-    number of elements per group, in group order."""
-    def cut(t):
-        return t.view(b.n_groups, -1)[g0:g1].reshape(-1, *t.shape[1:])
-    return dataclasses.replace(
-        b, n_groups=g1 - g0, group_ids=cut(b.group_ids), ja=cut(b.ja),
-        slab_list=cut(b.slab_list), slab_count=cut(b.slab_count),
-        as_=cut(b.as_))
-
-
-def _sums(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``(n_groups, 8, 128, R)`` f32 row sums of bin ``b`` over the R
-    columns of ``x_tab``, a few groups at a time."""
-    per_group = b.as_.numel() // max(b.n_groups, 1) * x_tab.shape[1]
-    step = max(1, _PLAIN_ELEMS // max(per_group, 1))
-    out = []
-    for g0 in range(0, b.n_groups, step):
-        sub = _group_slice(b, g0, min(b.n_groups, g0 + step))
-        shape, cols, _, dims = _SLOTS[b.layout](sub)
-        prod = sub.as_.view(shape).float()[..., None] * x_tab[cols]
-        out.append(prod.sum(dim=dims))
-    if not out:
-        return torch.zeros(0, SUBLANES, LANES, x_tab.shape[1],
-                           device=x_tab.device)
-    return torch.cat(out)
-
-
 def k_major_spmm_bin_plain(b: DeviceSellBin,
                            x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, i, j, r] = sum_k as[(g*K+k)*8+i, j] * X[ja[(g*K+k)*8+i, j],
-    r]``."""
-    return _sums(b, x_tab)
+    """``out[g, i, j, r]``: row i*128 + j's K entries ``as[(g*K+k)*8+i, j]``
+    in k order, ``acc[r] = fmaf(as, X[ja, r], acc[r])`` from 0
+    (:func:`~.sell.fma_f32`) — column r equals
+    :func:`~.sell.k_major_bin_plain` on ``X[:, r]`` bit for bit. A few
+    groups at a time."""
+    rhs = x_tab.shape[1]
+    step = max(1, _PLAIN_ELEMS // (GROUP_ROWS * rhs))
+    shape = (b.n_groups, b.k, SUBLANES, LANES)
+    vals, cols = b.as_.view(shape), b.ja.view(shape)
+    out = torch.zeros(b.n_groups, SUBLANES, LANES, rhs, dtype=torch.float32,
+                      device=x_tab.device)
+    for g0 in range(0, b.n_groups, step):
+        acc = out[g0:g0 + step]
+        for k in range(b.k):
+            acc = fma_f32(vals[g0:g0 + step, k].double()[..., None]
+                          * x_tab[cols[g0:g0 + step, k].long()].double(), acc)
+        out[g0:g0 + step] = acc
+    return out
+
+
+def staged_blocks(b: DeviceSellBin) -> int:
+    """How many of k-major bin ``b``'s blocks the SpMM kernel runs on x
+    staged in shared memory (the rest gather from the x table)."""
+    if b.window_rows == 0:
+        return 0
+    return int((b.x_window[:, 1] <= b.window_rows).sum())
 
 
 def wl_spmm_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
@@ -182,6 +178,25 @@ def _write_plain(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
     rows[idx] = rows[idx] + out if accumulate else out
 
 
+def _check_window(b: DeviceSellBin, device):
+    """A k-major bin's window table: there, int32, contiguous, one (first
+    column, span) pair a block, and a staged span the kernel's shared
+    memory is sized for."""
+    w = b.x_window
+    if w is None:
+        raise ValueError("k-major bin without x_window: upload it with "
+                         "device_put_sell")
+    if (w.device != device or w.dtype != torch.int32
+            or not w.is_contiguous()
+            or tuple(w.shape) != (b.n_groups * SUBLANES, 2)):
+        raise ValueError(f"x_window must be a contiguous ({b.n_groups * 8}, "
+                         f"2) int32 table on {device}, got {w.dtype} "
+                         f"{tuple(w.shape)} on {w.device}")
+    if not 0 <= b.window_rows <= _STAGE_ROWS:
+        raise ValueError(f"window_rows={b.window_rows} is outside [0, "
+                         f"{_STAGE_ROWS}]")
+
+
 def _launch(wrapper, b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
             accumulate: bool):
     """Check and launch C entry ``<stem>_spmm_<f32|bf16>`` for bin ``b``;
@@ -202,6 +217,9 @@ def _launch(wrapper, b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
     if y.shape[0] % GROUP_ROWS:
         raise ValueError("y must hold whole groups of 1024 rows")
     stem, _, before, after = _CALL[b.layout](b)
+    if b.layout == "k-major":
+        _check_window(b, device)
+        before, after = (*before, b.x_window), (*after, b.window_rows)
     name = f"{stem}_spmm_{'bf16' if b.as_.dtype == torch.bfloat16 else 'f32'}"
     with torch.cuda.device(device):
         fn = getattr(_build.load(), name)

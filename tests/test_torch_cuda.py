@@ -4,7 +4,9 @@ Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false. Run on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``.
 Tolerance: rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order); the
 double-double kernels 1e-12*max|y| on the fp64-combined result (dd sums in
-another order), and exact on rows whose terms cancel. The PR kernels are
+another order), and exact on rows whose terms cancel; the k-major SpMM,
+wl, sb-list and sg kernels bit for bit against their plain versions, which
+add in the kernels' order. The PR kernels are
 also held to the fp64 oracle at the JAX tests' ``max|Δ| / max(1, |ref|) <
 5e-6`` (f32) and 1e-12*max|y| (dd). The SpMM kernels: rtol=1e-5,
 atol=1e-5*max|Y| against their plain versions in both value types (the
@@ -326,11 +328,11 @@ WL_MATRICES = {"fem": (lambda: fem_3d(20, 20, 20, dof=3, seed=1), {}),
 PRECISIONS = ("f32", "bf16", "dd")
 
 
-def _upload(sell, precision, dev):
+def _upload(sell, precision, dev, sb_i16=False):
     if precision == "dd":
-        return D.device_put_sell_dd(sell, device=dev)
+        return D.device_put_sell_dd(sell, device=dev, sb_i16=sb_i16)
     return S.device_put_sell(sell, torch.bfloat16 if precision == "bf16"
-                             else torch.float32, device=dev)
+                             else torch.float32, device=dev, sb_i16=sb_i16)
 
 
 def _equal_storing_and_adding(b, precision, kernel, plain, x, dev, **kw):
@@ -475,6 +477,134 @@ def test_wl_spmm_equals_plain_bit_for_bit(rhs, dev):
             y = torch.zeros(d.num_groups * 1024, device=dev)
             S.wl_bin(b, S.pack_x_table(X[:, j], csr.ncols), y)
             assert torch.equal(y.view(-1, 8, 128)[rows], want[..., j])
+
+
+# ---- the compacted sb-list kernels and the k-major SpMM, bit for bit ----
+
+SB_LIST_MATRICES = {"road": lambda: road_network(20_000, seed=5),
+                    "banded": lambda: banded(5 * 1024, 18, 40, seed=2)}
+
+
+@pytest.mark.parametrize("planes", ["i32", "i16"])
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("matrix", sorted(SB_LIST_MATRICES))
+def test_sb_list_kernel_equals_plain_bit_for_bit(matrix, precision, planes,
+                                                 dev):
+    """The compacted sb-list kernel (int32 planes) and the padded int16 one,
+    f32, bf16 and dd, against their plain versions, which add each row's
+    real slots in the kernel's order and rounding: storing, and adding onto
+    y once."""
+    csr = CSRMatrix.from_coo(SB_LIST_MATRICES[matrix]())
+    sell = SellMatrix.from_csr(csr, layout="sb-list")
+    d = _upload(sell, precision, dev, sb_i16=planes == "i16")
+    kernel, plain = ((D.sb_list_bin_dd, D.sb_list_bin_plain_dd)
+                     if precision == "dd"
+                     else (S.sb_list_bin, S.sb_list_bin_plain))
+    x = _x_for(csr, precision, dev)
+    assert d.bins
+    for b in d.bins:
+        assert (b.row_table is None) == (planes == "i16")
+        _equal_storing_and_adding(b, precision, kernel, plain, x, dev)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("matrix", sorted(SB_LIST_MATRICES))
+def test_sb_list_kernel_equals_the_padded_result(matrix, precision, dev):
+    """On finite x the compacted kernel returns what the padded layout's
+    kernel returned (``sb_list_padded_plain``: every slot, pads included, in
+    entry order), bit for bit: a pad only added an exact zero."""
+    csr = CSRMatrix.from_coo(SB_LIST_MATRICES[matrix]())
+    sell = SellMatrix.from_csr(csr, layout="sb-list")
+    d = _upload(sell, precision, dev)
+    x = _x_for(csr, precision, dev, seed=6)
+    for h, b in zip(sell.bins, d.bins):
+        assert b.ja.numel() < np.asarray(h.ja).size  # pad slots were dropped
+        y = [torch.zeros(d.num_groups * 1024, device=dev)
+             for _ in range(2 if precision == "dd" else 1)]
+        if precision == "dd":
+            D.sb_list_bin_dd(b, *x, *y)
+            want = D.sb_list_padded_plain_dd(h, *x)
+        else:
+            S.sb_list_bin(b, *x, *y)
+            want = (S.sb_list_padded_plain(h, x[0], b.as_.dtype),)
+        rows = b.group_ids.long()
+        for got, exp in zip(y, want):
+            assert torch.equal(got.view(-1, 8, 128)[rows], exp)
+
+
+# path -> matrix: every block's window fits the staged rows, or none does
+K_MAJOR_PATHS = {"staged": lambda: banded(5 * 1024, 24, 40, seed=0),
+                 "global": lambda: banded(5 * 1024, 24, 512, seed=0)}
+
+
+@pytest.mark.parametrize("rhs", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("path", sorted(K_MAJOR_PATHS))
+def test_k_major_spmm_equals_plain_bit_for_bit(path, dtype, rhs, dev):
+    """The k-major SpMM kernel on x staged in shared memory or gathered from
+    the table, storing and adding onto a y that holds values, against its
+    plain version, which adds each row's entries in k order with one fmaf a
+    column; and each column against the SpMV kernel."""
+    csr = CSRMatrix.from_coo(K_MAJOR_PATHS[path]())
+    d = S.device_put_sell(SellMatrix.from_csr(csr, layout="k-major"), dtype,
+                          device=dev)
+    X = torch.from_numpy(np.random.default_rng(rhs).standard_normal(
+        (csr.ncols, rhs))).float().to(dev)
+    x_tab = SM.pack_x_multi(X, csr.ncols)
+    n = d.num_groups * 1024
+    y0 = torch.randn(n, 32, device=dev)[:, :rhs]
+    kernel = SM.k_major_spmm_bin
+    for b in d.bins:
+        assert SM.staged_blocks(b) == (b.n_groups * 8 if path == "staged"
+                                       else 0)
+        want = SM.k_major_spmm_bin_plain(b, x_tab)
+        rows = b.group_ids.long()
+        for accumulate in (False, True):
+            y = torch.zeros(n, 32, device=dev)[:, :rhs]
+            y.copy_(y0)
+            before = (kernel.launches, kernel.accumulating)
+            kernel(b, x_tab, y, accumulate=accumulate)
+            torch.cuda.synchronize()
+            assert (kernel.launches, kernel.accumulating) == (
+                before[0] + 1, before[1] + accumulate)
+            got = y.view(-1, 8, 128, rhs)[rows]
+            exp = y0.reshape(-1, 8, 128, rhs)[rows] + want if accumulate \
+                else want
+            assert torch.equal(got, exp), accumulate
+        for j in range(rhs):
+            y = torch.zeros(n, device=dev)
+            S.k_major_bin(b, S.pack_x_table(X[:, j], csr.ncols), y)
+            assert torch.equal(y.view(-1, 8, 128)[rows], want[..., j]), j
+
+
+def test_new_layouts_refuse_broken_tables(dev):
+    """A k-major bin without its window table, or with one of another shape
+    or type, or a staged span past the kernel's shared memory, and an int32
+    sb-list bin without its row table: each raises on CUDA tensors and
+    nothing is launched."""
+    csr, d = _spmm_sell("k-major", torch.float32, dev)
+    b = d.bins[0]
+    x_tab = SM.pack_x_multi(torch.ones(csr.ncols, 4, device=dev), csr.ncols)
+    y = SM._rhs_buffer(d.num_groups * 1024, 4, dev)
+    before = SM.k_major_spmm_bin.launches
+    for bad, what in (
+            (dataclasses.replace(b, x_window=None), "x_window"),
+            (dataclasses.replace(b, x_window=b.x_window[:-1]), "x_window"),
+            (dataclasses.replace(b, x_window=b.x_window.long()), "x_window"),
+            (dataclasses.replace(b, window_rows=S._STAGE_ROWS + 1),
+             "window_rows")):
+        with pytest.raises(ValueError, match=what):
+            SM.k_major_spmm_bin(bad, x_tab, y)
+    assert SM.k_major_spmm_bin.launches == before
+    csr = CSRMatrix.from_coo(banded(5 * 1024, 18, 40, seed=2))
+    (b,) = S.device_put_sell(SellMatrix.from_csr(csr, layout="sb-list"),
+                             device=dev).bins
+    x = S.device_put_x(np.ones(csr.ncols), csr.ncols, device=dev)
+    y = torch.zeros(b.n_groups * 1024, device=dev)
+    before = S.sb_list_bin.launches
+    with pytest.raises(ValueError, match="row_table"):
+        S.sb_list_bin(dataclasses.replace(b, row_table=None), x, y)
+    assert S.sb_list_bin.launches == before
 
 
 # ---- the PR kernels and the locality split ----

@@ -156,12 +156,34 @@ def _by_row(h, plane):
         0, 1, 5, 2, 3, 4).reshape(ng * 1024, h.k)
 
 
-def _kept_rows(h, plane, keep):
-    """Each row's kept slots of a host wl plane first, in order, then 0s."""
-    v, k = _by_row(h, plane), _by_row(h, keep)
+def _by_row_sb(h, plane):
+    """A host sb plane as (rows, k): each row's entries in order."""
+    return np.asarray(plane).reshape(h.n_groups, 8, h.k, 128).transpose(
+        0, 1, 3, 2).reshape(h.n_groups * 1024, h.k)
+
+
+def _kept_rows(h, plane, keep, by_row=_by_row):
+    """Each row's kept slots of a host wl (or sb) plane first, in order,
+    then 0s."""
+    v, k = by_row(h, plane), by_row(h, keep)
     order = np.argsort(~k, axis=1, kind="stable")
     return np.where(np.take_along_axis(k, order, 1),
                     np.take_along_axis(v, order, 1), 0)
+
+
+def _sl_rows(b, plane):
+    """A compacted sb-list plane as (rows, k) in row order, each row's slots
+    in order, 0 past its length."""
+    t = b.row_table.numpy()
+    s = np.arange(b.n_groups * 1024)
+    pos = (b.plane_off.numpy()[s // 32].astype(np.int64)[:, None] * 32
+           + (s % 32)[:, None] + np.arange(b.k)[None, :] * 32)
+    live = np.arange(b.k)[None, :] < (t >> 10)[:, None]
+    flat = plane.reshape(-1).numpy()
+    out = np.empty((s.size, b.k), flat.dtype)
+    out[s // 1024 * 1024 + (t & 1023)] = np.where(
+        live, flat[np.where(live, pos, 0)], 0)
+    return out
 
 
 def _wl_rows(b, plane):
@@ -197,9 +219,10 @@ def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
     d = D.device_put_sell_dd(sell, device="cpu", sb_i16=i16)
     assert len(d.bins) == len(jd.bins) == len(sell.bins)
     for b, jb, h in zip(d.bins, jd.bins, sell.bins):
-        # the hi/lo planes are the JAX split of the same bin (wl: its real
-        # slots, row by row; wl and sg: as (hi, lo) pairs), and the index
-        # planes the JAX upload's (which may append padding groups)
+        # the hi/lo planes are the JAX split of the same bin (wl and int32
+        # sb-list: its real slots, row by row; they and sg: as (hi, lo)
+        # pairs), and the index planes the JAX upload's (which may append
+        # padding groups)
         hi, lo = jdd.split_f64(np.asarray(h.as_, np.float64))
         n = hi.shape[0]
         jhi, jlo = np.asarray(jb.as_hi)[:n], np.asarray(jb.as_lo)[:n]
@@ -209,6 +232,15 @@ def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
                 assert np.array_equal(
                     _wl_rows(b, b.as_pair[..., half]),
                     _kept_rows(h, want, (jhi != 0) | (jlo != 0)))
+            continue
+        if b.layout == "sb-list" and not i16:
+            # compacted: each row's real slots, values and columns in order
+            keep = (jhi != 0) | (jlo != 0)
+            for got, want in ((b.as_pair[..., 0], jhi),
+                              (b.as_pair[..., 1], jlo),
+                              (b.ja, np.asarray(jb.ja)[:n])):
+                assert np.array_equal(_sl_rows(b, got), _kept_rows(
+                    h, want, keep, _by_row_sb))
             continue
         got = (b.as_pair[..., 0], b.as_pair[..., 1]) if b.layout == "sg" \
             else (b.as_hi, b.as_lo)
