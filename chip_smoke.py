@@ -51,9 +51,10 @@ each stage and each stage timed as the best of 3 device-time rounds:
                       reordered matrix converts to k-major (``csr``,
                       ``sell``, ``hll``, ``sell_sigma``);
 * band64_250k:        banded(250_000, 64, 64, seed=11), the BSR case of
-                      probes/bsr_spmm_tpu.py: ``sell`` (forced to k-major:
-                      the main path's k-major bin that streams from HBM),
-                      ``sell_spmm`` and ``bsr_spmm`` (B=128); then ``bsr_spmm`` on its
+                      probes/bsr_spmm_tpu.py: ``sell`` and ``sell_dd``
+                      (forced to k-major: the main path's k-major bin that
+                      streams from HBM, f32 and dd), ``sell_spmm`` and
+                      ``bsr_spmm`` (B=128); then ``bsr_spmm`` on its
                       blocks in f32 and bf16, at B=128 and B=512, by both
                       routes, each validated against the fp64 oracle (bf16:
                       the oracle of the bf16-rounded blocks and X, at abs
@@ -83,9 +84,10 @@ Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
 sampled columns); the dd stages also a norm-scaled error ``max|y - y_ref| /
 max|y_ref|`` below 1e-12. The SELL phases run f32, bf16 and dd (``sell_dd``, on
-the same SELL as ``sell``: the dd kernels take slot-packed sg bins), webbase_pr
-and band64_250k only f32. The kernels' launch counters are reset before the
-phases and read after them and the panel phase, before ``auto_device_op``;
+the same SELL as ``sell``: the dd kernels take slot-packed sg bins),
+band64_250k f32 and dd, webbase_pr only f32. The kernels' launch counters
+are reset before the phases and read after them and the panel phase, before
+``auto_device_op``;
 every kernel and every dd kernel, the k-major kernel of
 both precisions in accumulate mode, the PR kernel with bf16 values, every
 SpMM kernel (both BSR routes among them) and both SELL SpMM kernels in
@@ -99,13 +101,22 @@ int16 sb index planes, is run through its kernel, storing and accumulating, and
 through its plain PyTorch version on the card; they must agree within
 rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order), or for the dd kernels
 within 1e-12*max|y| on the fp64-combined result (dd sums in another order); the
-k-major, wl, sb-list and sg kernels (dd: wl, sb-list and sg), whose plain
-versions add in the kernels' order and rounding, bit for bit. Each compacted
-bin's kernel (wl, and sb-list with int32 planes; f32 and dd) must also return
-what the padded layout before compaction returned (``wl_padded_plain``,
-``sb_list_padded_plain``: every slot, pads included) bit for bit, and the
-smoke prints each such bin's padded and compacted slots and bytes, the
-headline's upload seconds, and scattered_uniform's dd SpMV bin by bin. So are
+k-major, wl, sb-list and sg kernels (dd: k-major, wl, sb-list and sg), whose
+plain versions add in the kernels' order and rounding, bit for bit, each
+k-major bin whether its rows are split over lanes or not (the smoke prints
+each bin's lanes a row). Each compacted bin's kernel (wl, and sb-list with
+int32 planes; f32 and dd) must also return what the padded layout before
+compaction returned (``wl_padded_plain``, ``sb_list_padded_plain``: every
+slot, pads included) bit for bit, and each compacted sg bin's (f32, bf16) the
+padded tiles' sums (``sg_padded_plain``) within f32 rounding, the same
+products in another order; the smoke prints each such bin's padded (sg: its
+real tiles') and compacted slots and bytes, the headline's upload seconds,
+and scattered_uniform's dd SpMV bin by bin. A zero-rule phase then runs, for
+each SELL layout (k-major, sb-major, sb-list with int32 and int16 planes, wl,
+sg in slots and rows mode) in f32 and dd, a matrix whose one entry of some
+column is stored as 0, with x infinite at that column, through the kernels:
+every row must be finite and equal the fp64 oracle of the matrix without
+that entry (f32 at the tolerance above, dd within 1e-12*max|y|). So are
 webbase_pr's PR panels through the PR and PR-dd kernels, road_scattered's
 split (its K=1 far problem through the PR kernels, and the composite), and
 band64_250k's blocks through both BSR routes (f32 and bf16, B=128 and 512, at
@@ -214,9 +225,9 @@ PLAIN_SPMM_REPS = 1
 # over few calls
 PLAIN_SEQ_REPS = 3
 # layouts whose plain versions add in the kernel's order: kernel == plain bit
-# for bit (dd: the k-major plain sums by a pairwise tree)
+# for bit
 SEQ_LAYOUTS = ("k-major", "wl", "sb-list", "sg")
-SEQ_LAYOUTS_DD = ("wl", "sb-list", "sg")
+SEQ_LAYOUTS_DD = ("k-major", "wl", "sb-list", "sg")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 F32_FLOP_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
@@ -325,7 +336,7 @@ def main() -> int:
     try:
         from sparsematrixvectormultiplication_tpu_torch import (
             COOMatrix, CSRMatrix, PanelPRMatrix, PanelSellMatrix, PRMatrix,
-            auto_device_op, run_matrix)
+            SellMatrix, auto_device_op, run_matrix)
     except ModuleNotFoundError as e:
         fail(f"{e}: run this script from the root of a checkout, beside "
              f"the {PKG} package")
@@ -480,7 +491,7 @@ def main() -> int:
          ("csr", "sell", "hll", "sell_sigma"), {"reorder": "rcm"}),
         # sell forced to k-major: a 128 MB bin, the k-major kernel's JSON row
         ("band64_250k", lambda: banded(250_000, 64, 64, seed=11),
-         {"k-major"}, ("sell", "sell_spmm", "bsr_spmm"),
+         {"k-major"}, ("sell", "sell_dd", "sell_spmm", "bsr_spmm"),
          {"sell_layout": "k-major"}),
         ("road_scattered", lambda: road_network(1_200_000, seed=1),
          {"sb-list"}, (*SELL_STAGES, "split", "split_dd")),
@@ -932,11 +943,11 @@ def main() -> int:
                    for t in (b.ja, *value_planes(b), *tables(b)))
 
     def bytes_read(b):
-        """Bytes a kernel streams: its planes (an sg bin reads only its
-        groups' real tiles) and its tables."""
+        """Bytes a kernel streams: its planes (a padded sg bin reads only
+        its groups' real tiles) and its tables."""
         planes = sum(t.numel() * t.element_size()
                      for t in (b.ja, *value_planes(b)))
-        if b.layout == "sg":
+        if b.layout == "sg" and b.row_table is None:
             real = int(b.slab_count.clamp(max=b.k).sum())
             planes = planes * real // max(b.n_groups * b.k, 1)
         return planes + sum(t.numel() * t.element_size() for t in tables(b))
@@ -967,6 +978,16 @@ def main() -> int:
         key = (bytes_read(b) > 2 * l2_bytes, nnz)
         if st["best"] is None or key > st["key"]:
             st["key"], st["best"] = key, row
+
+    def shape_note(b):
+        """What a bin's kernel launch depends on beyond its planes: a
+        k-major bin's lanes a row, a padded sg bin's chunks a group."""
+        if b.layout == "k-major":
+            return f" lanes={S._k_major_lanes(b)}"
+        if b.layout == "sg":
+            return (" compacted" if b.row_table is not None
+                    else f" chunks={S._sg_chunks(b)}")
+        return ""
 
     def bound_ms(b, xs):
         """The least time of the bin's function (:func:`bin_counts`' bytes
@@ -1018,9 +1039,8 @@ def main() -> int:
         ms_p, call_p = plain_ms(plains[b.layout], b, xt)
         call_k = time_fn(wrappers[b.layout], b, xt, y, device=dev) * 1e3
         bound, nnz = bound_ms(b, (xt,))
-        chunks = f" chunks={S._sg_chunks(b)}" if b.layout == "sg" else ""
         print(f"{tag} {b.layout} k={b.k} groups={b.n_groups} span={b.span}"
-              f"{chunks} ja={str(b.ja.dtype)[6:]}"
+              f"{shape_note(b)} ja={str(b.ja.dtype)[6:]}"
               f"{' add_into' if b.add_into else ''}: "
               f"device kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms; call "
               f"kernel {call_k:.4f} ms, plain {call_p:.4f} ms; "
@@ -1036,8 +1056,8 @@ def main() -> int:
     def check_bin_dd(tag, b, xh, xl, y0h, y0l, phase):
         """A dd bin through its kernel, storing and dd-adding onto (y0h,
         y0l), against its plain dd version: compared fp64-combined, or the
-        wl and sg ones pair for pair. Its kernel is timed on its own (wl
-        and sg: the interleaved x table given)."""
+        k-major, wl, sb-list and sg ones pair for pair. Its kernel is timed
+        on its own (pair bins: the interleaved x table given)."""
         kernel, plain = dd_wrappers[b.layout], dd_plains[b.layout]
         want = plain(b, xh, xl)
         rows = b.group_ids.long()
@@ -1066,9 +1086,8 @@ def main() -> int:
         call_k = time_fn(lambda: kernel(b, xh, xl, yh, yl, **kw),
                          device=dev) * 1e3
         bound, nnz = bound_ms(b, (xh, xl))
-        chunks = f" chunks={S._sg_chunks(b)}" if b.layout == "sg" else ""
         print(f"{tag} {b.layout} dd k={b.k} groups={b.n_groups} "
-              f"span={b.span}{chunks} ja={str(b.ja.dtype)[6:]}"
+              f"span={b.span}{shape_note(b)} ja={str(b.ja.dtype)[6:]}"
               f"{' add_into' if b.add_into else ''}"
               f"{' slots' if b.sg_slots else ''}: device kernel "
               f"{ms_k:.4f} ms, plain {ms_p:.4f} ms; call kernel "
@@ -1083,14 +1102,15 @@ def main() -> int:
         return ms_k
 
     def compacted(b):
-        """Whether ``b``'s planes were compacted at upload: wl, and sb-list
-        with int32 planes."""
+        """Whether ``b``'s planes were compacted at upload: wl, sb-list with
+        int32 planes, and f32/bf16 sg."""
         return b.layout == "wl" or b.row_table is not None
 
     def padded_check(tag, hb, b, xs, dd):
         """A compacted bin's padded and compacted slots and bytes, and its
-        kernel (storing) against the padded layout's result, bit for
-        bit."""
+        kernel (storing) against the padded layout's result: bit for bit,
+        or for sg, whose compacted rows add the same products in another
+        order, within f32 rounding."""
         n = (int(b.group_ids.max()) + 1) * 1024
         ys = [torch.zeros(n, device=dev) for _ in xs]
         if dd:
@@ -1099,16 +1119,23 @@ def main() -> int:
                     else D.sb_list_padded_plain_dd)(hb, *xs)
         else:
             wrappers[b.layout](b, *xs, *ys)
-            want = ((S.wl_padded_plain if b.layout == "wl"
-                     else S.sb_list_padded_plain)(hb, xs[0], b.as_.dtype),)
+            want = ({"wl": S.wl_padded_plain, "sb-list":
+                     S.sb_list_padded_plain, "sg": S.sg_padded_plain}[
+                         b.layout](hb, xs[0], b.as_.dtype),)
         rows = b.group_ids.long()
-        if not all(torch.equal(y.view(-1, 8, 128)[rows], w)
-                   for y, w in zip(ys, want)):
+        got = [y.view(-1, 8, 128)[rows] for y in ys]
+        if b.layout == "sg":
+            ok = torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL_REL
+                                * float(want[0].abs().max()))
+        else:
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        if not ok:
             fail(f"{tag}: the compacted {b.layout} kernel differs from the "
                  "padded layout's result")
         padded, kept = int(np.asarray(hb.ja).size), b.ja.numel()
         entries = int((np.asarray(hb.as_) != 0).sum())
         vb = value_bytes(b)
+        same = "bit for bit"
         if b.layout == "wl":
             was = "the packed 1 B lane index"
             now = "2 B codes, row lengths and block offsets"
@@ -1117,13 +1144,19 @@ def main() -> int:
             was = "a 4 B column"
             now = "4 B columns, the row table and warp offsets"
             index_bytes = 4
+        if b.layout == "sg":  # the padded kernel read only the real tiles
+            padded = int(np.minimum(np.asarray(hb.slab_count).reshape(-1),
+                                    hb.k).sum()) * 1024
+            was = "a 4 B md word, the real tiles only"
+            same = (f"within f32 rounding (max|k-p| "
+                    f"{(got[0] - want[0]).abs().max().item():.3e})")
         print(f"{tag} {b.layout} k={hb.k} groups={hb.n_groups}: padded "
               f"{padded} slots ({padded * (vb + index_bytes)} B at {vb} B a "
               f"value and {was}), compacted {kept} slots ({bytes_read(b)} B "
               f"with {now}); {entries} entries, "
               f"{kept / max(entries, 1):.4f}x of them, "
               f"{padded / max(kept, 1):.3f}x fewer slots; kernel equals the "
-              f"padded result bit for bit", flush=True)
+              f"padded result {same}", flush=True)
 
     for name, sell, _, x, csr in runs:
         uploads = [(dt, False) for dt in (torch.float32, torch.bfloat16)]
@@ -1775,6 +1808,95 @@ def main() -> int:
         del qb, xk, code, as_
     del buf, half
     torch.cuda.empty_cache()
+
+    # ---- the stored-zero rule: one entry of a column stored as 0, x = inf
+    # at that column; every SELL layout, f32 and dd ----
+    def column_once(csr, keep, value):
+        """``csr`` with every entry of entry ``keep``'s column removed but
+        that one, which holds ``value`` (None: removed too); and the
+        column."""
+        c = int(csr.col_idx[keep])
+        e = np.arange(csr.nnz)
+        mask = (csr.col_idx != c) | ((e == keep) & (value is not None))
+        vals = np.where(e == keep, 0.0 if value is None else value,
+                        csr.values)
+        row_ids = np.repeat(np.arange(csr.nrows), np.diff(csr.row_ptr))
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(
+            row_ids[mask], minlength=csr.nrows))]).astype(csr.row_ptr.dtype)
+        return CSRMatrix(csr.nrows, csr.ncols, ptr, csr.col_idx[mask],
+                         vals[mask]), c
+
+    def holding_bins(csr, keep, kw, i16):
+        """The layouts of the bins that hold entry ``keep`` once its column
+        is its own: with a 1 there, a one-hot x lights only them."""
+        one, c = column_once(csr, keep, 1.0)
+        d = S.device_put_sell(SellMatrix.from_csr(one, **kw), device=dev,
+                              sb_i16=i16)
+        e = torch.zeros(S.slab_table_rows(csr.ncols) * 128, device=dev)
+        e[c] = 1.0
+        lit = set()
+        for b in d.bins:
+            y = torch.zeros(d.num_groups * 1024, device=dev)
+            wrappers[b.layout](b, e, y)
+            if y.abs().max() > 0:
+                lit.add(b.layout)
+        return lit
+
+    t0 = time.perf_counter()
+    zero_cases = [
+        # (case, matrix, SellMatrix.from_csr keywords, int16 sb planes)
+        ("k-major", lambda: banded(4096, 24, 512, seed=0),
+         {"layout": "k-major"}, False),
+        ("sb-major", lambda: banded(4096, 24, 512, seed=0),
+         {"layout": "sb-major"}, False),
+        ("sb-list", lambda: banded(4096, 24, 512, seed=0),
+         {"layout": "sb-list"}, False),
+        ("sb-list i16", lambda: banded(4096, 24, 512, seed=0),
+         {"layout": "sb-list"}, True),
+        ("wl", lambda: banded(4096, 18, 40, seed=2), {"layout": "wl"}, False),
+        ("sg slots", lambda: random_general(20000, 20000, 2.5e-4, seed=8),
+         {"layout": "sg"}, False),
+        ("sg rows", lambda: random_general(20000, 20000, 2.5e-4, seed=8),
+         {"layout": "sg", "sg_slots": False}, False),
+    ]
+    zero_notes = []
+    for case, make, kw, i16 in zero_cases:
+        full = CSRMatrix.from_coo(make())
+        lay = case.split()[0]
+        start = int(full.row_ptr[full.nrows // 2])
+        keep = next((e for e in range(start, start + 40)
+                     if holding_bins(full, e, kw, i16) == {lay}), None)
+        if keep is None:
+            fail(f"zero rule {case}: no entry of the middle rows lies in a "
+                 f"{lay} bin")
+        csr, c = column_once(full, keep, 0.0)
+        ref_csr, _ = column_once(full, keep, None)
+        sell = SellMatrix.from_csr(csr, **kw)
+        x = np.random.default_rng(SEED).standard_normal(csr.ncols)
+        x[c] = np.inf
+        ref32 = torch.from_numpy(ref_csr.spmv(x.astype(np.float32).astype(
+            np.float64))).to(dev)
+        y = S.sell_spmv(S.device_put_sell(sell, device=dev, sb_i16=i16),
+                        S.device_put_x(x, csr.ncols, device=dev)).double()
+        ref = torch.from_numpy(ref_csr.spmv(x)).to(dev)
+        y_dd = D.sell_spmv_dd_f64(D.device_put_sell_dd(sell, device=dev,
+                                                       sb_i16=i16),
+                                  torch.from_numpy(x).to(dev))
+        for what, got, want, ok in (
+                ("f32", y, ref32, lambda g, w: torch.allclose(
+                    g, w, rtol=RTOL, atol=ATOL_REL * float(w.abs().max()))),
+                ("dd", y_dd, ref, lambda g, w: bool(
+                    (g - w).abs().max() <= DD_TOL * w.abs().max()))):
+            if not (torch.isfinite(got).all() and ok(got, want)):
+                fail(f"zero rule {case} {what}: a stored zero with x = inf "
+                     f"at its column gave {int((~torch.isfinite(got)).sum())} "
+                     f"rows that are not finite, max|y - y_ref| "
+                     f"{(got - want).abs().max().item():.3e}")
+        zero_notes.append(f"{case} (entry {keep}, column {c})")
+    print(f"[zero rule] a stored zero with x = inf at its column adds "
+          f"nothing, f32 and dd, every row equal to the oracle without it: "
+          f"{'; '.join(zero_notes)}; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     summary = []
     for key, (kname, replaces) in BW_KERNELS.items():

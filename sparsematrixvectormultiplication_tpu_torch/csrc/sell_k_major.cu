@@ -15,7 +15,21 @@
 // slice's sizes. Design: one thread per row, 128-thread blocks, one block per
 // (group, row-block); neighbouring threads read neighbouring addresses of each
 // plane row, so both streams coalesce. Sums are f32 whatever the value type,
-// or dd pairs (sell_common.cuh's sum policies share this decode).
+// or dd pairs (sell_common.cuh's sum policies share this decode). A slot
+// whose value is zero, a pad among them, adds nothing (the stored-zero rule
+// of sell_common.cuh).
+//
+// A bin of few groups fills few of the 132 SMs that way, and each thread
+// walks its row's K slots in one dependent chain (a dd add a slot). So below
+// about two waves of blocks the bin's rows are split over lanes
+// (ops/sell.py `_k_major_lanes`, a function of n_groups and K only): G
+// lanes, a power of two up to 32, of one warp own a row, lane p takes the
+// row's slots k = p, p + G, p + 2G, ... in order onto its own sum, and the
+// lanes join their sums by __shfl_xor_sync over distances 1, 2, ..., G/2,
+// the lower lane's sum first (Sum::combine), so the row's sum is the same
+// fixed pairwise tree on every run; its first lane writes y. A block then
+// covers 128/G rows, and the bin launches n_groups * 8 * G blocks. Bins at
+// or above the threshold run with G = 1, the path above.
 // Rows within a bin are unique and bins run in order on one stream, so y is
 // written with a plain store, or, with `accumulate` (the sg far-remainder
 // bins and column panels), read and added onto without atomics.
@@ -24,18 +38,53 @@
 
 namespace sell {
 
-template <typename Sum>
+// kSplit: the rows' slots are split over `lanes` lanes (a power of two, at
+// most 32); otherwise one thread a row
+constexpr int kSplitBatch = 4;  // a split lane's slots in flight together
+
+template <typename Sum, bool kSplit>
 __global__ void __launch_bounds__(kLanes)
 k_major_kernel(const int* __restrict__ group_ids, const int* __restrict__ ja,
-               Sum sum, int K, int accumulate) {
-  const int64_t g = blockIdx.x / kSublanes;
-  const int i = blockIdx.x % kSublanes;
-  const int j = threadIdx.x;
+               Sum sum, int K, int lanes, int accumulate) {
+  const int G = kSplit ? lanes : 1;
+  const int p = kSplit ? int(threadIdx.x) & (G - 1) : 0;  // the row's lane
+  // the bin's row g*1024 + i*128 + j
+  const int64_t r = int64_t(blockIdx.x) * (kLanes / G) + threadIdx.x / G;
+  const int64_t g = r / kGroupRows;
+  const int i = int(r / kLanes) % kSublanes;
+  const int j = int(r % kLanes);
   const int64_t stride = int64_t(kSublanes) * kLanes;  // from entry k to k+1
-  int64_t off = (g * K * kSublanes + i) * kLanes + j;
+  int64_t off = ((g * K + p) * kSublanes + i) * kLanes + j;
   typename Sum::Acc acc = sum.zero();
-  for (int k = 0; k < K; ++k, off += stride) {
-    sum.add(acc, off, ja[off]);
+  if constexpr (!kSplit) {
+    for (int k = 0; k < K; ++k, off += stride) {
+      sum.add(acc, off, ja[off]);
+    }
+  } else {
+    // the lane's slots k = p, p + G, ..., kSplitBatch of them loaded before
+    // they are added, in order
+    constexpr int B = kSplitBatch;
+    const int64_t step = int64_t(G) * stride;
+    for (int k0 = p; k0 < K; k0 += B * G, off += B * step) {
+      int col[B];
+      typename Sum::Val v[B];
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        if (k0 + u * G < K) {
+          col[u] = __ldg(ja + off + u * step);
+          v[u] = sum.load(off + u * step);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < B; ++u) {
+        if (k0 + u * G < K) sum.add(acc, v[u], col[u]);
+      }
+    }
+    for (int m = 1; m < G; m <<= 1) {
+      const typename Sum::Acc other = shfl_xor(acc, m);
+      acc = p & m ? Sum::combine(other, acc) : Sum::combine(acc, other);
+    }
+    if (p != 0) return;
   }
   sum.store(acc, int64_t(group_ids[g]) * kGroupRows + i * kLanes + j,
             accumulate);
@@ -43,40 +92,54 @@ k_major_kernel(const int* __restrict__ group_ids, const int* __restrict__ ja,
 
 template <typename Sum>
 int launch_k_major(const int* group_ids, const int* ja, Sum sum,
-                   int64_t n_groups, int K, int accumulate, void* stream) {
+                   int64_t n_groups, int K, int lanes, int accumulate,
+                   void* stream) {
+  if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1))) {
+    return int(cudaErrorInvalidValue);
+  }
   if (n_groups > 0) {
-    k_major_kernel<Sum><<<dim3(unsigned(n_groups * kSublanes)), kLanes, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        group_ids, ja, sum, K, accumulate);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const dim3 grid(unsigned(n_groups * kSublanes * lanes));
+    if (lanes == 1) {
+      k_major_kernel<Sum, false><<<grid, kLanes, 0, s>>>(group_ids, ja, sum,
+                                                         K, 1, accumulate);
+    } else {
+      k_major_kernel<Sum, true><<<grid, kLanes, 0, s>>>(group_ids, ja, sum, K,
+                                                        lanes, accumulate);
+    }
   }
   return int(cudaGetLastError());
 }
 
 }  // namespace sell
 
+// lanes: the lanes a row (ops/sell.py `_k_major_lanes`), 1 for one thread a
+// row
 extern "C" int sell_k_major_f32(const int* group_ids, const int* ja,
                                 const float* as, const float* x, float* y,
-                                int64_t n_groups, int K, int accumulate,
-                                void* stream) {
-  return sell::launch_k_major(group_ids, ja, sell::F32Sum<float>{as, x, y},
-                              n_groups, K, accumulate, stream);
+                                int64_t n_groups, int K, int lanes,
+                                int accumulate, void* stream) {
+  return sell::launch_k_major(group_ids, ja,
+                              sell::F32Slots<float>{{as, x, y}}, n_groups, K,
+                              lanes, accumulate, stream);
 }
 
 extern "C" int sell_k_major_bf16(const int* group_ids, const int* ja,
                                  const __nv_bfloat16* as, const float* x,
-                                 float* y, int64_t n_groups, int K,
+                                 float* y, int64_t n_groups, int K, int lanes,
                                  int accumulate, void* stream) {
   return sell::launch_k_major(group_ids, ja,
-                              sell::F32Sum<__nv_bfloat16>{as, x, y}, n_groups,
-                              K, accumulate, stream);
+                              sell::F32Slots<__nv_bfloat16>{{as, x, y}},
+                              n_groups, K, lanes, accumulate, stream);
 }
 
 extern "C" int sell_k_major_dd(const int* group_ids, const int* ja,
                                const float* as_hi, const float* as_lo,
                                const float* x_hi, const float* x_lo,
                                float* y_hi, float* y_lo, int64_t n_groups,
-                               int K, int accumulate, void* stream) {
+                               int K, int lanes, int accumulate,
+                               void* stream) {
   return sell::launch_k_major(
       group_ids, ja, sell::DDSum{as_hi, as_lo, x_hi, x_lo, y_hi, y_lo},
-      n_groups, K, accumulate, stream);
+      n_groups, K, lanes, accumulate, stream);
 }

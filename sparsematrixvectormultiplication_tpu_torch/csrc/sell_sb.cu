@@ -25,29 +25,22 @@
 // int16 sb-major qbase is uniform across the block and read once per chunk.
 //
 // sb-list with int32 planes runs on compacted planes (ops/sell.py
-// `_compact_sl`), because its matrices are the short-row ones whose padding
-// dominates the bytes: road_network(1_200_000)'s rows hold 1-4 entries, its
-// bins K = 8 (a multiple of ck), 3.2 slots an entry. The upload sorts each
-// group's rows by their real length, longest first, keeps each row's real
-// slots in entry order and gives each 32 sorted rows a plane as wide as the
-// longest of them (1.02 slots an entry on road): sorted row s = g*1024 +
-// rank's slot q sits at (plane_off[s/32] + q)*32 + s%32, its column in ja,
-// and row_table[s] = (length << 10) | its row within the group. One thread
-// per sorted row, one 128-thread block per 128 sorted rows: a warp reads 128
-// contiguous bytes of each plane row, its rows' lengths nearly equal, and
-// each thread loads kListBatch<Sum> slots' columns and values before it
-// adds them. Rows are unique within a bin, so the scattered y stores need no
-// atomics. The int16 planes stay padded: their 2-byte codes name a slab of
-// the slot's (row-block, chunk) list, which the sorting and compaction do
-// not keep; the compacted int32 planes move fewer bytes than they do (8 B x
-// 1.02 against 6 B x 3.2 slots an entry on road, f32).
+// `_compact_sl`) through the row-list kernel of sell_common.cuh, because its
+// matrices are the short-row ones whose padding dominates the bytes:
+// road_network(1_200_000)'s rows hold 1-4 entries, its bins K = 8 (a
+// multiple of ck), 3.2 slots an entry, 1.02 after compaction. The int16
+// planes stay padded: their 2-byte codes name a slab of the slot's
+// (row-block, chunk) list, which the sorting and compaction do not keep; the
+// compacted int32 planes move fewer bytes than they do (8 B x 1.02 against
+// 6 B x 3.2 slots an entry on road, f32).
 //
-// A dropped slot only ever added an exact 0 (value 0 times a finite x), so
-// the compacted kernel equals the padded one bit for bit on finite x, up to
-// the sign of a zero sum (sell_wl.cu says why). Sums are f32 whatever the
-// value type (one fmaf a slot, in entry order), or dd pairs; the compacted dd
-// kernel reads one 8-byte (hi, lo) value pair a slot and the interleaved x
-// table (DDPairs). `accumulate` adds the sum onto y (column panels).
+// A slot whose value is zero adds nothing in every kernel here
+// (sell_common.cuh's stored-zero rule), so the compacted kernel equals
+// the padded one bit for bit on finite x, up to the sign of a zero sum. Sums
+// are f32 whatever the value type (one fmaf a slot, in entry order), or dd
+// pairs; the compacted dd kernel reads one 8-byte (hi, lo) value pair a slot
+// and the interleaved x table (DDPairs). `accumulate` adds the sum onto y
+// (column panels).
 
 #include "sell_common.cuh"
 
@@ -92,59 +85,6 @@ sb_kernel(const int* __restrict__ group_ids, const int* __restrict__ table,
   }
   sum.store(acc, int64_t(group_ids[g]) * kGroupRows + sb * kLanes + j,
             accumulate);
-}
-
-constexpr int kWarp = 32;       // sorted rows sharing one compacted plane
-constexpr int kRowBits = 10;    // row_table: (length << 10) | row in group
-// slots whose loads a thread keeps in flight: 4 f32 or bf16 values (fewer
-// registers, more warps an SM), 8 dd pairs (more arithmetic a slot)
-template <typename Sum>
-constexpr int kListBatch = sizeof(typename Sum::Val) >= 8 ? 8 : 4;
-
-template <typename Sum>
-__global__ void __launch_bounds__(kLanes)
-sb_list_kernel(const int* __restrict__ group_ids,
-               const int* __restrict__ plane_off,
-               const int* __restrict__ row_table, const int* __restrict__ ja,
-               Sum sum, int accumulate) {
-  const int64_t s = int64_t(blockIdx.x) * kLanes + threadIdx.x;  // sorted row
-  const int t = __ldg(row_table + s);
-  const int n = t >> kRowBits;
-  int64_t off = int64_t(__ldg(plane_off + s / kWarp)) * kWarp +
-                (threadIdx.x & (kWarp - 1));
-  constexpr int B = kListBatch<Sum>;
-  typename Sum::Acc acc = sum.zero();
-  for (int q0 = 0; q0 < n; q0 += B, off += B * kWarp) {
-    int col[B];
-    typename Sum::Val v[B];
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      if (q0 + u < n) {
-        col[u] = __ldg(ja + off + u * kWarp);
-        v[u] = sum.load(off + u * kWarp);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < B; ++u) {
-      if (q0 + u < n) sum.add(acc, v[u], col[u]);
-    }
-  }
-  sum.store(acc,
-            int64_t(group_ids[blockIdx.x / kSublanes]) * kGroupRows +
-                (t & (kGroupRows - 1)),
-            accumulate);
-}
-
-template <typename Sum>
-int launch_sb_list(const int* group_ids, const int* plane_off,
-                   const int* row_table, const int* ja, Sum sum,
-                   int64_t n_groups, int accumulate, void* stream) {
-  if (n_groups > 0) {
-    sb_list_kernel<Sum><<<dim3(unsigned(n_groups * kSublanes)), kLanes, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        group_ids, plane_off, row_table, ja, sum, accumulate);
-  }
-  return int(cudaGetLastError());
 }
 
 template <typename I, Decode D, typename Sum>
@@ -202,7 +142,7 @@ extern "C" int sell_sb_list_f32(const int* group_ids, const int* plane_off,
                                 const float* as, const float* x, float* y,
                                 int64_t n_groups, int accumulate,
                                 void* stream) {
-  return sell::launch_sb_list(group_ids, plane_off, row_table, ja,
+  return sell::launch_row_list(group_ids, plane_off, row_table, ja,
                               sell::F32Slots<float>{{as, x, y}}, n_groups,
                               accumulate, stream);
 }
@@ -212,7 +152,7 @@ extern "C" int sell_sb_list_bf16(const int* group_ids, const int* plane_off,
                                  const __nv_bfloat16* as, const float* x,
                                  float* y, int64_t n_groups, int accumulate,
                                  void* stream) {
-  return sell::launch_sb_list(group_ids, plane_off, row_table, ja,
+  return sell::launch_row_list(group_ids, plane_off, row_table, ja,
                               sell::F32Slots<__nv_bfloat16>{{as, x, y}},
                               n_groups, accumulate, stream);
 }
@@ -223,7 +163,7 @@ extern "C" int sell_sb_list_dd(const int* group_ids, const int* plane_off,
                                const float2* as2, const float2* x2,
                                float* y_hi, float* y_lo, int64_t n_groups,
                                int accumulate, void* stream) {
-  return sell::launch_sb_list(
+  return sell::launch_row_list(
       group_ids, plane_off, row_table, ja,
       sell::DDPairs{{nullptr, nullptr, nullptr, nullptr, y_hi, y_lo}, as2,
                     x2},

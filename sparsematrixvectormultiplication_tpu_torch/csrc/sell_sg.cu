@@ -18,22 +18,34 @@
 // output position. A GPU thread keeps a dd sum per sigma instead.
 //
 // What bounds it on an H100: bytes and, at small group counts, occupancy.
-// Every real tile streams its values (f32 4 B, bf16 2, dd one 8-byte (hi,
-// lo) pair a slot) and its 4-byte md; x is gathered through L1/L2 (dd: one
-// 8-byte pair from the interleaved table). Design: a 1024-thread block per
-// (group, chunk); thread (p, j) walks slot (p, j) of the chunk's tiles in
-// tile order, kTileBatch tiles' loads in flight, so a warp reads 128
-// consecutive lanes of each plane row. Slots mode keeps thread (p, j)'s 8
-// sigma sums in shared memory, part[p][sigma][j], which only that thread
-// touches while it sums (one load and one store a slot, no select over 8
-// registers); after a barrier thread (p, j) joins row sigma = p over q =
-// 0..7 in that order. Rows mode sums in a register. With chunks == 1 the
-// block writes its rows (stored, or added onto y with `accumulate`). A bin
-// of few groups is split (ops/sell.py:_sg_chunks): chunk c of group g takes
-// its real tiles [c*n/chunks, (c+1)*n/chunks), n = min(slab_count[g], T),
-// writes its partial rows to scratch[g, c, 1024], and a second launch joins
-// each row's partials in chunk order and writes y once. No atomics: every
-// sum has one fixed order, so y is the same on every run.
+// f32 and bf16 bins run on compacted planes (ops/sell.py `_compact_sg`):
+// the upload drops every slot of a real tile whose value is zero, which is
+// most of them on scattered matrices (random_general(200_000, 200_000,
+// 2.5e-4)'s main bin: 63% of its real tiles' slots), decodes each real slot
+// to its absolute column and its row (sigma*128 + j, or p*128 + j in rows
+// mode), keeps each row's slots in (tile, p) order and lays the rows out as
+// the compacted sb-list bin does. The row-list kernel of sell_common.cuh
+// runs them, one thread a row with no sigma sums and no chunks: 8 bytes a
+// real slot (f32) in place of 8 bytes a slot of every real tile, and a row
+// of the list is as long as its real entries, not as its group's tiles.
+//
+// dd bins stay padded (one 8-byte (hi, lo) pair a slot; x gathered as one
+// 8-byte pair from the interleaved table) and run the tile kernel below:
+// a 1024-thread block per (group, chunk); thread (p, j) walks slot (p, j) of
+// the chunk's tiles in tile order, kTileBatch tiles' loads in flight, so a
+// warp reads 128 consecutive lanes of each plane row. Slots mode keeps
+// thread (p, j)'s 8 sigma sums in shared memory, part[p][sigma][j], which
+// only that thread touches while it sums (one load and one store a slot, no
+// select over 8 registers); after a barrier thread (p, j) joins row sigma =
+// p over q = 0..7 in that order. Rows mode sums in a register. With chunks
+// == 1 the block writes its rows (stored, or added onto y with
+// `accumulate`). A bin of few groups is split (ops/sell.py:_sg_chunks):
+// chunk c of group g takes its real tiles [c*n/chunks, (c+1)*n/chunks), n =
+// min(slab_count[g], T), writes its partial rows to scratch[g, c, 1024], and
+// a second launch joins each row's partials in chunk order and writes y
+// once. No atomics: every sum has one fixed order, so y is the same on every
+// run. A slot whose value is zero adds nothing in both kernels
+// (sell_common.cuh's stored-zero rule).
 
 #include "sell_common.cuh"
 
@@ -177,32 +189,47 @@ int launch_sg(const int* group_ids, const int* table, const int* counts,
 
 }  // namespace sell
 
-// scratch: (n_groups, chunks, 1024) partial sums when chunks > 1 (f32, or
-// (hi, lo) pairs in dd), else unused
-extern "C" int sell_sg_f32(const int* group_ids, const int* table,
-                           const int* counts, const int* ja, const float* as,
-                           const float* x, float* y, void* scratch,
-                           int64_t n_groups, int T_tiles, int stride,
-                           int slots, int chunks, int accumulate,
-                           void* stream) {
-  return sell::launch_sg(group_ids, table, counts, ja,
-                         sell::F32Slots<float>{{as, x, y}}, scratch, n_groups,
-                         T_tiles, stride, slots, chunks, accumulate, stream);
+// f32 and bf16: the compacted planes, as the compacted sb-list entries of
+// sell_sb.cu take them: group_ids, plane_off, row_table, ja (absolute
+// columns), then the value plane, x and y. sg rows are long (about 51 real
+// slots a row in random_general(200_000, 200_000, 2.5e-4)'s main bin), so
+// a thread gathers a batch's x before it adds them, the batch 8 f32 slots
+// or 4 bf16 ones (measured on the H100: 8 bf16 slots compiled to fewer
+// registers and ran slower).
+namespace sell {
+template <typename T>
+constexpr int kSgBatch = sizeof(T) == 4 ? 8 : 4;
+
+template <typename T>
+int launch_sg_list(const int* group_ids, const int* plane_off,
+                   const int* row_table, const int* ja, const T* as,
+                   const float* x, float* y, int64_t n_groups, int accumulate,
+                   void* stream) {
+  return launch_row_list<F32Slots<T>, kSgBatch<T>, true>(
+      group_ids, plane_off, row_table, ja, F32Slots<T>{{as, x, y}}, n_groups,
+      accumulate, stream);
+}
+}  // namespace sell
+
+extern "C" int sell_sg_f32(const int* group_ids, const int* plane_off,
+                           const int* row_table, const int* ja,
+                           const float* as, const float* x, float* y,
+                           int64_t n_groups, int accumulate, void* stream) {
+  return sell::launch_sg_list(group_ids, plane_off, row_table, ja, as, x, y,
+                              n_groups, accumulate, stream);
 }
 
-extern "C" int sell_sg_bf16(const int* group_ids, const int* table,
-                            const int* counts, const int* ja,
+extern "C" int sell_sg_bf16(const int* group_ids, const int* plane_off,
+                            const int* row_table, const int* ja,
                             const __nv_bfloat16* as, const float* x, float* y,
-                            void* scratch, int64_t n_groups, int T_tiles,
-                            int stride, int slots, int chunks, int accumulate,
-                            void* stream) {
-  return sell::launch_sg(group_ids, table, counts, ja,
-                         sell::F32Slots<__nv_bfloat16>{{as, x, y}}, scratch,
-                         n_groups, T_tiles, stride, slots, chunks, accumulate,
-                         stream);
+                            int64_t n_groups, int accumulate, void* stream) {
+  return sell::launch_sg_list(group_ids, plane_off, row_table, ja, as, x, y,
+                              n_groups, accumulate, stream);
 }
 
-// as2: (hi, lo) value pairs; x2: the interleaved (hi, lo) x table
+// dd, the padded tiles: scratch holds (n_groups, chunks, 1024) partial
+// (hi, lo) sums when chunks > 1, else it is unused; as2: (hi, lo) value
+// pairs; x2: the interleaved (hi, lo) x table
 extern "C" int sell_sg_dd(const int* group_ids, const int* table,
                           const int* counts, const int* ja, const float2* as2,
                           const float2* x2, float* y_hi, float* y_lo,

@@ -8,9 +8,14 @@
 //
 // Layouts and order are those of the SpMV kernels (sell_k_major.cu,
 // sell_wl.cu): one 128-row block per (group, row-block), each row's entries
-// in the same order, each added with one fmaf per column as F32Sum does, and
-// y stored or (with `accumulate`) added onto the same way. So column j of
-// the result equals the SpMV kernel on X[:, j] bit for bit.
+// in the same order, each added with one fmaf per column as F32Sum does, a
+// slot whose value is zero adding nothing (sell_common.cuh's stored-zero
+// rule: a k-major slot's products are discarded by a select; wl planes hold
+// no zero value), and y stored or (with `accumulate`) added onto the same
+// way. So column j of the result equals
+// the SpMV kernel on X[:, j] bit for bit, where the SpMV kernel runs one
+// thread a row (a k-major bin of few groups splits its SpMV rows over
+// lanes, which sum in another order).
 //
 // The x table is row-major: row c holds X[c, 0..R) in its first R floats,
 // row stride ldx (a multiple of 4 floats, 16-byte aligned rows), so an
@@ -61,6 +66,16 @@
 
 namespace sell {
 
+// acc = fmaf(a, x, acc), unless a is zero: then acc as it was (the k-major
+// slots' stored-zero rule; the select is on the sum, where the SpMV
+// policies of sell_common.cuh select the x operand: with R sums a slot,
+// this form kept the k-major SpMM at its time without the rule on the
+// H100, PERF.md, PR 11)
+__device__ __forceinline__ void fma_or_keep(float& acc, float a, float x) {
+  const float t = fmaf(a, x, acc);
+  acc = a != 0.f ? t : acc;
+}
+
 // R' = NACC f32 sums of one row; q-th float4 group live when q < nq
 template <int NACC>
 struct RowSums {
@@ -70,7 +85,10 @@ struct RowSums {
 #pragma unroll
     for (int r = 0; r < NACC; ++r) v[r] = 0.f;
   }
-  // v[r] = fmaf(a, xr[r], v[r]) for r < 4*nq
+  // v[r] = fmaf(a, xr[r], v[r]) for r < 4*nq. The wl planes it serves hold
+  // no zero value (the upload drops stored zeros with the pads), so the
+  // stored-zero rule holds here without a select, which cost the headline's
+  // wl SpMM bin time on the H100 (PERF.md, PR 11).
   __device__ __forceinline__ void add(float a, const float* __restrict__ xr,
                                       int nq) {
     const float4* x4 = reinterpret_cast<const float4*>(xr);
@@ -120,12 +138,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Four f32 sums of a row, one column each: acc = fmaf(a, x, acc).
+// Four f32 sums of a row, one column each: acc = fmaf(a, x, acc), unless a
+// is zero.
 __device__ __forceinline__ void fma4(float4& acc, float a, float4 x) {
-  acc.x = fmaf(a, x.x, acc.x);
-  acc.y = fmaf(a, x.y, acc.y);
-  acc.z = fmaf(a, x.z, acc.z);
-  acc.w = fmaf(a, x.w, acc.w);
+  fma_or_keep(acc.x, a, x.x);
+  fma_or_keep(acc.y, a, x.y);
+  fma_or_keep(acc.z, a, x.z);
+  fma_or_keep(acc.w, a, x.w);
 }
 
 // Lane p's four sums of one row over its K entries, from plane offset `off`

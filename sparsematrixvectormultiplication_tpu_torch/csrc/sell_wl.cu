@@ -18,10 +18,11 @@
 //   2-byte code ((w*8 + s) << 7) | m, so its column is
 //   128*slabs[b*NW*8 + (code >> 7)] + (code & 127);
 //   y[gid*1024 + rb*128 + j] = sum over q < row_len, in q order.
-// A dropped slot only ever added an exact 0 (value 0 times a finite x), so y
-// equals the padded kernel's bit for bit on finite x, up to the sign of a
-// zero sum: fmaf(0, x, acc) == acc, and dd::add_dd of (0, 0) leaves a
-// normalised pair as it is.
+// A dropped slot is one the stored-zero rule of sell_common.cuh discards (a
+// zero value adds nothing), so y equals the padded layout's
+// under that rule bit for bit; on finite x it is also the sum over every
+// padded slot, up to the sign of a zero sum: fmaf(0, x, acc) == acc, and
+// dd::add_dd of (0, 0) leaves a normalised pair as it is.
 //
 // What bounds it on an H100: bytes. A slot streams its value (f32 4 B, bf16
 // 2, dd one 8-byte (hi, lo) pair) and its 2-byte code, coalesced (thread j

@@ -40,10 +40,10 @@ _I64 = ctypes.c_int64
 # (as2, x2, y_hi, y_lo): (hi, lo) value pairs and an interleaved x table.
 _DD = (_P,) * 6
 _ENTRIES = {
-    # group_ids, ja, as, x, y, n_groups, K, accumulate, stream
-    **{f"sell_k_major_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _P)
+    # group_ids, ja, as, x, y, n_groups, K, lanes, accumulate, stream
+    **{f"sell_k_major_{v}": (_P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _P)
        for v in ("f32", "bf16")},
-    "sell_k_major_dd": (_P, _P, *_DD, _I64, _I32, _I32, _P),
+    "sell_k_major_dd": (_P, _P, *_DD, _I64, _I32, _I32, _I32, _P),
     # group_ids, slabs, plane_off, row_len, codes, as, x, y, n_groups, NW,
     # accumulate, stream
     **{f"sell_wl_{v}": (*(_P,) * 8, _I64, _I32, _I32, _P)
@@ -58,15 +58,13 @@ _ENTRIES = {
                               _P)
        for lay, i in (("sb_major", "i32"), ("sb_major", "i16"),
                       ("sb_list", "i16"))},
-    # compacted sb-list: group_ids, plane_off, row_table, ja, as, x, y,
-    # n_groups, accumulate, stream; dd: as2, x2, y_hi, y_lo
-    **{f"sell_sb_list_{v}": (*(_P,) * 7, _I64, _I32, _P)
-       for v in ("f32", "bf16")},
+    # compacted sb-list and sg: group_ids, plane_off, row_table, ja, as, x,
+    # y, n_groups, accumulate, stream; dd: as2, x2, y_hi, y_lo
+    **{f"sell_{lay}_{v}": (*(_P,) * 7, _I64, _I32, _P)
+       for lay in ("sb_list", "sg") for v in ("f32", "bf16")},
     "sell_sb_list_dd": (*(_P,) * 8, _I64, _I32, _P),
-    # group_ids, table, counts, ja, as, x, y, scratch, n_groups, T, stride,
-    # slots, chunks, accumulate, stream; dd: as2, x2, y_hi, y_lo, scratch
-    **{f"sell_sg_{v}": (*(_P,) * 8, _I64, _I32, _I32, _I32, _I32, _I32, _P)
-       for v in ("f32", "bf16")},
+    # padded sg, dd: group_ids, table, counts, ja, as2, x2, y_hi, y_lo,
+    # scratch, n_groups, T, stride, slots, chunks, accumulate, stream
     "sell_sg_dd": (*(_P,) * 9, _I64, _I32, _I32, _I32, _I32, _I32, _P),
     # bins, n_bins, dst_col, dst_val, x, y, n_groups, stream; dd: dst_val
     # holds (hi, lo) pairs, then x_hi, x_lo, y_hi, y_lo

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``ops/pallas_sell.py``, one CUDA kernel per
 bin layout:
 
-* ``k-major`` (``_kernel_k_major``) -> ``csrc/sell_k_major.cu``
+* ``k-major`` (``_kernel_k_major``) -> ``csrc/sell_k_major.cu``; a bin of
+  few groups splits each row's slots over lanes (:func:`_k_major_lanes`)
+  joined in a fixed order
 * ``wl`` window-layered (``_kernel_wl``) -> ``csrc/sell_wl.cu``, on planes
   the upload compacts (:func:`_compact_wl`: the pad slots are dropped and
   each real slot carries a 2-byte column code)
@@ -12,8 +14,18 @@ bin layout:
   sb-list bins with int32 planes (:func:`_compact_sl`: each group's rows
   sorted by length, pad slots dropped, one plane per 32 sorted rows)
 * ``sg`` shared-window tiles (``_kernel_sg``), slots or rows mode, static or
-  dynamic pass tables -> ``csrc/sell_sg.cu``; a bin of few groups is split
-  into chunks of tiles (:func:`_sg_chunks`) joined in a fixed order
+  dynamic pass tables -> ``csrc/sell_sg.cu``, on planes the upload compacts
+  as it compacts sb-list bins (:func:`_compact_sg`: the empty slots of the
+  real tiles dropped, each real slot decoded to its row and column), run by
+  the compacted sb-list kernel's code (the dd sg bins stay padded:
+  :mod:`.sell_dd`)
+
+Every kernel and every plain version follows one stored-zero rule: a slot
+whose value is zero adds nothing to its row (the kernels replace its x by 0
+with a select on the value before the multiply; ``csrc/sell_common.cuh``).
+On finite x that is the sum of every slot, up to the sign of a zero sum;
+where x is not finite, a pad or a stored zero at that column adds no NaN.
+The compacted uploads drop exactly those slots.
 
 Each kernel has a wrapper (:func:`k_major_bin`, :func:`wl_bin`,
 :func:`sb_major_bin`, :func:`sb_list_bin`, :func:`sg_bin`) and a plain
@@ -99,6 +111,12 @@ class DeviceBinIndex:
     * ``sg``: ``k`` tiles per group; ``ja`` holds ``md``; ``slab_list`` the
       ``(n_groups, k*stride)`` window bases (stride 2 when ``span == 0``:
       dynamic bins also carry pass counts); ``slab_count`` the real tiles.
+      That is the dd bins' layout. An f32 or bf16 sg bin is compacted
+      (:func:`_compact_sg`) into the compacted sb-list layout above: each
+      real slot's row (``sigma*128 + j``, or ``p*128 + j`` in rows mode)
+      and absolute column, a row's slots in (tile, p) order; ``k``,
+      ``span``, ``sg_slots`` and ``slab_count`` stay the host bin's, and
+      ``slab_list`` is empty.
     """
 
     layout: str
@@ -113,9 +131,10 @@ class DeviceBinIndex:
     add_into: bool = False    # accumulates onto rows another bin wrote
     sg_slots: bool = False    # sg: destination row from md's sigma bits
     row_len: torch.Tensor | None = None    # wl: (n_groups*1024,) int32
-    # wl: (n_groups*8 + 1,) int32; compacted sb-list: (n_groups*32 + 1,)
+    # wl: (n_groups*8 + 1,) int32; compacted sb-list, sg: (n_groups*32 + 1,)
     plane_off: torch.Tensor | None = None
-    row_table: torch.Tensor | None = None  # sb-list: (n_groups*1024,) int32
+    # compacted sb-list and f32/bf16 sg: (n_groups*1024,) int32
+    row_table: torch.Tensor | None = None
 
     @property
     def nw(self) -> int:
@@ -264,8 +283,8 @@ def _compact_wl(index: dict, planes: list) -> tuple:
     ``index`` holds the bin's fields from :func:`_put_bin_index` (``ja`` the
     padded lane-index plane) and ``planes`` its padded value planes (f32 or
     bf16, or the dd hi and lo planes). A slot is kept when its value is not
-    zero in some plane: that drops the pads and any stored zero, which
-    changes y only where x is not finite (a dropped ``0 * inf``). Each
+    zero in some plane: that drops the pads and any stored zero, the slots
+    the stored-zero rule skips anyway. Each
     (group, row-block) gets a plane as wide as its longest row, and a row's
     real slots keep the order (w, l, s) in which the kernel adds them.
     Returns the index fields, with ``ja`` the int16 codes ``((w*8 + s) << 7)
@@ -310,30 +329,19 @@ def _sl_compacts(index: dict) -> bool:
     return index["layout"] == "sb-list" and index["ja"].dtype == torch.int32
 
 
-def _compact_sl(index: dict, planes: list) -> tuple:
-    """Drop the pad slots of an sb-list bin with int32 planes, on the bin's
-    device, with torch ops.
-
-    ``index`` holds the bin's fields from :func:`_put_bin_index` and
-    ``planes`` its padded value planes (f32 or bf16, or the dd hi and lo
-    planes). A slot is kept when its value is not zero in some plane, as
-    :func:`_compact_wl` keeps it. Each group's rows are sorted by their
-    real length, longest first, in a stable order; each 32 sorted rows get
-    a plane as wide as the longest of them, and a row's real slots keep
-    their entry order. Returns the index fields, with ``ja`` the columns,
-    ``row_table`` and ``plane_off`` (see :class:`DeviceBinIndex`), and the
-    compacted planes; the padded ones are not kept."""
-    ng, k = index["n_groups"], index["k"]
-    dev = index["ja"].device
-
-    def by_row(t):  # (rows g*1024 + sb*128 + j, the k slots in entry order)
-        return t.view(ng, SUBLANES, k, LANES).transpose(2, 3).reshape(
-            ng * GROUP_ROWS, k)
-
-    keep = by_row(planes[0] != 0)
-    for p in planes[1:]:
-        keep |= by_row(p != 0)
-    length = keep.sum(1, dtype=torch.int32).view(ng, GROUP_ROWS)
+def _row_lists(index: dict, length: torch.Tensor, r: torch.Tensor,
+               q: torch.Tensor, cols: torch.Tensor, srcs: list) -> tuple:
+    """The compacted row-list planes of sb-list and sg bins, on the bin's
+    device: ``length`` ``(n_groups, 1024)`` holds each row's real slots,
+    and real slot i is slot ``q[i]`` of row ``r[i]`` (``g*1024 + row``), its
+    absolute column ``cols[i]`` and its values ``srcs`` (one tensor a
+    plane). Each group's rows are sorted by their length, longest first, in
+    a stable order, and each 32 sorted rows get a plane as wide as the
+    longest of them. Returns the index fields, with ``ja`` the columns,
+    ``row_table`` and ``plane_off`` (see :class:`DeviceBinIndex`) and an
+    empty ``slab_list``, and the value planes."""
+    ng = index["n_groups"]
+    dev = length.device
     lens, local = torch.sort(length, dim=1, descending=True, stable=True)
     plane_off = torch.zeros(ng * GROUP_ROWS // _WARP + 1, dtype=torch.int32,
                             device=dev)
@@ -345,9 +353,6 @@ def _compact_sl(index: dict, planes: list) -> tuple:
         ng, GROUP_ROWS))
     sorted_of = (rank + torch.arange(ng, device=dev)[:, None] * GROUP_ROWS
                  ).view(-1)  # row g*1024 + r -> its sorted row
-    r, slot = keep.nonzero(as_tuple=True)
-    q = keep.cumsum(1, dtype=torch.int32)[r, slot] - 1
-    del keep
     s = sorted_of[r]
     dest = (plane_off[s // _WARP].long() + q) * _WARP + s % _WARP
 
@@ -357,10 +362,76 @@ def _compact_sl(index: dict, planes: list) -> tuple:
         return out.view(rows, _WARP)
 
     row_table = ((lens.long() << _ROW_BITS) | local).view(-1).to(torch.int32)
-    index = {**index, "ja": scatter(by_row(index["ja"])[r, slot]),
+    index = {**index, "ja": scatter(cols.to(torch.int32)),
              "slab_list": torch.zeros(0, dtype=torch.int32, device=dev),
              "row_table": row_table, "plane_off": plane_off}
-    return index, [scatter(by_row(p)[r, slot]) for p in planes]
+    return index, [scatter(v) for v in srcs]
+
+
+def _compact_sl(index: dict, planes: list) -> tuple:
+    """Drop the pad slots of an sb-list bin with int32 planes, on the bin's
+    device, with torch ops.
+
+    ``index`` holds the bin's fields from :func:`_put_bin_index` and
+    ``planes`` its padded value planes (f32 or bf16, or the dd hi and lo
+    planes). A slot is kept when its value is not zero in some plane, as
+    :func:`_compact_wl` keeps it; a row's real slots keep their entry order,
+    laid out by :func:`_row_lists`. The padded planes are not kept."""
+    ng, k = index["n_groups"], index["k"]
+
+    def by_row(t):  # (rows g*1024 + sb*128 + j, the k slots in entry order)
+        return t.view(ng, SUBLANES, k, LANES).transpose(2, 3).reshape(
+            ng * GROUP_ROWS, k)
+
+    keep = by_row(planes[0] != 0)
+    for p in planes[1:]:
+        keep |= by_row(p != 0)
+    length = keep.sum(1, dtype=torch.int32).view(ng, GROUP_ROWS)
+    r, slot = keep.nonzero(as_tuple=True)
+    q = keep.cumsum(1, dtype=torch.int32)[r, slot] - 1
+    del keep
+    return _row_lists(index, length, r, q, by_row(index["ja"])[r, slot],
+                      [by_row(p)[r, slot] for p in planes])
+
+
+def _compact_sg(index: dict, planes: list) -> tuple:
+    """Drop the empty slots of an sg bin's real tiles, on the bin's device,
+    with torch ops.
+
+    ``index`` holds the bin's fields from :func:`_put_bin_index` (``ja`` the
+    ``md`` plane) and ``planes`` its padded value planes (f32 or bf16). A
+    slot is real when its tile is one of its group's ``slab_count`` real
+    tiles and its value is not zero; its row is ``sigma*128 + j``, ``sigma
+    = (md >> 7) & 7`` (slots mode), or ``p*128 + j`` (rows mode), and its
+    column ``(w0 + (md >> 10))*128 + (md & 127)`` (:func:`_sg_slots`). A
+    row's real slots keep their (tile, p) order, laid out by
+    :func:`_row_lists`, so the row-list kernel of the compacted sb-list bins
+    runs them. The padded planes are not kept."""
+    ng, T = index["n_groups"], index["k"]
+    dev = index["ja"].device
+    stride = 2 if index["span"] == 0 else 1
+    shape = (ng, T, SUBLANES, LANES)
+    real = torch.arange(T, device=dev)[None, :] \
+        < index["slab_count"].long()[:, None]
+    keep = planes[0].view(shape) != 0
+    for other in planes[1:]:
+        keep |= other.view(shape) != 0
+    keep &= real[:, :, None, None]
+    g, t, p, j = keep.nonzero(as_tuple=True)  # in (g, t, p, j) order
+    del keep, real
+    md = index["ja"].view(shape)[g, t, p, j].long()
+    w0 = index["slab_list"].view(ng, T, stride)[g, t, 0].long()
+    cols = (w0 + (md >> 10)) * LANES + (md & (LANES - 1))
+    row = ((md >> 7) & (SUBLANES - 1) if index["sg_slots"] else p) * LANES + j
+    # a row's slots, stably sorted by row, stay in (t, p) order
+    r, order = torch.sort(g * GROUP_ROWS + row, stable=True)
+    del md, w0, row
+    length = torch.bincount(r, minlength=ng * GROUP_ROWS)
+    start = torch.cumsum(length, 0) - length
+    q = torch.arange(r.numel(), device=dev) - start[r]
+    return _row_lists(index, length.view(ng, GROUP_ROWS).to(torch.int32), r,
+                      q, cols[order],
+                      [pl.view(shape)[g, t, p, j][order] for pl in planes])
 
 
 def _x_window(index: dict) -> dict:
@@ -401,6 +472,8 @@ def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
             index, (vals,) = _compact_wl(index, [vals])
         elif _sl_compacts(index):
             index, (vals,) = _compact_sl(index, [vals])
+        elif b.layout == "sg":
+            index, (vals,) = _compact_sg(index, [vals])
         window = _x_window(index) if b.layout == "k-major" else {}
         return DeviceSellBin(**index, **window, as_=vals)
     return _on(device, put)
@@ -414,11 +487,12 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
     :class:`DevicePanelSell`), or the JAX package's host counterparts: only
     bin attributes are read. wl bins are compacted on the device
     (:func:`_compact_wl`), and so are sb-list bins with int32 planes
-    (:func:`_compact_sl`): their pad slots, and any stored zero, are
-    dropped. ``sb_i16=True`` stores sb-major and sb-list index planes as
-    int16 (as the JAX package's ``SPMV_SB_I16=1`` does) for bins whose span
-    fits 8 bits; those sb-list bins stay padded, and other bins keep int32
-    columns. k-major bins carry the SpMM kernel's window table
+    (:func:`_compact_sl`) and sg bins (:func:`_compact_sg`): their pad
+    slots, and any stored zero, are dropped, which the stored-zero rule
+    makes the same function. ``sb_i16=True`` stores sb-major and sb-list
+    index planes as int16 (as the JAX package's ``SPMV_SB_I16=1`` does) for
+    bins whose span fits 8 bits; those sb-list bins stay padded, and other
+    bins keep int32 columns. k-major bins carry the SpMM kernel's window table
     (:func:`_x_window`)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"value dtype {dtype} not supported "
@@ -531,11 +605,15 @@ def _sg_slots(b: DeviceBinIndex):
     """Slot (p, j) of tile t < slab_count[g] holds ``md``; it gathers
     ``x[128*(w0 + (md>>10)) + (md & 127)]``, ``w0 = slab_list[g,
     t*stride]``, and lands on row p*128+j (rows mode). Tiles past
-    slab_count are padding and contribute nothing.
+    slab_count are padding and contribute nothing. A compacted bin
+    (:func:`_compact_sg`) decodes as a compacted sb-list bin
+    (:func:`_list_slots`).
 
     On the GPU the static span V and the dynamic pass counts do not change
     what an entry computes: they only bounded the TPU kernel's masked
     passes over the window, so neither version reads them."""
+    if b.row_table is not None:
+        return _list_slots(b)
     ng, T = b.n_groups, b.k
     stride = 2 if b.span == 0 else 1
     shape = (ng, T, SUBLANES, LANES)
@@ -548,13 +626,18 @@ def _sg_slots(b: DeviceBinIndex):
 
 
 def _sl_slots(b: DeviceBinIndex):
-    """sb-list: the padded layout's slots (:func:`_sb_slots`), or, for a
-    compacted bin, slot (r, l) of its planes: its column ``ja[r, l]`` and
-    whether it is a real slot (within its sorted row's length). No axes sum
-    the compacted planes into rows: the plain versions walk each row's
-    slots (:func:`_sl_steps`)."""
+    """sb-list: the padded layout's slots (:func:`_sb_slots`), or a
+    compacted bin's (:func:`_list_slots`)."""
     if b.row_table is None:
         return _sb_slots(b)
+    return _list_slots(b)
+
+
+def _list_slots(b: DeviceBinIndex):
+    """Slot (r, l) of a compacted bin's planes (sb-list, sg): its column
+    ``ja[r, l]`` and whether it is a real slot (within its sorted row's
+    length). No axes sum the compacted planes into rows: the plain versions
+    walk each row's slots (:func:`_list_steps`)."""
     widths = (b.plane_off[1:] - b.plane_off[:-1]).long()
     warp = torch.repeat_interleave(
         torch.arange(widths.numel(), device=b.ja.device), widths)
@@ -564,8 +647,8 @@ def _sl_slots(b: DeviceBinIndex):
     return tuple(b.ja.shape), b.ja.long(), q[:, None] < length[warp], None
 
 
-def _sl_steps(b: DeviceBinIndex):
-    """Each step q of the compacted sb-list kernel's row loops: the plane
+def _list_steps(b: DeviceBinIndex):
+    """Each step q of the row-list kernel's row loops: the plane
     position of every sorted row's q-th slot (0 where the row has none) and
     whether the row has one; sorted rows ``s = g*1024 + rank``."""
     n_rows = b.n_groups * GROUP_ROWS
@@ -580,8 +663,8 @@ def _sl_steps(b: DeviceBinIndex):
 
 
 def _unsort(b: DeviceBinIndex, t: torch.Tensor) -> torch.Tensor:
-    """Sums ``t`` of a compacted sb-list bin's sorted rows, ``(n_groups *
-    1024,)``, in row order: ``(n_groups, 8, 128)``."""
+    """Sums ``t`` of a compacted bin's sorted rows, ``(n_groups * 1024,)``,
+    in row order: ``(n_groups, 8, 128)``."""
     g = torch.arange(t.numel(), device=t.device) // GROUP_ROWS
     out = torch.empty_like(t)
     out[g * GROUP_ROWS + (b.row_table & (GROUP_ROWS - 1)).long()] = t
@@ -615,13 +698,20 @@ def fma_f32(p: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     return odd.float()
 
 
+def _live(vals: torch.Tensor, keep) -> torch.Tensor:
+    """The slots that add to their row: a value that is not zero (the
+    stored-zero rule) in a slot the layout does not mask (``keep``)."""
+    nonzero = vals != 0
+    return nonzero if keep is None else keep & nonzero
+
+
 def _products(b: DeviceSellBin, x_tab: torch.Tensor):
-    """f32 product of each slot (0 where it contributes nothing) and the
-    axes that sum them into rows."""
+    """f32 product of each slot (0 where it contributes nothing: a masked
+    slot, or a zero value, whatever x holds) and the axes that sum them into
+    rows."""
     shape, cols, keep, dims = _SLOTS[b.layout](b)
-    prod = b.as_.view(shape).float() * x_tab[cols]
-    if keep is not None:
-        prod = torch.where(keep, prod, 0.0)
+    vals = b.as_.view(shape)
+    prod = torch.where(_live(vals, keep), vals.float() * x_tab[cols], 0.0)
     return prod, dims
 
 
@@ -633,24 +723,87 @@ def _row_sums(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
 def _in_order(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     """A padded bin's row sums in its kernel's order: each row's slots along
     the layout's entry axis (:data:`_SLOTS`), ``acc = fmaf(v, x[col], acc)``
-    from 0 (:func:`fma_f32`), masked slots skipped."""
+    from 0 (:func:`fma_f32`), masked slots and zero values skipped."""
     shape, cols, keep, (axis,) = _SLOTS[b.layout](b)
     vals = b.as_.view(shape)
+    live = _live(vals, keep)
     acc = torch.zeros(shape[:axis] + shape[axis + 1:], dtype=torch.float32,
                       device=x_tab.device)
     for e in range(shape[axis]):
         new = fma_f32(vals.select(axis, e).double()
                       * x_tab[cols.select(axis, e)].double(), acc)
-        acc = new if keep is None else torch.where(keep.select(axis, e), new,
-                                                   acc)
+        acc = torch.where(live.select(axis, e), new, acc)
     return acc
+
+
+# k-major bins of fewer blocks (n_groups * 8) than about two waves of the 132
+# SMs of an H100 split each row's slots over lanes: as many as give at most
+# four 128-thread blocks an SM, at most 32 and at most a quarter of the row's
+# K slots, so that every lane takes at least four (measured on an H100, the
+# split rows of band-like and FEM bins: more blocks, or lanes of two or three
+# slots, lost more to the joins and the spread loads than they won)
+_KM_SPLIT_BELOW = 2 * 132
+_KM_SPLIT_BLOCKS = 4 * 132
+_KM_MAX_LANES = 32
+_KM_MIN_SLOTS = 4
+
+
+def _k_major_lanes(b: DeviceBinIndex) -> int:
+    """Lanes a row of k-major bin ``b`` (a power of two): a function of the
+    bin's shape only, so that the plain version sums in the kernel's
+    order."""
+    blocks = b.n_groups * SUBLANES
+    if blocks == 0 or blocks >= _KM_SPLIT_BELOW:
+        return 1
+    lanes = 1
+    while (lanes < _KM_MAX_LANES and 2 * lanes * _KM_MIN_SLOTS <= b.k
+           and 2 * lanes * blocks <= _KM_SPLIT_BLOCKS):
+        lanes *= 2
+    return lanes
+
+
+def _lane_split(t: torch.Tensor, lanes: int) -> torch.Tensor:
+    """A k-major plane ``(n_groups, K, 8, 128)`` as the split kernel walks
+    it: ``(n_groups, S, lanes, 8, 128)``, ``S = ceil(K / lanes)``, slot
+    ``s*lanes + p`` at ``[:, s, p]`` and zeros past K (a zero value adds
+    nothing)."""
+    ng, k = t.shape[:2]
+    steps = -(-k // lanes)
+    pad = t.new_zeros((ng, steps * lanes - k) + tuple(t.shape[2:]))
+    return torch.cat([t, pad], 1).view(ng, steps, lanes, *t.shape[2:])
+
+
+def _lane_join(sums: tuple, combine) -> tuple:
+    """The split kernel's join of each row's lane sums, a tuple of
+    ``(n_groups, lanes, 8, 128)`` tensors: neighbouring lanes pairwise, the
+    lower lane first, then neighbouring pairs, and so on, as its
+    ``__shfl_xor_sync`` tree leaves them in the row's first lane;
+    ``combine(a, b)`` takes and returns tuples. Returns ``(n_groups, 8,
+    128)`` tensors."""
+    while sums[0].shape[1] > 1:
+        sums = combine(tuple(t[:, 0::2] for t in sums),
+                       tuple(t[:, 1::2] for t in sums))
+    return tuple(t[:, 0] for t in sums)
 
 
 def k_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     """``out[g, i, j]``: the entries ``as[(g*K+k)*8+i, j] *
-    x[ja[(g*K+k)*8+i, j]]`` added in k order with one fmaf each
-    (:func:`_in_order`), so the kernel equals it bit for bit."""
-    return _in_order(b, x_tab)
+    x[ja[(g*K+k)*8+i, j]]`` that are not zero added with one fmaf each from
+    0 (:func:`fma_f32`) in the kernel's order: in k order, or, split over G
+    = :func:`_k_major_lanes` lanes, lane p's slots k = p, p + G, ... in
+    order and the lanes joined by :func:`_lane_join`; so the kernel equals
+    it bit for bit."""
+    lanes = _k_major_lanes(b)
+    shape = (b.n_groups, b.k, SUBLANES, LANES)
+    vals = _lane_split(b.as_.view(shape), lanes)
+    cols = _lane_split(b.ja.view(shape).long(), lanes)
+    acc = torch.zeros(b.n_groups, lanes, SUBLANES, LANES, dtype=torch.float32,
+                      device=x_tab.device)
+    for st in range(vals.shape[1]):
+        v = vals[:, st]
+        new = fma_f32(v.double() * x_tab[cols[:, st]].double(), acc)
+        acc = torch.where(v != 0, new, acc)
+    return _lane_join((acc,), lambda u, w: (u[0] + w[0],))[0]
 
 
 def wl_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
@@ -661,8 +814,9 @@ def wl_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
                       device=x_tab.device)
     vals = b.as_.view(-1)
     for pos, cols, has in _wl_steps(b):
-        new = fma_f32(vals[pos].double() * x_tab[cols].double(), acc)
-        acc = torch.where(has, new, acc)
+        v = vals[pos]
+        new = fma_f32(v.double() * x_tab[cols].double(), acc)
+        acc = torch.where(has & (v != 0), new, acc)
     return acc.view(b.n_groups, SUBLANES, LANES)
 
 
@@ -706,21 +860,29 @@ def sb_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     return _row_sums(b, x_tab)
 
 
-def sb_list_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """``out[g, sb, j]``: the row's real slots in entry order, ``acc =
-    fmaf(v, x[col], acc)`` from 0 (:func:`fma_f32`), so the kernel equals it
-    bit for bit: a compacted bin's sorted rows (:func:`_sl_steps`), or a
-    padded int16 bin's slots with its pads skipped (:func:`_sb_slots`)."""
-    if b.row_table is None:
-        return _in_order(b, x_tab)
+def _list_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """A compacted bin's rows (sb-list, sg) as the row-list kernel sums
+    them: each sorted row's slots (:func:`_list_steps`) in plane order,
+    ``acc = fmaf(v, x[col], acc)`` from 0 (:func:`fma_f32`), zero values
+    skipped; ``(n_groups, 8, 128)`` in row order."""
     acc = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
                       device=x_tab.device)
     vals, cols = b.as_.view(-1), b.ja.view(-1)
-    for pos, has in _sl_steps(b):
-        new = fma_f32(vals[pos].double() * x_tab[cols[pos].long()].double(),
-                      acc)
-        acc = torch.where(has, new, acc)
+    for pos, has in _list_steps(b):
+        v = vals[pos]
+        new = fma_f32(v.double() * x_tab[cols[pos].long()].double(), acc)
+        acc = torch.where(has & (v != 0), new, acc)
     return _unsort(b, acc)
+
+
+def sb_list_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """``out[g, sb, j]``: the row's real slots in entry order, ``acc =
+    fmaf(v, x[col], acc)`` from 0 (:func:`fma_f32`), so the kernel equals it
+    bit for bit: a compacted bin's sorted rows (:func:`_list_plain`), or a
+    padded int16 bin's slots with its pads skipped (:func:`_sb_slots`)."""
+    if b.row_table is None:
+        return _in_order(b, x_tab)
+    return _list_plain(b, x_tab)
 
 
 def _sb_padded(hb, device):
@@ -750,33 +912,35 @@ def sb_list_padded_plain(hb, x_tab: torch.Tensor,
     return acc
 
 
-# sg bins of fewer groups than two 1024-thread blocks an SM of an H100 (132
-# SMs) are split into chunks of tiles, enough for about four waves of two
-# blocks an SM, each chunk at least _SG_MIN_CHUNK tiles
+# padded (dd) sg bins of fewer groups than two 1024-thread blocks an SM of an
+# H100 (132 SMs) are split into chunks of tiles, enough for about four waves
+# of two blocks an SM, each chunk at least _SG_MIN_CHUNK tiles
 _SG_SPLIT_BELOW = 2 * 132
 _SG_SPLIT_BLOCKS = 8 * 132
 _SG_MIN_CHUNK = 16
 
 
 def _sg_chunks(b: DeviceBinIndex) -> int:
-    """Chunks of tiles per group of sg bin ``b``: a function of the bin's
-    shape only, so that the plain version sums in the kernel's order."""
+    """Chunks of tiles per group of padded sg bin ``b``: a function of the
+    bin's shape only, so that the plain version sums in the kernel's
+    order."""
     if b.n_groups == 0 or b.n_groups >= _SG_SPLIT_BELOW:
         return 1
     return max(1, min(-(-_SG_SPLIT_BLOCKS // b.n_groups),
                       b.k // _SG_MIN_CHUNK))
 
 
-def _sg_sums(b: DeviceBinIndex, prods: tuple, add, combine,
-             chunks: int) -> tuple:
-    """sg bin ``b``'s row sums in the kernel's order: chunk c of group g
-    takes its real tiles ``[c*n/chunks, (c+1)*n/chunks)``, ``n =
+def _sg_sums(b: DeviceBinIndex, prods: tuple, nonzero: torch.Tensor, add,
+             combine, chunks: int) -> tuple:
+    """Padded sg bin ``b``'s row sums in the tile kernel's order: chunk c of
+    group g takes its real tiles ``[c*n/chunks, (c+1)*n/chunks)``, ``n =
     min(slab_count[g], k)``; slot (p, j) of each adds, in tile order, onto
-    its own sum for row sigma (slots mode) or p (rows mode); slots mode
-    joins row sigma's 8 sums over p in order, and the chunks are joined in
-    order. ``prods``: the slots' products, a tuple of ``(n_groups, k, 8,
-    128)`` tensors; ``add(acc, prod)`` and ``combine(a, b)`` take and return
-    tuples like it. Returns the tuple of ``(n_groups, 8, 128)`` sums."""
+    its own sum for row sigma (slots mode) or p (rows mode), where its value
+    is not zero (``nonzero``, ``(n_groups, k, 8, 128)``); slots mode joins
+    row sigma's 8 sums over p in order, and the chunks are joined in order.
+    ``prods``: the slots' products, a tuple of ``(n_groups, k, 8, 128)``
+    tensors; ``add(acc, prod)`` and ``combine(a, b)`` take and return tuples
+    like it. Returns the tuple of ``(n_groups, 8, 128)`` sums."""
     ng, T = b.n_groups, b.k
     dev = prods[0].device
     n = b.slab_count.long().clamp(max=T)
@@ -793,7 +957,7 @@ def _sg_sums(b: DeviceBinIndex, prods: tuple, add, combine,
             & (SUBLANES - 1)
     for s in range(int(length.max()) if length.numel() else 0):
         t = (t0 + s).clamp(max=T - 1)
-        live = (s < length)[:, :, None, None]
+        live = (s < length)[:, :, None, None] & nonzero[gi, t]
         step = tuple(pr[gi, t] for pr in prods)  # (ng, chunks, 8 p, 128)
         if b.sg_slots:
             idx = sigma[gi, t].unsqueeze(3)
@@ -812,18 +976,44 @@ def _sg_sums(b: DeviceBinIndex, prods: tuple, add, combine,
     return out
 
 
-def sg_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor,
-                 chunks: int | None = None) -> torch.Tensor:
-    """Each real slot's ``as * x[col]`` (:func:`_sg_slots`) added with one
-    fmaf (:func:`fma_f32`) onto row ``sigma*128 + j``, ``sigma =
-    (md>>7)&7`` (slots mode) or ``sigma = p`` (rows mode), in the kernel's
-    order (:func:`_sg_sums`); ``chunks`` defaults to the kernel's
-    (:func:`_sg_chunks`)."""
+def _sg_tile_sums(b: DeviceSellBin, x_tab: torch.Tensor,
+                  chunks: int) -> torch.Tensor:
+    """A padded sg bin's rows in the tile kernel's order (:func:`_sg_sums`),
+    one fmaf a slot (:func:`fma_f32`)."""
     shape, cols, _, _ = _sg_slots(b)
-    prod = b.as_.view(shape).double() * x_tab[cols].double()
-    (out,) = _sg_sums(b, (prod,), lambda a, p: (fma_f32(p[0], a[0]),),
-                      lambda u, v: (u[0] + v[0],), chunks or _sg_chunks(b))
+    vals = b.as_.view(shape)
+    prod = vals.double() * x_tab[cols].double()
+    (out,) = _sg_sums(b, (prod,), vals != 0,
+                      lambda a, p: (fma_f32(p[0], a[0]),),
+                      lambda u, v: (u[0] + v[0],), chunks)
     return out
+
+
+def sg_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
+    """A compacted sg bin's rows (:func:`_compact_sg`) as the row-list
+    kernel sums them (:func:`_list_plain`): each row's real slots in (tile,
+    p) order with one fmaf each, so the kernel equals it bit for bit. A
+    padded bin (the dd layout's tiles, f32 values), which no f32 kernel
+    takes, sums in the tile kernel's order (:func:`_sg_tile_sums`)."""
+    if b.row_table is None:
+        return _sg_tile_sums(b, x_tab, _sg_chunks(b))
+    return _list_plain(b, x_tab)
+
+
+def sg_padded_plain(hb, x_tab: torch.Tensor, dtype=torch.float32,
+                    chunks: int | None = None) -> torch.Tensor:
+    """The padded sg layout's function, which the compaction must keep: host
+    bin ``hb``'s values rounded to ``dtype`` as the upload rounds them, each
+    real slot's ``as * x[col]`` (:func:`_sg_slots`) whose value is not zero
+    added with one fmaf (:func:`fma_f32`) onto row ``sigma*128 + j``,
+    ``sigma = (md>>7)&7`` (slots mode) or ``sigma = p`` (rows mode), in the
+    padded tile kernel's order (:func:`_sg_sums`, ``chunks`` by default
+    :func:`_sg_chunks`'); ``(n_groups, 8, 128)``. The compacted bin's sums
+    add the same products in another order, so they agree within f32
+    rounding."""
+    b = DeviceSellBin(**_put_bin_index(hb, x_tab.device, False),
+                      as_=_values(hb.as_, dtype, x_tab.device))
+    return _sg_tile_sums(b, x_tab, chunks or _sg_chunks(b))
 
 
 _PLAIN = {"k-major": k_major_bin_plain, "wl": wl_bin_plain,
@@ -845,18 +1035,21 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
     tensors = {"group_ids": b.group_ids, "ja": b.ja, "slab_list": b.slab_list,
                "slab_count": b.slab_count, **values}
     tables = ["group_ids", "slab_list", "slab_count"]
-    compact_sl = b.layout == "sb-list" and b.ja.dtype == torch.int32
+    # the row-list layouts: sb-list with int32 planes, sg in f32 and bf16
+    listed = (b.layout == "sb-list" and b.ja.dtype == torch.int32) or (
+        b.layout == "sg" and not pairs)
     if b.layout == "wl":
         if b.row_len is None or b.plane_off is None:
             raise ValueError("wl bin without row_len / plane_off: upload it "
                              "with device_put_sell")
         tensors.update(row_len=b.row_len, plane_off=b.plane_off)
         tables += ["row_len", "plane_off"]
-    elif compact_sl:
+    elif listed:
         if b.row_table is None or b.plane_off is None:
-            raise ValueError("sb-list bin with int32 planes without "
-                             "row_table / plane_off: upload it with "
-                             "device_put_sell")
+            what = ("sb-list bin with int32 planes" if b.layout == "sb-list"
+                    else "f32/bf16 sg bin")
+            raise ValueError(f"{what} without row_table / plane_off: upload "
+                             "it with device_put_sell")
         tensors.update(row_table=b.row_table, plane_off=b.plane_off)
         tables += ["row_table", "plane_off"]
     for name, t in tensors.items():
@@ -873,7 +1066,7 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
     if b.ja.dtype not in ja_types:
         raise ValueError(f"{b.layout} index plane must be "
                          f"{' or '.join(map(str, ja_types))}, got {b.ja.dtype}")
-    slots = b.ja.numel() if b.layout == "wl" or compact_sl \
+    slots = b.ja.numel() if b.layout == "wl" or listed \
         else b.n_groups * b.k * SUBLANES * LANES
     for name, t in values.items():
         if t.dtype not in value_types:
@@ -888,11 +1081,12 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
                 * GROUP_ROWS or b.plane_off.numel() != b.n_groups * SUBLANES
                 + 1):
             raise ValueError("wl planes do not match the bin's groups")
-    elif compact_sl:
+    elif listed:
         if (b.ja.numel() % _WARP or b.row_table.numel() != b.n_groups
                 * GROUP_ROWS or b.plane_off.numel() != b.n_groups
                 * GROUP_ROWS // _WARP + 1):
-            raise ValueError("sb-list planes do not match the bin's groups")
+            raise ValueError(f"{b.layout} planes do not match the bin's "
+                             "groups")
     elif b.ja.numel() != slots:
         raise ValueError("index plane does not match the value plane")
     if b.n_groups * SUBLANES > _INT32_MAX:
@@ -932,7 +1126,8 @@ def _check_table(b: DeviceBinIndex, numel: int, what: str):
 
 
 def _k_major_call(b):
-    return "sell_k_major", "", (b.group_ids, b.ja), (b.n_groups, b.k)
+    return ("sell_k_major", "", (b.group_ids, b.ja),
+            (b.n_groups, b.k, _k_major_lanes(b)))
 
 
 def _wl_call(b):
@@ -958,6 +1153,9 @@ def _sb_call(b):
 
 
 def _sg_call(b):
+    if b.row_table is not None:  # _compact_sg
+        return ("sell_sg", "", (b.group_ids, b.plane_off, b.row_table, b.ja),
+                (b.n_groups,))
     stride = 2 if b.span == 0 else 1
     _check_table(b, b.n_groups * b.k * stride, "window table")
     if b.slab_count.numel() != b.n_groups:
@@ -967,10 +1165,11 @@ def _sg_call(b):
 
 
 def _scratch(b: DeviceBinIndex, device, pairs: bool = False) -> tuple:
-    """The sg kernel's last operand: its split's partial sums, ``(n_groups,
-    chunks, 1024)`` f32 (``pairs``: (hi, lo) pairs), empty when it is not
-    split; no operand for the other layouts."""
-    if b.layout != "sg":
+    """The padded sg kernel's last operand: its split's partial sums,
+    ``(n_groups, chunks, 1024)`` f32 (``pairs``: (hi, lo) pairs), empty
+    when it is not split; no operand for the other layouts and for
+    compacted sg bins."""
+    if b.layout != "sg" or b.row_table is not None:
         return ()
     chunks = _sg_chunks(b)
     n = b.n_groups * chunks * GROUP_ROWS * (2 if pairs else 1)

@@ -16,7 +16,8 @@ per bin layout, each the dd instantiation of the f32 kernel's source:
   ``sell_sb_major_dd_{i32,i16}``, ``sell_sb_list_dd_i16`` and, on the
   compacted planes of :func:`~.sell._compact_sl`, ``sell_sb_list_dd``
 * ``sg`` (``_kernel_sg_dd``), rows mode and, unlike the TPU kernel, slots
-  mode -> ``csrc/sell_sg.cu`` ``sell_sg_dd``
+  mode -> ``csrc/sell_sg.cu`` ``sell_sg_dd``, on the padded tiles (the f32
+  and bf16 sg bins are compacted; the dd ones are not)
 
 The bins share their index planes, tables and column decode with
 :mod:`.sell`. k-major, sb-major and padded sb-list bins keep separate hi
@@ -27,11 +28,13 @@ kernels gather x from one interleaved table (:func:`pack_x_pair`) that
 has a wrapper (``*_bin_dd``) and a plain PyTorch version (``*_bin_plain_dd``)
 returning the ``(hi, lo)`` row sums ``(n_groups, 8, 128)``: the same slot
 products, reduced over each row's entries by a pairwise tree of
-``dd_add_dd`` (k-major, sb-major) or in the kernel's own order (wl,
-sb-list, sg: bit for bit). A wrapper given CUDA tensors launches its kernel, or
-raises; given CPU tensors it runs the plain version. Each wrapper counts its
-launches in ``.launches``, and those with ``accumulate=True`` (``y =
-dd_add_dd(y, bin sums)``) also in ``.accumulating``.
+``dd_add_dd`` (sb-major) or in the kernel's own order (k-major, wl,
+sb-list, sg: bit for bit). A slot whose value is zero (hi and lo both
+zero) adds nothing to its row, in every kernel and plain version. A wrapper
+given CUDA tensors launches its kernel, or raises; given CPU tensors it runs
+the plain version. Each wrapper counts its launches in ``.launches``, and
+those with ``accumulate=True`` (``y = dd_add_dd(y, bin sums)``) also in
+``.accumulating``.
 """
 
 from __future__ import annotations
@@ -45,9 +48,10 @@ from ..formats.sell import GROUP_ROWS, LANES, SUBLANES
 from .doubledouble import combine_f64, dd_add_dd, dd_mul_dd, split_f64
 from .sell import (DeviceBinIndex, _assemble, _assemble_panels,
                    _check_launch, _check_panel_x, _compact_sl, _compact_wl,
-                   _launch, _on, _put_bin_index, _sb_padded, _scratch,
-                   _sg_chunks, _sg_slots, _sg_sums, _sl_compacts, _sl_steps,
-                   _SLOTS, _unsort, _wl_padded, _wl_steps, pack_x_table)
+                   _k_major_lanes, _lane_join, _lane_split, _launch,
+                   _list_steps, _on, _put_bin_index, _sb_padded, _scratch,
+                   _sg_chunks, _sg_slots, _sg_sums, _sl_compacts, _SLOTS,
+                   _unsort, _wl_padded, _wl_steps, pack_x_table)
 
 __all__ = [
     "DeviceSellBinDD", "DeviceSellDD", "DevicePanelSellDD",
@@ -169,12 +173,19 @@ def _dd_sum(h: torch.Tensor, l: torch.Tensor):
     return h[0], l[0]
 
 
+def _nonzero_dd(vh: torch.Tensor, vl: torch.Tensor) -> torch.Tensor:
+    """The slots whose (hi, lo) value is not zero: the others add nothing."""
+    return (vh != 0) | (vl != 0)
+
+
 def _row_sums_dd(b: DeviceSellBinDD, xh: torch.Tensor, xl: torch.Tensor):
     shape, cols, keep, dims = _SLOTS[b.layout](b)
-    ph, pl = dd_mul_dd(b.as_hi.view(shape), b.as_lo.view(shape), xh[cols],
-                       xl[cols])
+    vh, vl = b.as_hi.view(shape), b.as_lo.view(shape)
+    ph, pl = dd_mul_dd(vh, vl, xh[cols], xl[cols])
+    live = _nonzero_dd(vh, vl)
     if keep is not None:
-        ph, pl = torch.where(keep, ph, 0.0), torch.where(keep, pl, 0.0)
+        live &= keep
+    ph, pl = torch.where(live, ph, 0.0), torch.where(live, pl, 0.0)
     # the summed axes first; the rest is (n_groups, 8, 128) in every layout
     front = tuple(range(len(dims)))
     out = (b.n_groups, SUBLANES, LANES)
@@ -182,13 +193,30 @@ def _row_sums_dd(b: DeviceSellBinDD, xh: torch.Tensor, xl: torch.Tensor):
                    pl.movedim(dims, front).reshape(-1, *out))
 
 
-def k_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
-    """dd twin of :func:`~.sell.k_major_bin_plain`."""
-    return _row_sums_dd(b, xh, xl)
-
-
 def _dd_add_step(acc: tuple, prod: tuple) -> tuple:
     return dd_add_dd(*acc, *prod)
+
+
+def k_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
+    """dd twin of :func:`~.sell.k_major_bin_plain`: each lane's slots that
+    are not zero in the kernel's order, ``acc = dd_add_dd(acc, dd_mul_dd(v,
+    x[col]))`` from (0, 0), the lanes joined by ``dd_add_dd`` in the
+    kernel's tree (:func:`~.sell._lane_join`), so the kernel equals it bit
+    for bit."""
+    lanes = _k_major_lanes(b)
+    shape = (b.n_groups, b.k, SUBLANES, LANES)
+    vh, vl = (_lane_split(v.view(shape), lanes) for v in (b.as_hi, b.as_lo))
+    cols = _lane_split(b.ja.view(shape).long(), lanes)
+    h = torch.zeros(b.n_groups, lanes, SUBLANES, LANES, dtype=torch.float32,
+                    device=xh.device)
+    l = torch.zeros_like(h)
+    for st in range(vh.shape[1]):
+        c = cols[:, st]
+        nh, nl = dd_add_dd(h, l, *dd_mul_dd(vh[:, st], vl[:, st], xh[c],
+                                            xl[c]))
+        live = _nonzero_dd(vh[:, st], vl[:, st])
+        h, l = torch.where(live, nh, h), torch.where(live, nl, l)
+    return _lane_join((h, l), _dd_add_step)
 
 
 def wl_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
@@ -203,7 +231,8 @@ def wl_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
         v = vals[pos]
         nh, nl = dd_add_dd(h, l, *dd_mul_dd(v[:, 0], v[:, 1], xh[cols],
                                             xl[cols]))
-        h, l = torch.where(has, nh, h), torch.where(has, nl, l)
+        live = has & _nonzero_dd(v[:, 0], v[:, 1])
+        h, l = torch.where(live, nh, h), torch.where(live, nl, l)
     out = (b.n_groups, SUBLANES, LANES)
     return h.view(out), l.view(out)
 
@@ -232,9 +261,12 @@ def sb_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
 def _in_order_dd(b: DeviceSellBinDD, xh, xl):
     """dd twin of :func:`~.sell._in_order`: a padded bin's slots along its
     entry axis, ``acc = dd_add_dd(acc, dd_mul_dd(v, x[col]))`` from (0, 0),
-    masked slots skipped."""
+    masked slots and zero values skipped."""
     shape, cols, keep, (axis,) = _SLOTS[b.layout](b)
     vh, vl = b.as_hi.view(shape), b.as_lo.view(shape)
+    live = _nonzero_dd(vh, vl)
+    if keep is not None:
+        live &= keep
     h = torch.zeros(shape[:axis] + shape[axis + 1:], dtype=torch.float32,
                     device=xh.device)
     l = torch.zeros_like(h)
@@ -242,11 +274,8 @@ def _in_order_dd(b: DeviceSellBinDD, xh, xl):
         c = cols.select(axis, e)
         nh, nl = dd_add_dd(h, l, *dd_mul_dd(vh.select(axis, e),
                                             vl.select(axis, e), xh[c], xl[c]))
-        if keep is None:
-            h, l = nh, nl
-        else:
-            k = keep.select(axis, e)
-            h, l = torch.where(k, nh, h), torch.where(k, nl, l)
+        k = live.select(axis, e)
+        h, l = torch.where(k, nh, h), torch.where(k, nl, l)
     return h, l
 
 
@@ -260,10 +289,11 @@ def sb_list_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
                     device=xh.device)
     l = torch.zeros_like(h)
     vals, cols = b.as_pair.view(-1, 2), b.ja.view(-1)
-    for pos, has in _sl_steps(b):
+    for pos, has in _list_steps(b):
         v, c = vals[pos], cols[pos].long()
         nh, nl = dd_add_dd(h, l, *dd_mul_dd(v[:, 0], v[:, 1], xh[c], xl[c]))
-        h, l = torch.where(has, nh, h), torch.where(has, nl, l)
+        live = has & _nonzero_dd(v[:, 0], v[:, 1])
+        h, l = torch.where(live, nh, h), torch.where(live, nl, l)
     return _unsort(b, h), _unsort(b, l)
 
 
@@ -293,8 +323,8 @@ def sg_bin_plain_dd(b: DeviceSellBinDD, xh, xl, chunks: int | None = None):
     shape, cols, _, _ = _sg_slots(b)
     v = b.as_pair.view(*shape, 2)
     prod = dd_mul_dd(v[..., 0], v[..., 1], xh[cols], xl[cols])
-    return _sg_sums(b, prod, _dd_add_step, _dd_add_step,
-                    chunks or _sg_chunks(b))
+    return _sg_sums(b, prod, _nonzero_dd(v[..., 0], v[..., 1]), _dd_add_step,
+                    _dd_add_step, chunks or _sg_chunks(b))
 
 
 _PLAIN_DD = {"k-major": k_major_bin_plain_dd, "wl": wl_bin_plain_dd,

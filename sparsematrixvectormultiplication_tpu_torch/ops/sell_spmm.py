@@ -126,9 +126,9 @@ def k_major_spmm_bin_plain(b: DeviceSellBin,
                            x_tab: torch.Tensor) -> torch.Tensor:
     """``out[g, i, j, r]``: row i*128 + j's K entries ``as[(g*K+k)*8+i, j]``
     in k order, ``acc[r] = fmaf(as, X[ja, r], acc[r])`` from 0
-    (:func:`~.sell.fma_f32`) — column r equals
-    :func:`~.sell.k_major_bin_plain` on ``X[:, r]`` bit for bit. A few
-    groups at a time."""
+    (:func:`~.sell.fma_f32`), zero values skipped — column r equals
+    :func:`~.sell.k_major_bin_plain` on ``X[:, r]`` bit for bit where that
+    runs one lane a row. A few groups at a time."""
     rhs = x_tab.shape[1]
     step = max(1, _PLAIN_ELEMS // (GROUP_ROWS * rhs))
     shape = (b.n_groups, b.k, SUBLANES, LANES)
@@ -138,8 +138,10 @@ def k_major_spmm_bin_plain(b: DeviceSellBin,
     for g0 in range(0, b.n_groups, step):
         acc = out[g0:g0 + step]
         for k in range(b.k):
-            acc = fma_f32(vals[g0:g0 + step, k].double()[..., None]
+            v = vals[g0:g0 + step, k]
+            new = fma_f32(v.double()[..., None]
                           * x_tab[cols[g0:g0 + step, k].long()].double(), acc)
+            acc = torch.where((v != 0)[..., None], new, acc)
         out[g0:g0 + step] = acc
     return out
 
@@ -155,7 +157,8 @@ def staged_blocks(b: DeviceSellBin) -> int:
 def wl_spmm_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     """``out[g, rb, j, r]``: row rb*128 + j's real slots (``_wl_steps``) in
     the kernel's order, ``acc[r] = fmaf(v, X[col, r], acc[r])`` from 0 —
-    column r equals :func:`~.sell.wl_bin_plain` on ``X[:, r]``."""
+    column r equals :func:`~.sell.wl_bin_plain` on ``X[:, r]`` (the
+    compacted planes hold no zero value, so neither skips a slot)."""
     rhs = x_tab.shape[1]
     acc = torch.zeros(b.n_groups * GROUP_ROWS, rhs, dtype=torch.float32,
                       device=x_tab.device)
@@ -216,10 +219,13 @@ def _launch(wrapper, b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
     _check_rows_view(y, "y", (y.shape[0], r), (torch.float32,), 4)
     if y.shape[0] % GROUP_ROWS:
         raise ValueError("y must hold whole groups of 1024 rows")
-    stem, _, before, after = _CALL[b.layout](b)
     if b.layout == "k-major":
         _check_window(b, device)
-        before, after = (*before, b.x_window), (*after, b.window_rows)
+        stem = "sell_k_major"
+        before = (b.group_ids, b.ja, b.x_window)
+        after = (b.n_groups, b.k, b.window_rows)
+    else:
+        stem, _, before, after = _CALL[b.layout](b)
     name = f"{stem}_spmm_{'bf16' if b.as_.dtype == torch.bfloat16 else 'f32'}"
     with torch.cuda.device(device):
         fn = getattr(_build.load(), name)

@@ -4,9 +4,13 @@ Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
 false. Run on a GPU machine with ``python -m pytest tests/test_torch_cuda.py``.
 Tolerance: rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order); the
 double-double kernels 1e-12*max|y| on the fp64-combined result (dd sums in
-another order), and exact on rows whose terms cancel; the k-major SpMM,
-wl, sb-list and sg kernels bit for bit against their plain versions, which
-add in the kernels' order. The PR kernels are
+another order), and exact on rows whose terms cancel; the k-major (split
+over lanes or not), k-major SpMM, wl, sb-list and sg kernels bit for bit
+against their plain versions, which add in the kernels' order, and the
+compacted sg kernel within f32 rounding of the padded layout's sums. Every
+SELL kernel follows the stored-zero rule: a stored zero with x infinite at
+its column leaves every row finite and equal to the fp64 oracle without it
+(f32: rtol=1e-5, atol=1e-5*max|y|; dd: 1e-12*max|y|). The PR kernels are
 also held to the fp64 oracle at the JAX tests' ``max|Δ| / max(1, |ref|) <
 5e-6`` (f32) and 1e-12*max|y| (dd). The SpMM kernels: rtol=1e-5,
 atol=1e-5*max|Y| against their plain versions in both value types (the
@@ -425,9 +429,11 @@ def test_wl_kernel_equals_the_padded_result(precision, dev):
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_sg_kernel_equals_plain_bit_for_bit(precision, mode, split, dev,
                                             monkeypatch):
-    """The sg kernel in both modes, its groups' tiles split into chunks
-    (joined by a second launch) or not, against its plain version, which
-    sums in the kernel's order: storing, and adding onto y once."""
+    """The sg kernel in both modes, against its plain version, which sums
+    in the kernel's order: storing, and adding onto y once. dd: the tile
+    kernel, its groups' tiles split into chunks (joined by a second launch)
+    or not; f32 and bf16: the row-list kernel on the compacted planes,
+    whatever the split would be."""
     monkeypatch.setattr(S, "_SG_MIN_CHUNK", 2)
     if not split:
         monkeypatch.setattr(S, "_SG_SPLIT_BELOW", 0)
@@ -450,6 +456,128 @@ def test_sg_kernel_equals_plain_bit_for_bit(precision, mode, split, dev,
         csr.ncols))).to(dev)
     tol = 1e-12 if precision == "dd" else 1e-5
     assert (y - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["slots", "rows"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compacted_sg_kernel_equals_the_padded_result(dtype, mode, dev):
+    """On finite x the compacted sg kernel returns the padded layout's sums
+    (``sg_padded_plain``) within f32 rounding: the same products in another
+    order."""
+    csr = CSRMatrix.from_coo(random_general(20000, 20000, 2.5e-4, seed=8))
+    sell = SellMatrix.from_csr(csr, layout="sg", sg_slots=mode == "slots")
+    d = S.device_put_sell(sell, dtype, device=dev)
+    x = S.device_put_x(np.random.default_rng(3).standard_normal(csr.ncols),
+                       csr.ncols, device=dev)
+    pairs = [(h, b) for h, b in zip(sell.bins, d.bins) if h.layout == "sg"]
+    assert pairs
+    for h, b in pairs:
+        assert b.row_table is not None and b.ja.numel() < np.size(h.ja)
+        y = torch.zeros(d.num_groups * 1024, device=dev)
+        S.sg_bin(b, x, y)
+        _close(y.view(-1, 8, 128)[b.group_ids.long()],
+               S.sg_padded_plain(h, x, dtype))
+
+
+# split -> matrix: a 5-group bin splits its rows over lanes, a 40-group one
+# runs a thread a row
+K_MAJOR_SPLITS = {"split": lambda: banded(5 * 1024, 24, 512, seed=0),
+                  "unsplit": lambda: banded(40 * 1024, 24, 512, seed=0)}
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("split", sorted(K_MAJOR_SPLITS))
+def test_k_major_kernel_equals_plain_bit_for_bit(split, precision, dev):
+    """The k-major kernel, its rows split over lanes (5 groups) or not (40
+    groups), against its plain version, which sums each lane's slots in
+    order and joins the lanes in the kernel's tree: storing, and adding."""
+    csr = CSRMatrix.from_coo(K_MAJOR_SPLITS[split]())
+    d = _upload(SellMatrix.from_csr(csr, layout="k-major"), precision, dev)
+    kernel, plain = ((D.k_major_bin_dd, D.k_major_bin_plain_dd)
+                     if precision == "dd"
+                     else (S.k_major_bin, S.k_major_bin_plain))
+    x = _x_for(csr, precision, dev)
+    assert d.bins
+    for b in d.bins:
+        assert (S._k_major_lanes(b) > 1) == (split == "split")
+        _equal_storing_and_adding(b, precision, kernel, plain, x, dev)
+
+
+# layout -> (matrix, SellMatrix.from_csr keywords, int16 sb planes)
+ZERO_CASES = {
+    "k-major": (lambda: banded(4096, 24, 512, seed=0),
+                {"layout": "k-major"}, False),
+    "sb-major": (lambda: banded(4096, 24, 512, seed=0),
+                 {"layout": "sb-major"}, False),
+    "sb-list": (lambda: banded(4096, 24, 512, seed=0),
+                {"layout": "sb-list"}, False),
+    "sb-list-i16": (lambda: banded(4096, 24, 512, seed=0),
+                    {"layout": "sb-list"}, True),
+    "wl": (lambda: banded(4096, 18, 40, seed=2), {"layout": "wl"}, False),
+    "sg": (lambda: random_general(20000, 20000, 2.5e-4, seed=8),
+           {"layout": "sg"}, False),
+}
+
+
+def _column_once(csr, keep, value):
+    """``csr`` with every entry of entry ``keep``'s column removed but that
+    one, which holds ``value`` (None: removed too); and the column."""
+    c = int(csr.col_idx[keep])
+    e = np.arange(csr.nnz)
+    mask = (csr.col_idx != c) | ((e == keep) & (value is not None))
+    vals = np.where(e == keep, 0.0 if value is None else value, csr.values)
+    row_ids = np.repeat(np.arange(csr.nrows), np.diff(csr.row_ptr))
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        row_ids[mask], minlength=csr.nrows))]).astype(csr.row_ptr.dtype)
+    return CSRMatrix(csr.nrows, csr.ncols, ptr, csr.col_idx[mask],
+                     vals[mask]), c
+
+
+@pytest.mark.parametrize("precision", ["f32", "dd"])
+@pytest.mark.parametrize("layout", sorted(ZERO_CASES))
+def test_stored_zero_adds_nothing(layout, precision, dev):
+    """An entry stored as 0, the only one of its column, with x = inf at
+    that column: the kernels' rows are finite and equal the fp64 oracle of
+    the matrix without the entry; the entry sits in a bin of the layout."""
+    make, kw, i16 = ZERO_CASES[layout]
+    full = CSRMatrix.from_coo(make())
+    want = layout.removesuffix("-i16")
+    start = int(full.row_ptr[full.nrows // 2])
+    for keep in range(start, start + 40):
+        csr, c = _column_once(full, keep, 0.0)
+        sell = SellMatrix.from_csr(csr, **kw)
+        one, _ = _column_once(full, keep, 1.0)
+        d1 = S.device_put_sell(SellMatrix.from_csr(one, **kw), device=dev,
+                               sb_i16=i16)
+        e = torch.zeros(S.slab_table_rows(csr.ncols) * 128, device=dev)
+        e[c] = 1.0
+        lit = set()
+        for b in d1.bins:
+            y = torch.zeros(d1.num_groups * 1024, device=dev)
+            S._KERNEL[b.layout](b, e, y)
+            if y.abs().max() > 0:
+                lit.add(b.layout)
+        if lit == {want}:
+            break
+    else:
+        pytest.fail(f"no entry of the middle rows lies in a {want} bin")
+    x = np.random.default_rng(2).standard_normal(csr.ncols)
+    x[c] = np.inf
+    ref_csr, _ = _column_once(full, keep, None)
+    if precision == "dd":
+        ref = torch.from_numpy(ref_csr.spmv(x)).to(dev)
+        y = D.sell_spmv_dd_f64(D.device_put_sell_dd(sell, device=dev,
+                                                    sb_i16=i16),
+                               torch.from_numpy(x).to(dev))
+        assert torch.isfinite(y).all()
+        assert (y - ref).abs().max() <= 1e-12 * ref.abs().max()
+    else:
+        ref = torch.from_numpy(ref_csr.spmv(
+            x.astype(np.float32).astype(np.float64))).float().to(dev)
+        y = S.sell_spmv(S.device_put_sell(sell, device=dev, sb_i16=i16),
+                        S.device_put_x(x, csr.ncols, device=dev))
+        assert torch.isfinite(y).all()
+        _close(y, ref)
 
 
 @pytest.mark.parametrize("rhs", [1, 6, 16])
@@ -540,11 +668,15 @@ K_MAJOR_PATHS = {"staged": lambda: banded(5 * 1024, 24, 40, seed=0),
 @pytest.mark.parametrize("rhs", [1, 4, 8, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("path", sorted(K_MAJOR_PATHS))
-def test_k_major_spmm_equals_plain_bit_for_bit(path, dtype, rhs, dev):
+def test_k_major_spmm_equals_plain_bit_for_bit(path, dtype, rhs, dev,
+                                               monkeypatch):
     """The k-major SpMM kernel on x staged in shared memory or gathered from
     the table, storing and adding onto a y that holds values, against its
     plain version, which adds each row's entries in k order with one fmaf a
     column; and each column against the SpMV kernel."""
+    # the SpMV kernel one thread a row, as the SpMM kernel sums: these
+    # 5-group bins would split their SpMV rows over lanes
+    monkeypatch.setattr(S, "_KM_SPLIT_BELOW", 0)
     csr = CSRMatrix.from_coo(K_MAJOR_PATHS[path]())
     d = S.device_put_sell(SellMatrix.from_csr(csr, layout="k-major"), dtype,
                           device=dev)
@@ -808,9 +940,12 @@ def test_spmm_kernel_matches_plain(layout, dtype, rhs, dev):
 
 
 @pytest.mark.parametrize("layout", sorted(SPMM_WRAPPERS))
-def test_spmm_columns_equal_spmv_bit_for_bit(layout, dev):
+def test_spmm_columns_equal_spmv_bit_for_bit(layout, dev, monkeypatch):
     """Column j of the SpMM kernel is the SpMV kernel on X[:, j], to the
-    bit: the same entries in the same order, each added with one fmaf."""
+    bit: the same entries in the same order, each added with one fmaf. The
+    SpMV kernel runs one thread a row here, as the SpMM kernel sums (bins
+    this small would split their SpMV rows over lanes)."""
+    monkeypatch.setattr(S, "_KM_SPLIT_BELOW", 0)
     csr, d = _spmm_sell(layout, torch.float32, dev)
     X = np.random.default_rng(9).standard_normal((csr.ncols, 5))
     Y = SM.sell_spmm(d, SM.device_put_x_multi(X, csr.ncols, device=dev))

@@ -9,6 +9,8 @@ planes are selected with ``SPMV_SB_I16=1`` on the JAX side and with
 both sum in f32, in another order.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -229,16 +231,23 @@ def test_accumulate_adds_onto_y():
 
 
 def test_sg_plain_ignores_padding_tiles():
-    """Tiles past slab_count are padding: the plain version reads none of
-    them, as the kernel bounds its tile loop by the real count."""
+    """Tiles past slab_count are padding: the padded plain version reads
+    none of them, as the tile kernel bounds its tile loop by the real count,
+    and the compacted upload keeps none of them."""
     sell = JSell.from_csr(_road(), layout="sg")
-    d = S.device_put_sell(sell, device="cpu")
-    b = next(b for b in d.bins
-             if b.layout == "sg" and int(b.slab_count.min()) < b.k)
+    i, h = next((i, b) for i, b in enumerate(sell.bins)
+                if b.layout == "sg" and int(np.min(b.slab_count)) < b.k)
     x_tab = S.device_put_x(_x(sell.ncols), sell.ncols, device="cpu")
-    want = S.sg_bin_plain(b, x_tab)
-    g = int(torch.argmin(b.slab_count))
-    t = int(b.slab_count[g])
-    vals = b.as_.view(b.n_groups, b.k, 8, 128)
+    want = S.sg_padded_plain(h, x_tab)
+    want_compact = S.sg_bin_plain(S.device_put_sell(sell, device="cpu")
+                                  .bins[i], x_tab)
+    g = int(np.argmin(h.slab_count))
+    t = int(np.asarray(h.slab_count).reshape(-1)[g])
+    vals = np.array(h.as_).reshape(h.n_groups, h.k, 8, 128)
     vals[g, t:] = float("nan")  # padding tiles: never multiplied in
-    assert torch.equal(S.sg_bin_plain(b, x_tab), want)
+    h = dataclasses.replace(h, as_=vals.reshape(np.shape(h.as_)))
+    assert torch.equal(S.sg_padded_plain(h, x_tab), want)
+    nan = dataclasses.replace(sell, bins=[h if j == i else b
+                                          for j, b in enumerate(sell.bins)])
+    assert torch.equal(S.sg_bin_plain(S.device_put_sell(nan, device="cpu")
+                                      .bins[i], x_tab), want_compact)

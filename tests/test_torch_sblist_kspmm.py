@@ -348,10 +348,13 @@ def test_k_major_window_table_matches_numpy(matrix):
 
 
 @pytest.mark.parametrize("rhs", [1, 4, 16, 32])
-def test_k_major_spmm_columns_equal_spmv_plain(rhs):
+def test_k_major_spmm_columns_equal_spmv_plain(rhs, monkeypatch):
     """Column j of the k-major SpMM plain version is the SpMV plain version
     on X[:, j], bit for bit: the same entries in the same order, each added
-    with one fmaf; stored through ``sell_spmm`` too."""
+    with one fmaf; stored through ``sell_spmm`` too. The SpMV runs one lane
+    a row here (its 2-group bin would split its rows over lanes, which sums
+    in another order)."""
+    monkeypatch.setattr(S, "_KM_SPLIT_BELOW", 0)
     csr, _, d = _k_major("wide")
     X = np.random.default_rng(rhs).standard_normal((csr.ncols, rhs),
                                                    dtype=np.float32)

@@ -328,7 +328,8 @@ def test_sg_slots_dd_against_oracle_and_jax_rows_mode(matrix):
 def test_sg_chunked_sums_equal_unchunked(precision, mode, chunks):
     """A group's tiles split into chunks, their partial sums joined in
     order, give the one-chunk sums (dd: within 1e-13 * max|y|; f32 within
-    1e-6, the f32 sums' own order)."""
+    1e-6, the f32 sums' own order). f32 bins are compacted at upload, so
+    their padded tile sums are the host bins' (``sg_padded_plain``)."""
     csr = CSRMatrix.from_coo(syn.random_general(20000, 20000, 2.5e-4,
                                                 seed=8))
     sell = SellMatrix.from_csr(csr, layout="sg", sg_slots=mode == "slots")
@@ -340,9 +341,10 @@ def test_sg_chunked_sums_equal_unchunked(precision, mode, chunks):
             b, *xs, chunks=c))
         tol = 1e-13
     else:
-        d = S.device_put_sell(sell, device="cpu")
+        d = sell
         xs = (S.device_put_x(x, csr.ncols, device="cpu"),)
-        plain = lambda b, c: S.sg_bin_plain(b, *xs, chunks=c)  # noqa: E731
+        plain = lambda h, c: S.sg_padded_plain(  # noqa: E731
+            h, *xs, chunks=c)
         tol = 1e-6
     bins = [b for b in d.bins if b.layout == "sg"]
     assert bins and all(b.sg_slots == (mode == "slots") for b in bins)
