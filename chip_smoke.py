@@ -3,8 +3,10 @@
 bandwidth and kernel-variant probes, SELL SpMV (f32, bf16 and
 double-double), the benchmark harness's HLL, CSR, ELL and SELL-sigma stages
 and RCM reordering, the PR layout (f32, bf16 values and double-double) and
-the locality split, ``auto_device_op``, and multi-RHS SpMM (SELL k-major
-and wl, 128x128 BSR).
+the locality split, ``auto_device_op``, multi-RHS SpMM (SELL k-major and
+wl, 128x128 BSR), and the solvers over those kernels (CG and PCG,
+``cg_multi``, BiCGSTAB, GMRES, PageRank, power iteration, Lanczos, subspace
+iteration, iterative refinement).
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -79,6 +81,44 @@ panels (k-major and wl bins) through ``panel_sell_spmv`` and ``sell_spmm``
 road_scattered matrices and on power_law(200_000, 3), which must pick
 "sell", "split" and "pr" and whose ``matvec`` must launch the kernels of
 what it picked.
+
+Then the solver phase (:func:`solver_phase`): the solvers of ``solvers/`` at
+full size over the kernels, with the launch counters set to 0 just before it
+and read just after (and added to the main path's in the JSON summary). Its
+matrices, each of which must convert to the SELL layouts named:
+
+* spd_fem3d:  the headline's fem_3d(60, 60, 60, dof=3) made SPD as the JAX
+              solver tests make theirs, (M + M^T)/2 plus the largest
+              absolute row sum + 1 on the diagonal: wl; f32, bf16 and dd;
+* cfd_like:   the suite's cfd_multidof(180, 180, dof=5, seed=15) plus the
+              same shift, nonsymmetric: sb-major and wl; f32 and dd;
+* pagerank:   ``pagerank_operator`` of |webbase_like(1_000_000, 3, seed=9)|:
+              k-major and sg; f32 and dd;
+* spd_band:   band64's banded(250_000, 64, 64, seed=11) made SPD, on 128x128
+              blocks (``bsr_spmm``, blockspec).
+
+On spd_fem3d it runs ``cg_sell`` (f32), PCG with ``jacobi_preconditioner`` and
+with a degree-4 ``chebyshev_preconditioner`` on ``lanczos_bounds``, CG over
+``sell_spmv_dd_f64``, ``iterative_refinement`` (CG over the bf16 SELL at
+1e-2, 50 iterations at most, dd residuals, to 1e-12), ``cg_multi`` (R=16) and
+``subspace_iteration`` (k=8, 50 iterations at most) over ``sell_spmm``,
+``power_iteration``, ``lanczos`` and ``lanczos_extremal`` (m=30); on cfd_like
+BiCGSTAB and GMRES(30) in f32 and GMRES(30) in dd; PageRank in f32 and dd;
+on spd_band ``cg_multi`` (R=16) over ``bsr_spmm``. Each is held to the host's
+fp64 oracle: the true relative residual at most 10 times the tolerance (per
+column for ``cg_multi``; 1e-12 for refinement); PageRank within 1e-5 in L1
+(dd: 1e-9) of the same iteration in fp64 on the host, and its sum as close
+to 1; power iteration's eigenvalue within 1e-5 of the host's Rayleigh
+quotient of its vector; Lanczos ``||V V^T - I|| < 1e-4`` and its extremal
+Ritz values inside the Gershgorin interval; subspace iteration's Ritz values
+within 1e-4 of the host's ``eigvalsh(Q^T A Q)`` and its block residual within
+1e-3 of the host's (relative, floored at 1e-3). Each solve runs once to warm
+up and once timed between synchronizations; its line gives the iterations,
+the matvecs, the wall time of the solve and of an iteration, one matvec's
+device time (``device_time_fn`` on the same container) and the share of the
+solve outside the matvecs. The wl kernel (f32, bf16, dd), the wl SpMM, the
+BSR blockspec kernel and the kernels of cfd_like's and pagerank's layouts
+(f32 and dd) must launch in the phase.
 
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
@@ -326,6 +366,424 @@ def mtx_roundtrip(make_coo, read_coo, write):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# the solver phase's SELL matrices and the layouts each conversion must hold
+# (its fourth matrix, spd_band, is blocked to 128x128 BSR)
+SOLVER_LAYOUTS = {"spd_fem3d": {"wl"}, "cfd_like": {"sb-major", "wl"},
+                  "pagerank": {"k-major", "sg"}}
+SOLVER_RHS = 16        # cg_multi's right-hand sides
+# a dd matvec over the PageRank operator's 37 bins queues some 50 kernels:
+# 20 calls behind device_time_fn's spin overflow the stream's launch queue
+SOLVER_TIME_REPS = 10
+SUBSPACE_K = 8
+LANCZOS_M = 30
+GMRES_RESTART = 30
+
+
+class Counted:
+    """A matvec or matmat that counts its calls since ``reset``."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, v):
+        self.calls += 1
+        return self.fn(v)
+
+    def reset(self):
+        self.calls = 0
+
+
+class ByLaunches:
+    """The matvecs a solver made through its own matvec ``fn``, counted
+    from the launches of ``wrapper``, which runs ``per_call`` times a
+    matvec."""
+
+    def __init__(self, fn, wrapper, per_call):
+        self.fn, self.wrapper, self.per_call = fn, wrapper, per_call
+        self.start = wrapper.launches
+
+    @property
+    def calls(self):
+        return (self.wrapper.launches - self.start) // self.per_call
+
+    def reset(self):
+        self.start = self.wrapper.launches
+
+
+def solver_phase(dev, fem_csr):
+    """The solvers of ``solvers/`` at full size over the port's kernels;
+    ``fem_csr`` is the CSR of the bench suite's fem3d_cube, ``fem_3d(60,
+    60, 60, dof=3, seed=1)``. Returns each kernel's launches in the phase,
+    keyed (group, kernel) with group "" (SELL SpMV), " dd" or " SpMM"."""
+    import scipy.sparse as sp
+
+    from sparsematrixvectormultiplication_tpu_torch import (
+        BSRMatrix, COOMatrix, CSRMatrix, SellMatrix)
+    from sparsematrixvectormultiplication_tpu_torch import solvers as SV
+    from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
+        banded, cfd_multidof, webbase_like)
+    from sparsematrixvectormultiplication_tpu_torch.ops import bsr as BSR
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_spmm as SM
+    from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
+        device_time_fn)
+
+    t_phase = time.perf_counter()
+    groups = {"": S._KERNEL, " dd": D._KERNEL_DD,
+              " SpMM": {"k-major": SM.k_major_spmm_bin,
+                        "wl": SM.wl_spmm_bin, **BSR.ROUTES}}
+
+    def snap():
+        return {(g, k): w.launches for g, ws in groups.items()
+                for k, w in ws.items()}
+
+    rng = np.random.default_rng(SEED)
+
+    def with_shift(csr, vals):
+        """``csr``'s pattern with ``vals`` plus c on every diagonal slot, c
+        = the largest absolute row sum + 1: strictly diagonally dominant."""
+        rows = np.repeat(np.arange(csr.nrows), np.diff(csr.row_ptr))
+        diag = rows == csr.col_idx
+        if not np.array_equal(np.bincount(rows[diag], minlength=csr.nrows),
+                              np.ones(csr.nrows)):
+            fail("solvers: a row lacks its diagonal slot")
+        c = np.bincount(rows, weights=np.abs(vals), minlength=csr.nrows).max()
+        vals = vals.copy()
+        vals[diag] += c + 1.0
+        return CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx, vals)
+
+    def sell_of(name, csr):
+        sell = SellMatrix.from_csr(csr)
+        got = {b.layout for b in sell.bins}
+        if got != SOLVER_LAYOUTS[name] or sell.row_perm is not None:
+            fail(f"solvers {name}: the conversion gave layouts {sorted(got)}"
+                 f", the phase exists to run {sorted(SOLVER_LAYOUTS[name])}")
+        return sell
+
+    # ---- the matrices, converted on the host ----
+    t0 = time.perf_counter()
+    # spd_fem3d: (M + M^T)/2 + c I on the symmetric pattern (sorted rows: the
+    # transpose has the same row_ptr and col_idx)
+    t = fem_csr.transpose()
+    if not (np.array_equal(t.row_ptr, fem_csr.row_ptr)
+            and np.array_equal(t.col_idx, fem_csr.col_idx)):
+        fail("solvers: fem3d's pattern is not symmetric")
+    fem = with_shift(fem_csr, (fem_csr.values + t.values) / 2)
+    del t
+    fem_sell = sell_of("spd_fem3d", fem)
+    cfd = CSRMatrix.from_coo(cfd_multidof(180, 180, dof=5, seed=15))
+    cfd = with_shift(cfd, cfd.values)
+    cfd_sell = sell_of("cfd_like", cfd)
+    coo = webbase_like(1_000_000, 3, seed=9)
+    web = CSRMatrix.from_coo(COOMatrix(coo.nrows, coo.ncols, coo.row,
+                                       coo.col, np.abs(coo.val)))
+    op, dangling = SV.pagerank_operator(web)
+    web_sell = sell_of("pagerank", op)
+    m = CSRMatrix.from_coo(banded(250_000, 64, 64, seed=11)).to_scipy()
+    a = (m + m.T) / 2
+    band = CSRMatrix.from_scipy(
+        a + sp.eye(a.shape[0]) * (abs(a).sum(axis=1).max() + 1.0))
+    del m, a
+    bsr = BSRMatrix.from_csr(band)
+    convert_s = time.perf_counter() - t0
+    print(f"[solvers] spd_fem3d {fem.nrows} rows, {fem.nnz} nnz, bins "
+          f"{[(b.layout, b.k, b.n_groups) for b in fem_sell.bins]}; cfd_like "
+          f"{cfd.nrows} rows, {cfd.nnz} nnz, bins "
+          f"{[(b.layout, b.k, b.n_groups) for b in cfd_sell.bins]}; pagerank "
+          f"{op.nrows} rows, {op.nnz} nnz, {int(dangling.sum())} dangling, "
+          f"{len(web_sell.bins)} bins of "
+          f"{sorted({b.layout for b in web_sell.bins})}; spd_band "
+          f"{band.nrows} rows, {band.nnz} nnz, BSR kb {bsr.kb}, "
+          f"{bsr.blocks.nbytes} B of f32 blocks; conversions "
+          f"{convert_s:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    d_fem = S.device_put_sell(fem_sell, device=dev)
+    d_fem_bf = S.device_put_sell(fem_sell, torch.bfloat16, device=dev)
+    d_fem_dd = D.device_put_sell_dd(fem_sell, device=dev)
+    d_cfd = S.device_put_sell(cfd_sell, device=dev)
+    d_cfd_dd = D.device_put_sell_dd(cfd_sell, device=dev)
+    d_web = S.device_put_sell(web_sell, device=dev)
+    d_web_dd = D.device_put_sell_dd(web_sell, device=dev)
+    d_band = BSR.device_put_bsr(bsr, device=dev)
+    del fem_sell, cfd_sell, web_sell, bsr
+    torch.cuda.synchronize()
+    print(f"[solvers] uploads {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def sell_mv(d):
+        """``v -> A @ v`` through sell_spmv on one padded x table."""
+        tab = torch.zeros(S.slab_table_rows(d.ncols) * 128, device=dev)
+
+        def mv(v):
+            tab[: v.shape[0]].copy_(v)
+            return S.sell_spmv(d, tab)
+        return mv
+
+    def dd_mv(d):
+        return lambda v: D.sell_spmv_dd_f64(d, v)
+
+    def vec(n, dtype=torch.float32):
+        return torch.from_numpy(rng.standard_normal(n)).to(dev, dtype)
+
+    def block(n, k):
+        return torch.from_numpy(rng.standard_normal((n, k))).to(
+            dev, torch.float32)
+
+    def host(t):
+        return t.double().cpu().numpy()
+
+    def rel_res(csr, x, b):
+        """The true relative residual ``||b - A x|| / ||b||`` on the host,
+        fp64, per column of a block."""
+        xs, bs = host(x), host(b)
+        if xs.ndim == 1:
+            return np.linalg.norm(bs - csr.spmv(xs)) / np.linalg.norm(bs)
+        r = [np.linalg.norm(bs[:, j] - csr.spmv(xs[:, j]))
+             / np.linalg.norm(bs[:, j]) for j in range(xs.shape[1])]
+        return max(r)
+
+    def check_res(name, csr, x, b, limit):
+        got = rel_res(csr, x, b)
+        if not got <= limit:
+            fail(f"solvers {name}: true relative residual {got:.3e} > "
+                 f"{limit:.0e}")
+        return f"true relative residual {got:.3e} (limit {limit:.0e})"
+
+    def run(name, solve, ops, check):
+        """Solve once to warm up, then once timed between synchronizations;
+        ``ops`` are (counted matvec, an argument of its shape): each one's
+        calls in the timed solve and its device time by device_time_fn.
+        ``check(out)`` returns (iterations, a note) or fails."""
+        solve()
+        for op, _ in ops:
+            op.reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+        calls = [op.calls for op, _ in ops]
+        ms = [device_time_fn(op.fn, arg, device=dev,
+                             reps=SOLVER_TIME_REPS) * 1e3 for op, arg in ops]
+        iters, note = check(out)
+        inside = sum(c * t for c, t in zip(calls, ms))
+        share = 1.0 - inside / wall
+        print(f"[solvers] {name}: {iters} iterations, matvecs {calls}, solve "
+              f"{wall:.3f} ms ({wall / max(iters, 1):.4f} ms an iteration), "
+              f"one matvec {', '.join(f'{t:.4f}' for t in ms)} ms device, "
+              f"outside the matvecs {share:.1%} of the solve; {note}",
+              flush=True)
+        return out
+
+    # the launch counts of the phase, from 0
+    for ws in groups.values():
+        for w in ws.values():
+            w.launches = 0
+            w.accumulating = 0
+
+    # ---- spd_fem3d ----
+    n = fem.nrows
+    mv32 = Counted(sell_mv(d_fem))
+    b32 = vec(n)
+
+    def cg_sell_check(out):
+        x, k, _ = out
+        return k, check_res("cg_sell", fem, x, b32, 1e-4)
+
+    # cg_sell's own matvec, counted by the wl kernel's launches
+    run("spd_fem3d cg_sell f32", lambda: SV.cg_sell(d_fem, b32, tol=1e-5),
+        [(ByLaunches(mv32.fn, S.wl_bin, len(d_fem.bins)), b32)],
+        cg_sell_check)
+
+    minv = SV.jacobi_preconditioner(fem, torch.float32, device=dev)
+    run("spd_fem3d pcg jacobi f32",
+        lambda: SV.cg(mv32, b32, tol=1e-5, minv=minv), [(mv32, b32)],
+        lambda out: (out[1], check_res("pcg jacobi", fem, out[0], b32,
+                                       1e-4)))
+    lmin, lmax = SV.lanczos_bounds(mv32.fn, n, m=LANCZOS_M, device=dev)
+    prec = SV.chebyshev_preconditioner(mv32, lmin, lmax, degree=4)
+    run("spd_fem3d pcg chebyshev(4) f32",
+        lambda: SV.cg(mv32, b32, tol=1e-5, prec=prec), [(mv32, b32)],
+        lambda out: (out[1], check_res("pcg chebyshev", fem, out[0], b32,
+                                       1e-4) + f"; Lanczos bounds "
+                     f"[{lmin:.4f}, {lmax:.4f}]"))
+    mvdd = Counted(dd_mv(d_fem_dd))
+    b64 = vec(n, torch.float64)
+    run("spd_fem3d cg dd", lambda: SV.cg(mvdd, b64, tol=1e-10),
+        [(mvdd, b64)],
+        lambda out: (out[1], check_res("cg dd", fem, out[0], b64, 1e-9)))
+    mvbf = Counted(sell_mv(d_fem_bf))
+    b_ref = rng.standard_normal(n)
+
+    def refine():
+        return SV.iterative_refinement(
+            lambda r: SV.cg(mvbf, torch.from_numpy(r).to(dev, torch.float32),
+                            tol=1e-2, maxiter=50)[0].cpu().numpy(),
+            lambda x: mvdd(torch.from_numpy(x).to(dev)).cpu().numpy(),
+            b_ref, tol=1e-12)
+
+    def refine_check(out):
+        x, sweeps, resnorms = out
+        got = np.linalg.norm(b_ref - fem.spmv(x)) / np.linalg.norm(b_ref)
+        if not got <= 1e-12:
+            fail(f"solvers refinement: true relative residual {got:.3e} > "
+                 f"1e-12 ({resnorms})")
+        return sweeps, (f"true relative residual {got:.3e} (limit 1e-12), "
+                        f"dd residuals {[f'{r:.1e}' for r in resnorms]}")
+
+    bf_before = S.wl_bin.launches
+    run("spd_fem3d refinement (bf16 cg inner, dd residual)", refine,
+        [(mvbf, b32), (mvdd, b64)], refine_check)
+    bf16_wl = S.wl_bin.launches - bf_before
+
+    mm = Counted(lambda X: SM.sell_spmm(d_fem, X))
+    B = block(n, SOLVER_RHS)
+    run(f"spd_fem3d cg_multi sell_spmm R={SOLVER_RHS}",
+        lambda: SV.cg_multi(mm, B, tol=1e-5), [(mm, B)],
+        lambda out: (out[1], check_res("cg_multi sell_spmm", fem, out[0], B,
+                                       1e-4) + " (worst column)"))
+    Q0 = block(n, SUBSPACE_K)
+
+    def subspace_check(out):
+        w, Q, it, res = out
+        Qh = host(Q)
+        AQ = fem.to_scipy() @ Qh
+        H = Qh.T @ AQ
+        H = 0.5 * (H + H.T)
+        wh = np.linalg.eigvalsh(H)
+        wh = wh[np.argsort(-np.abs(wh))]
+        err = np.abs(host(w) - wh).max() / np.abs(wh).max()
+        res_h = np.linalg.norm(AQ - Qh @ H) / np.linalg.norm(AQ)
+        if not err <= 1e-4 or not abs(float(res) - res_h) <= 1e-3 * max(
+                res_h, 1e-3):
+            fail(f"solvers subspace: Ritz values {err:.3e} from the host's "
+                 f"(limit 1e-4), block residual {float(res):.4e} against "
+                 f"the host's {res_h:.4e}")
+        return it, (f"Ritz values {np.round(wh, 4).tolist()}, within "
+                    f"{err:.1e} of the host's; block residual "
+                    f"{float(res):.4e} (host {res_h:.4e})")
+
+    run(f"spd_fem3d subspace k={SUBSPACE_K} sell_spmm",
+        lambda: SV.subspace_iteration(mm, Q0, maxiter=50), [(mm, Q0)],
+        subspace_check)
+    v0 = vec(n)
+
+    def power_check(out):
+        lam, v, k = out
+        vh = host(v)
+        rq = vh @ fem.spmv(vh) / (vh @ vh)
+        if not abs(rq - float(lam)) <= 1e-5 * abs(rq):
+            fail(f"solvers power_iteration: lambda {float(lam)} against the "
+                 f"host Rayleigh quotient {rq}")
+        return k, f"lambda {float(lam):.6f}, host Rayleigh quotient {rq:.6f}"
+
+    run("spd_fem3d power_iteration f32",
+        lambda: SV.power_iteration(mv32, v0), [(mv32, v0)], power_check)
+    rows = np.repeat(np.arange(n), np.diff(fem.row_ptr))
+    diag = np.zeros(n)
+    diag[rows[rows == fem.col_idx]] = fem.values[rows == fem.col_idx]
+    radius = np.bincount(rows, weights=np.abs(fem.values), minlength=n) \
+        - np.abs(diag)
+    g_lo, g_hi = float((diag - radius).min()), float((diag + radius).max())
+
+    def lanczos_check(out):
+        alphas, betas, V = out
+        Vh = host(V)
+        orth = np.linalg.norm(Vh @ Vh.T - np.eye(LANCZOS_M))
+        if not orth < 1e-4:
+            fail(f"solvers lanczos: ||V V^T - I|| = {orth:.3e}")
+        return LANCZOS_M, f"||V V^T - I|| {orth:.3e} (limit 1e-4)"
+
+    run(f"spd_fem3d lanczos m={LANCZOS_M} f32",
+        lambda: SV.lanczos(mv32, v0, m=LANCZOS_M), [(mv32, v0)],
+        lanczos_check)
+
+    def extremal_check(out):
+        lo, hi = out
+        if not g_lo <= lo <= hi <= g_hi:
+            fail(f"solvers lanczos_extremal: Ritz values [{lo}, {hi}] not "
+                 f"inside the Gershgorin interval [{g_lo}, {g_hi}]")
+        return LANCZOS_M, (f"Ritz values [{lo:.4f}, {hi:.4f}] inside the "
+                           f"Gershgorin interval [{g_lo:.4f}, {g_hi:.4f}]")
+
+    run(f"spd_fem3d lanczos_extremal m={LANCZOS_M} f32",
+        lambda: SV.lanczos_extremal(mv32, v0, m=LANCZOS_M), [(mv32, v0)],
+        extremal_check)
+    del d_fem, d_fem_bf, d_fem_dd
+
+    # ---- cfd_like (nonsymmetric) ----
+    n = cfd.nrows
+    mv32 = Counted(sell_mv(d_cfd))
+    mvdd = Counted(dd_mv(d_cfd_dd))
+    b32, b64 = vec(n), vec(n, torch.float64)
+    run("cfd_like bicgstab f32", lambda: SV.bicgstab(mv32, b32, tol=1e-5),
+        [(mv32, b32)],
+        lambda out: (out[1], check_res("bicgstab", cfd, out[0], b32, 1e-4)))
+    run(f"cfd_like gmres({GMRES_RESTART}) f32",
+        lambda: SV.gmres(mv32, b32, tol=1e-5, restart=GMRES_RESTART),
+        [(mv32, b32)],
+        lambda out: (out[1], check_res("gmres f32", cfd, out[0], b32, 1e-4)))
+    run(f"cfd_like gmres({GMRES_RESTART}) dd",
+        lambda: SV.gmres(mvdd, b64, tol=1e-10, restart=GMRES_RESTART),
+        [(mvdd, b64)],
+        lambda out: (out[1], check_res("gmres dd", cfd, out[0], b64, 1e-9)))
+    del d_cfd, d_cfd_dd
+
+    # ---- pagerank over webbase_like ----
+    ref = np.full(op.nrows, 1.0 / op.nrows)
+    for _ in range(1000):  # the same iteration in fp64 on the host
+        q = 0.85 * (op.spmv(ref) + ref[dangling].sum() / op.nrows) \
+            + 0.15 / op.nrows
+        moved, ref = np.abs(q - ref).sum(), q
+        if moved <= 1e-14:
+            break
+
+    def pagerank_check(tag, limit):
+        def check(out):
+            p, k, _ = out
+            ph = host(p)
+            l1, mass = np.abs(ph - ref).sum(), abs(ph.sum() - 1.0)
+            if not (l1 < limit and mass < limit):
+                fail(f"solvers pagerank {tag}: L1 {l1:.3e} from the host's, "
+                     f"|sum - 1| {mass:.3e} (limit {limit:.0e})")
+            return k, f"L1 {l1:.3e} from the host's, |sum - 1| {mass:.1e}"
+        return check
+
+    mv32 = Counted(sell_mv(d_web))
+    mvdd = Counted(dd_mv(d_web_dd))
+    dang = torch.from_numpy(dangling).to(dev)
+    run("pagerank f32", lambda: SV.pagerank(mv32, dang, tol=1e-6),
+        [(mv32, vec(op.nrows))], pagerank_check("f32", 1e-5))
+    run("pagerank dd", lambda: SV.pagerank(mvdd, dang.double(), tol=1e-10),
+        [(mvdd, vec(op.nrows, torch.float64))], pagerank_check("dd", 1e-9))
+    del d_web, d_web_dd
+
+    # ---- spd_band: cg_multi over the BSR blockspec kernel ----
+    mm = Counted(lambda X: BSR.bsr_spmm(d_band, X))
+    B = block(band.nrows, SOLVER_RHS)
+    run(f"spd_band cg_multi bsr_spmm R={SOLVER_RHS}",
+        lambda: SV.cg_multi(mm, B, tol=1e-5), [(mm, B)],
+        lambda out: (out[1], check_res("cg_multi bsr_spmm", band, out[0], B,
+                                       1e-4) + " (worst column)"))
+    del d_band
+    torch.cuda.empty_cache()
+
+    got = snap()
+    want = [("", "wl"), (" dd", "wl"), (" SpMM", "wl"),
+            (" SpMM", "blockspec")]
+    want += [(g, lay) for name in ("cfd_like", "pagerank")
+             for lay in SOLVER_LAYOUTS[name] for g in ("", " dd")]
+    idle = sorted({f"{lay}{g}" for g, lay in want if got[g, lay] <= 0})
+    if idle or bf16_wl <= 0:
+        fail(f"solvers: kernels {idle} (wl bf16: {bf16_wl} launches) were not "
+             "launched")
+    launched = {f"{k}{g}": n for (g, k), n in got.items() if n}
+    print(f"[solvers] launches {launched}, of which wl bf16 {bf16_wl}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got
 
 
 def main() -> int:
@@ -884,6 +1342,15 @@ def main() -> int:
               f"{sorted(f'{g} {k}' for g, k in want)}, max_rel "
               f"{dm.max_rel_err:.2e}; {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+    # ---- the solvers at full size; their launches are counted from a reset
+    # just before the phase and added to the main path's ----
+    torch.cuda.empty_cache()
+    solver_launches = solver_phase(dev, phase_csr["headline"])
+    for group, ls in (("", launches), (" dd", launches_dd),
+                      (" SpMM", launches_mm)):
+        for key in ls:
+            ls[key] += solver_launches[group, key]
 
     # ---- cuSPARSE's CSR SpMV on each phase's matrix: the yardstick ----
     library = {}

@@ -15,8 +15,12 @@ wl SELL bins (R <= 32 right-hand sides, each entry read once for all) and
 ``bsr_spmm`` over 128x128 dense blocks (``BSRMatrix``), f32 or bf16 values
 with f32 sums. Beside them: HLL (``HLLMatrix``, on the SELL kernels), plain
 PyTorch CSR and ELL SpMV, RCM reordering, the benchmark harness
-``run_matrix`` and the card's bandwidth probe (``bench.bw_probe``). It never
-imports JAX.
+``run_matrix`` and the card's bandwidth probe (``bench.bw_probe``). On top of
+the kernels, the solvers of ``solvers/``: CG and PCG (Jacobi, Chebyshev),
+``cg_sell`` over the device containers, multi-RHS ``cg_multi``, BiCGSTAB,
+GMRES(m), power iteration and PageRank, Lanczos, block subspace iteration
+and mixed-precision iterative refinement, each a Python loop over any
+matvec or matmat with its state on the device. It never imports JAX.
 """
 
 from .bench.harness import run_matrix
@@ -41,6 +45,12 @@ from .ops.sell_spmm import (MAX_RHS, device_put_x_multi, pack_x_multi,
 from .ops.split import (device_put_split, device_put_split_dd, split_spmv,
                         split_spmv_dd)
 from .ops.xla import device_put_csr, device_put_ell
+from .solvers import (bicgstab, cg, cg_multi, cg_sell,
+                      chebyshev_preconditioner, chebyshev_smooth,
+                      gershgorin_bounds, gmres, iterative_refinement,
+                      jacobi_preconditioner, lanczos, lanczos_bounds,
+                      lanczos_extremal, pagerank, pagerank_operator,
+                      power_iteration, subspace_iteration)
 
 __version__ = "0.1.0"
 
@@ -87,5 +97,22 @@ __all__ = [
     "device_put_csr",
     "device_put_ell",
     "run_matrix",
+    "cg",
+    "cg_multi",
+    "cg_sell",
+    "jacobi_preconditioner",
+    "bicgstab",
+    "gmres",
+    "power_iteration",
+    "pagerank",
+    "pagerank_operator",
+    "iterative_refinement",
+    "subspace_iteration",
+    "chebyshev_preconditioner",
+    "chebyshev_smooth",
+    "gershgorin_bounds",
+    "lanczos",
+    "lanczos_extremal",
+    "lanczos_bounds",
     "__version__",
 ]

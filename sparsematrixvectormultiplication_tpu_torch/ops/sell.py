@@ -169,6 +169,9 @@ class DeviceSell:
     nnz: int
     num_groups: int
     bins: list
+    # rows in SELL-C-sigma order (the host SELL's ``row_perm``): y comes back
+    # permuted, as the harness's sell_sigma stage expects
+    sigma_sorted: bool = False
 
 
 @dataclass
@@ -182,6 +185,7 @@ class DevicePanelSell:
     num_groups: int
     bounds: tuple
     panels: list
+    sigma_sorted: bool = False
 
 
 def _pack_sb_i16(ja_h: np.ndarray, sl_h: np.ndarray, ng: int, K: int,
@@ -497,16 +501,18 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"value dtype {dtype} not supported "
                          "(torch.float32 or torch.bfloat16)")
+    sigma = getattr(sell, "row_perm", None) is not None
     if hasattr(sell, "panels"):
         return DevicePanelSell(
             int(sell.nrows), int(sell.ncols), int(sell.nnz),
             int(sell.num_groups), tuple(int(c) for c in sell.bounds),
             [device_put_sell(p, dtype, device=device, sb_i16=sb_i16)
-             for p in sell.panels])
+             for p in sell.panels], sigma)
     device = torch.device(device)
     return DeviceSell(int(sell.nrows), int(sell.ncols), int(sell.nnz),
                       int(sell.num_groups),
-                      [_put_bin(b, dtype, device, sb_i16) for b in sell.bins])
+                      [_put_bin(b, dtype, device, sb_i16) for b in sell.bins],
+                      sigma)
 
 
 def pack_x_table(x: torch.Tensor, ncols: int) -> torch.Tensor:

@@ -16,7 +16,12 @@ also held to the fp64 oracle at the JAX tests' ``max|Δ| / max(1, |ref|) <
 atol=1e-5*max|Y| against their plain versions in both value types (the
 plain versions widen bf16 exactly as the kernels do, so only the order of
 the f32 sums differs), the SELL SpMM columns equal to the SpMV kernel bit
-for bit, and f32 BSR within 1e-5*max|Y| of the fp64 oracle.
+for bit, and f32 BSR within 1e-5*max|Y| of the fp64 oracle. The solvers
+over the kernels: CG and multi-RHS CG on the card in as many iterations as
+the same solve on the CPU's plain versions and at the f32 tolerance above of
+it, each launching the kernels of its container and never a plain version;
+CG over the dd kernels within 1e-10*max|x| of CG over the fp64 CSR
+container, in as many iterations.
 """
 
 import dataclasses
@@ -37,6 +42,7 @@ from sparsematrixvectormultiplication_tpu_torch import (
     pr_from_csr,
     run_matrix,
 )
+from sparsematrixvectormultiplication_tpu_torch import solvers as SV
 from sparsematrixvectormultiplication_tpu_torch.bench import bw_probe as BW
 from sparsematrixvectormultiplication_tpu_torch.bench.harness import (
     BenchConfig,
@@ -62,6 +68,7 @@ from sparsematrixvectormultiplication_tpu_torch.ops.doubledouble import (
     combine_f64,
     dd_add_dd,
 )
+from sparsematrixvectormultiplication_tpu_torch.ops.xla import device_put_csr
 from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
     device_time_fn,
     time_fn,
@@ -1461,3 +1468,117 @@ def test_run_kernel_probes_quick_on_the_card(dev):
     assert all(w.launches > before[k] for k, w in KP.KERNELS.items())
     assert all(r["library_ms"] > 0 for r in recs
                if r["variant"].startswith("read1_kb"))
+
+
+# ---------------------------------------------------------------------------
+# the solvers over the kernels
+
+
+def _spd_fem(n=12):
+    """fem_3d(n, n, n, dof=3) made SPD as the smoke makes its spd_fem3d:
+    (M + M^T)/2 on the symmetric pattern, plus the largest absolute row sum
+    + 1 on the diagonal."""
+    csr = CSRMatrix.from_coo(fem_3d(n, n, n, dof=3, seed=1))
+    t = csr.transpose()
+    assert np.array_equal(t.col_idx, csr.col_idx)
+    vals = (csr.values + t.values) / 2
+    rows = np.repeat(np.arange(csr.nrows), np.diff(csr.row_ptr))
+    vals[rows == csr.col_idx] += np.bincount(
+        rows, weights=np.abs(vals), minlength=csr.nrows).max() + 1.0
+    return CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx, vals)
+
+
+def _true_res(csr, X, B):
+    """The largest true relative residual over the columns, fp64 on the
+    host."""
+    X, B = X.double().cpu().numpy(), B.double().cpu().numpy()
+    X, B = X.reshape(len(X), -1), B.reshape(len(B), -1)
+    return max(np.linalg.norm(B[:, j] - csr.spmv(X[:, j]))
+               / np.linalg.norm(B[:, j]) for j in range(X.shape[1]))
+
+
+def test_cg_sell_on_card_launches_and_matches_cpu(dev):
+    csr = _spd_fem()
+    sell = SellMatrix.from_csr(csr)
+    layouts = {b.layout for b in sell.bins}
+    assert layouts == {"k-major", "wl"}
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        csr.nrows)).float()
+    before = {lay: S._KERNEL[lay].launches for lay in layouts}
+    xg, kg, _ = SV.cg_sell(S.device_put_sell(sell, device=dev), b.to(dev),
+                           tol=1e-5)
+    assert all(S._KERNEL[lay].launches > n for lay, n in before.items())
+    xc, kc, _ = SV.cg_sell(S.device_put_sell(sell, device="cpu"), b,
+                           tol=1e-5)
+    assert kg == kc
+    _close(xg.cpu(), xc)
+    assert _true_res(csr, xg, b) <= 1e-4
+
+
+def test_cg_dd_matches_fp64_csr_on_card(dev):
+    csr = _spd_fem()
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        csr.nrows)).to(dev)
+    ddd = D.device_put_sell_dd(SellMatrix.from_csr(csr), device=dev)
+    before = D._KERNEL_DD["wl"].launches
+    x_dd, k_dd, _ = SV.cg(lambda v: D.sell_spmv_dd_f64(ddd, v), b, tol=1e-10)
+    assert D._KERNEL_DD["wl"].launches > before
+    x64, k64, _ = SV.cg_sell(device_put_csr(csr, torch.float64, device=dev),
+                             b, tol=1e-10)
+    assert k_dd == k64
+    assert float((x_dd - x64).abs().max()) <= 1e-10 * float(x64.abs().max())
+    assert _true_res(csr, x_dd, b) <= 1e-9
+
+
+@pytest.mark.parametrize("kind", ["sell_spmm", "bsr_spmm"])
+def test_cg_multi_on_card_launches_and_matches_cpu(kind, dev):
+    csr = _spd_fem()
+    if kind == "sell_spmm":
+        host, put = SellMatrix.from_csr(csr), S.device_put_sell
+        wrappers = [SM.k_major_spmm_bin, SM.wl_spmm_bin]
+        spmm = SM.sell_spmm
+    else:
+        host, put = BSRMatrix.from_csr(csr), BSR.device_put_bsr
+        wrappers = [BSR.bsr_blockspec]
+        spmm = BSR.bsr_spmm
+    B = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (csr.nrows, 8))).float()
+    d_gpu, d_cpu = put(host, device=dev), put(host, device="cpu")
+    before = [w.launches for w in wrappers]
+    Xg, kg, _ = SV.cg_multi(lambda X: spmm(d_gpu, X), B.to(dev), tol=1e-5)
+    assert all(w.launches > n for w, n in zip(wrappers, before))
+    Xc, kc, _ = SV.cg_multi(lambda X: spmm(d_cpu, X), B, tol=1e-5)
+    assert kg == kc
+    _close(Xg.cpu(), Xc)
+    assert _true_res(csr, Xg, B) <= 1e-4
+
+
+def test_solvers_on_cuda_containers_never_run_plain(dev, monkeypatch):
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on a CUDA container")
+
+    for mod, name in ((S, "_write_plain"), (D, "_write_plain_dd"),
+                      (SM, "_write_plain"), (BSR, "_plain_rows")):
+        monkeypatch.setattr(mod, name, plain)
+    csr = _spd_fem()
+    sell = SellMatrix.from_csr(csr)
+    rng = np.random.default_rng(3)
+    b = torch.from_numpy(rng.standard_normal(csr.nrows)).to(dev)
+    B = torch.from_numpy(rng.standard_normal((csr.nrows, 4))).float().to(dev)
+    d32 = S.device_put_sell(sell, device=dev)
+    ddd = D.device_put_sell_dd(sell, device=dev)
+    dbsr = BSR.device_put_bsr(BSRMatrix.from_csr(csr), device=dev)
+    tab = torch.zeros(S.slab_table_rows(csr.ncols) * 128, device=dev)
+
+    def mv32(v):
+        tab[: v.shape[0]].copy_(v)
+        return S.sell_spmv(d32, tab)
+
+    runs = [SV.cg_sell(d32, b.float(), tol=1e-5),
+            SV.cg(lambda v: D.sell_spmv_dd_f64(ddd, v), b, tol=1e-10),
+            SV.cg_multi(lambda X: SM.sell_spmm(d32, X), B, tol=1e-5),
+            SV.cg_multi(lambda X: BSR.bsr_spmm(dbsr, X), B, tol=1e-5),
+            SV.bicgstab(mv32, b.float(), tol=1e-5),
+            SV.gmres(mv32, b.float(), tol=1e-5, restart=8)]
+    for x, _, _ in runs:
+        assert x.device.type == "cuda" and bool(torch.isfinite(x).all())
