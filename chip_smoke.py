@@ -39,8 +39,8 @@ each stage and each stage timed as the best of 3 device-time rounds:
 * headline:           fem_3d(60, 60, 60, dof=3), bench.py's fem3d_cube: wl;
                       also ``serial_hll``, ``csr``, ``ell``, ``hll`` and
                       ``sell_sigma``; then ``sell_spmm`` on its own wl SELL
-                      at R=8 and R=16 (the wl SpMM kernel; every bin must be
-                      wl);
+                      at R=8 and R=16 on the raw X, which the wl SpMM kernel
+                      reads in place (every bin must be wl);
 * banded_adversarial: banded(250_000, 60, 2500), bench.py's: sb-major; also
                       the five stages above, ``sell_spmm`` (R=16 on a SELL
                       forced to k-major) and ``bsr_spmm``, which must be
@@ -167,7 +167,11 @@ bf16 values on the headline and banded_adversarial) must equal its plain
 version bit for bit, storing and adding; each k-major SpMM bin prints how
 many of its blocks ran on x staged in shared memory and how many on the x
 table, and where some staged, its time with staging off; band64_250k's and
-banded_adversarial's k-major bins also run at R = 1, 4, 8 and 32. Column j
+banded_adversarial's k-major bins also run at R = 1, 4, 8 and 32, and the
+headline's wl bins at R = 1, 4, 8, 16 and 32 (also on the raw X where R is a
+multiple of 4, and ``sell_spmm`` on the raw X equal to it on the table), each
+wl bin with its NW, L, the kernel's registers and spills (the build's
+``-Xptxas -v`` output) and its bound at each R. Column j
 of each SELL SpMM result must equal the SpMV kernel on X[:, j] bit for bit on
 the headline and banded_adversarial. Kernel and
 plain version are each timed twice: device time (CUDA events around calls
@@ -236,6 +240,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -273,6 +278,7 @@ F32_FLOP_PER_S = 67e12     # H100 SXM f32 peak outside the tensor cores
 BF16_FLOP_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 SPMM_RHS = 16              # R of the SELL SpMM runs (the sell_spmm stage's)
 SPMM_SWEEP_RHS = (1, 4, 8, 32)  # the other R of the k-major SpMM bins
+WL_SWEEP_RHS = (1, 4, 8, 16, 32)  # the R of the headline's wl SpMM bins
 HEADLINE_RHS = (8, 16)
 BSR_RHS = (128, 512)       # B of the direct bsr_spmm calls
 BSR_BF16_TOL = (1e-2, 0.02)  # abs, rel: probes/bsr_spmm_tpu.py:110
@@ -1007,7 +1013,8 @@ def main() -> int:
         return dm
 
     def headline_spmm(res):
-        """``sell_spmm`` on the headline's own wl SELL at R = 8 and 16."""
+        """``sell_spmm`` on the headline's own wl SELL at R = 8 and 16, on
+        the raw X, which the wl kernels read in place."""
         d = S.device_put_sell(res.sell, device=dev)
         if {b.layout for b in d.bins} != {"wl"} or res.sell.row_perm \
                 is not None or res.sell.nrows != res.nrows:
@@ -1016,11 +1023,14 @@ def main() -> int:
         for rhs in HEADLINE_RHS:
             X = np.random.default_rng(SEED).standard_normal(
                 (res.ncols, rhs), dtype=np.float32)
-            Y = SM.sell_spmm(d, SM.device_put_x_multi(X, res.ncols,
-                                                      device=dev))
+            Xd = torch.from_numpy(X).to(dev)
+            if SM._x_table(d, Xd) is not Xd:
+                fail(f"headline sell_spmm R={rhs}: the raw X is packed")
+            Y = SM.sell_spmm(d, Xd)
             dm = check_spmm(f"headline sell_spmm R={rhs}", res.csr, X,
                             Y.cpu().numpy().astype(np.float64))
-            print(f"[headline] sell_spmm R={rhs} on the wl SELL: sig_diffs "
+            print(f"[headline] sell_spmm R={rhs} on the wl SELL, the raw X "
+                  f"read in place: sig_diffs "
                   f"0, max_rel {dm.max_rel_err:.2e}", flush=True)
         return d
 
@@ -2046,26 +2056,75 @@ def main() -> int:
                 check_spmm_bin(f"[{name}] bf16 bin {i}", b, xt, y0, None)
             del db
 
-    def rhs_sweep(name, d):
-        """Each bin of ``d`` (k-major) through its SpMM kernel at every R of
-        :data:`SPMM_SWEEP_RHS`, storing: equal to its plain version bit for
-        bit, and its device time."""
-        times = []
-        for rhs in SPMM_SWEEP_RHS:
+    def spmm_regs():
+        """(layout, value type, lanes a row) -> (registers, spill-store
+        bytes) of the SpMM kernels, from the build's ``-Xptxas -v``
+        output."""
+        out, cur, spill = {}, None, 0
+        for line in _build.build_log().splitlines():
+            m = re.search(r"Compiling entry function '_ZN4sell\d+"
+                          r"(\w+?)_spmm_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                          line)
+            if m:
+                cur = (m[1].replace("_", "-"),
+                       "f32" if m[2] == "f" else "bf16", int(m[3]))
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m[1])
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                out[cur], cur = (int(m[1]), spill), None
+        return out
+
+    def rhs_sweep(name, d, rhs_list):
+        """Each bin of ``d`` (k-major or wl) through its SpMM kernel at every
+        R of ``rhs_list``, storing: equal to its plain version bit for bit,
+        and its device time. A wl bin also on the raw X where R is a
+        multiple of 4 (equal bit for bit), with its NW, L, the kernel's
+        registers and spills and the bin's bound at each R; an all-wl
+        ``sell_spmm`` on the raw X equals it on the table bit for bit."""
+        times, counts = [], {}
+        regs = spmm_regs()
+        for rhs in rhs_list:
             X = np.random.default_rng(SEED).standard_normal((d.ncols, rhs),
                                                             dtype=np.float32)
             xt = SM.device_put_x_multi(X, d.ncols, device=dev)
+            Xd = torch.from_numpy(X).to(dev)
+            raw = rhs % 4 == 0
             for i, b in enumerate(d.bins):
-                y = SM._rhs_buffer(d.num_groups * 1024, rhs, dev)
-                SM.k_major_spmm_bin(b, xt, y)
-                if not torch.equal(y.view(-1, 8, 128, rhs)[b.group_ids.long()],
-                                   SM.k_major_spmm_bin_plain(b, xt)):
-                    fail(f"[{name}] bin {i} k-major SpMM R={rhs}: the kernel "
-                         "differs from its plain version")
-                ms = device_time_fn(SM.k_major_spmm_bin, b, xt, y,
-                                    device=dev) * 1e3
-                times.append(f"bin {i} R={rhs} {ms:.4f}")
-        print(f"[{name}] k-major SpMM by R (device ms, storing; each equal "
+                kernel, plain = spmm_wrappers[b.layout], SM._PLAIN[b.layout]
+                want = plain(b, xt)
+                rows = b.group_ids.long()
+                for x in (xt, Xd) if raw and b.layout == "wl" else (xt,):
+                    y = SM._rhs_buffer(d.num_groups * 1024, rhs, dev)
+                    kernel(b, x, y)
+                    if not torch.equal(y.view(-1, 8, 128, rhs)[rows], want):
+                        fail(f"[{name}] bin {i} {b.layout} SpMM R={rhs} "
+                             f"({'raw X' if x is Xd else 'x table'}): the "
+                             "kernel differs from its plain version")
+                ms = device_time_fn(kernel, b, xt, y, device=dev) * 1e3
+                note = ""
+                if b.layout == "wl":
+                    if i not in counts:
+                        counts[i] = bin_counts(b, xt.shape[0])
+                    nnz, n_x, n_y = counts[i]
+                    bound, by = spmm_need(nnz, b.as_.element_size(), n_x,
+                                          n_y, rhs, col_bytes=2)
+                    dtype = "bf16" if b.as_.dtype == torch.bfloat16 else "f32"
+                    lanes = 1 << (SM._width(rhs) // 4 - 1).bit_length()
+                    r, sp = regs.get(("wl", dtype, lanes), ("?", "?"))
+                    note = (f" (NW={b.nw}, L={b.span}, {nnz} entries; {r} "
+                            f"registers, {sp} B spilled; bound {bound:.4f} "
+                            f"ms by {by}, {bound / ms:.1%} of it)")
+                times.append(f"bin {i} R={rhs} {ms:.4f}{note}")
+            if all(b.layout == "wl" for b in d.bins) and raw:
+                if SM._x_table(d, Xd) is not Xd or not torch.equal(
+                        SM.sell_spmm(d, Xd), SM.sell_spmm(d, xt)):
+                    fail(f"[{name}] sell_spmm R={rhs}: the raw X is packed, "
+                         "or its result differs from the x table's")
+        layouts = "/".join(sorted({b.layout for b in d.bins}))
+        print(f"[{name}] {layouts} SpMM by R (device ms, storing; each equal "
               f"to its plain version bit for bit): {'; '.join(times)}",
               flush=True)
 
@@ -2074,7 +2133,7 @@ def main() -> int:
         big = name == "banded_adversarial"
         spmm_phase(name, d, csr, SPMM_RHS, name, sell_mm if big else None)
         if name in ("banded_adversarial", "band64_250k"):
-            rhs_sweep(name, d)
+            rhs_sweep(name, d, SPMM_SWEEP_RHS)
         if big:
             columns_equal_spmv(f"[{name}] k-major", d, np.random.default_rng(
                 SEED).standard_normal((csr.ncols, SPMM_RHS),
@@ -2086,6 +2145,7 @@ def main() -> int:
         hsell = runs[[r[0] for r in runs].index("headline")][1]
         spmm_phase("headline", d, csr, rhs, "headline",
                    hsell if rhs == SPMM_RHS else None)
+    rhs_sweep("headline", d, WL_SWEEP_RHS)
     columns_equal_spmv("[headline] wl", d, np.random.default_rng(
         SEED).standard_normal((csr.ncols, SPMM_RHS), dtype=np.float32))
     del d, headline

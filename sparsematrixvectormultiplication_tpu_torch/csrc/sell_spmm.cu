@@ -22,16 +22,20 @@
 // entry's R x values are contiguous (64 B at R = 16) and read as float4s.
 // y is row-major the same way (stride ldy). The kernels compute W = R
 // rounded up to 4 columns; the extra ones land in columns the caller
-// crops. Pad slots of a bin have value 0 and name a real or the spare
-// all-zero slab, so the x table must hold slab_table_rows(ncols)*128 rows.
+// crops. Pad slots of a k-major bin have value 0 and name a real or the
+// spare all-zero slab, so its x table must hold slab_table_rows(ncols)*128
+// rows. A wl kernel reads x only at its real slots' columns, all below
+// ncols, so it also reads the raw (ncols, R) X in place where its rows are
+// whole float4s.
 //
 // wl reads the compacted planes that the port's upload writes (sell_wl.cu:
 // per (group, row-block) a plane as wide as its longest row, each real slot
 // a value and a 2-byte code), so one DeviceSell serves SpMV and SpMM. This
 // departs from the JAX function, whose `_kernel_wl_spmm` reads unpacked
 // lane offsets and returns wrong values on its own default (packed) upload.
-// Its thread keeps a row's R f32 sums in registers and reads the row's x
-// rows whole.
+// A plane's tail past a row's length holds value 0 and code 0, which may
+// name the spare slab, past a raw X's rows: the kernel neither loads nor
+// adds such a slot.
 //
 // What bounds them on an H100: bytes. Every slot streams its value (4 B f32,
 // 2 B bf16) and its index (4 B k-major, a 2 B code wl) once for all R;
@@ -40,25 +44,34 @@
 // 50 MB L2 at the sizes the harness runs. R*2 FLOP per entry against 6-8 B
 // is still below the f32 rate's ridge at R = 32.
 //
-// k-major: what holds a thread-per-row kernel back is how x is read, not
-// HBM bytes: at R = 16 its warp's four float4 loads of an entry name 32
-// different x rows each (about 16 cache lines a load), and a 128-row block
-// whose columns lie far apart re-reads its x rows from L2. So the k-major
-// kernel splits R across lanes: G = W/4 rounded up to 1, 2, 4 or 8 lanes own
-// one row, each lane one float4 of columns (four f32 sums), so a warp-wide x
-// load spans 32/G rows (8 at R = 16), and a block of 128*G threads covers
-// the row-block. A warp then reads 32/G rows' plane bytes per load, G times
+// What holds a thread-per-row kernel back is how x is read, not HBM bytes:
+// at R = 16 its warp's four float4 loads of an entry name 32 different x
+// rows each (about 16 cache lines a load), and a 128-row block whose
+// columns lie far apart re-reads its x rows from L2. So both kernels split
+// R across lanes: G = W/4 rounded up to 1, 2, 4 or 8 lanes own one row,
+// each lane one float4 of columns (four f32 sums), so a warp-wide x load
+// spans 32/G rows (8 at R = 16), and a block of 128*G threads covers the
+// row-block. A warp then reads 32/G rows' plane bytes per load, G times
 // fewer than a thread per row did, so the G lanes of a row load different
 // slots' columns and values (kSpmmBatch<G> each, all in flight together)
 // and pass them on by __shfl_sync as the row's sums take the slots in
-// order; each slot's value and column is still read once for all R. Where
-// the columns of a block's slots span at most stage_rows x rows (the
+// order; each slot's value and column is still read once for all R (wl: the
+// loading lane decodes the column before passing it on). Where the
+// columns of a k-major block's slots span at most stage_rows x rows (the
 // upload's window table x_window, ops/sell.py `_x_window`: first column and
 // span per block), the block first copies those rows, nq = W/4 float4s
 // each, into shared memory with cp.async and gathers from there
 // (banded_adversarial's blocks, whose windows span about 5,100 rows, read x
 // from global memory). Rows a warp reads at once are near each other on
-// banded matrices, so their float4s mostly fall in different banks.
+// banded matrices, so their float4s mostly fall in different banks. wl
+// blocks stage nothing: a block's NW*8 slabs span NW*1024 x rows (64 KB x
+// NW at R = 16 on the headline's main bin), and the x table sits in L2. On
+// the headline's FEM rows the wl split gains less: the rows a warp holds
+// share x rows (three dof rows a node), so a thread per row already read
+// few lines a load, and the split's shuffles add work a slot. On the H100
+// it ran the headline's bins faster than the thread-per-row kernel before
+// it at R <= 4 (one lane a row, its slots' loads batched) and at R = 32,
+// and slower at R = 8 and 16 (PERF.md §6).
 
 #include <type_traits>
 
@@ -76,56 +89,18 @@ __device__ __forceinline__ void fma_or_keep(float& acc, float a, float x) {
   acc = a != 0.f ? t : acc;
 }
 
-// R' = NACC f32 sums of one row; q-th float4 group live when q < nq
-template <int NACC>
-struct RowSums {
-  float v[NACC];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int r = 0; r < NACC; ++r) v[r] = 0.f;
-  }
-  // v[r] = fmaf(a, xr[r], v[r]) for r < 4*nq. The wl planes it serves hold
-  // no zero value (the upload drops stored zeros with the pads), so the
-  // stored-zero rule holds here without a select, which cost the headline's
-  // wl SpMM bin time on the H100 (PERF.md, PR 11).
-  __device__ __forceinline__ void add(float a, const float* __restrict__ xr,
-                                      int nq) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-#pragma unroll
-    for (int q = 0; q < NACC / 4; ++q) {
-      if (q < nq) {
-        const float4 t = __ldg(x4 + q);
-        v[4 * q + 0] = fmaf(a, t.x, v[4 * q + 0]);
-        v[4 * q + 1] = fmaf(a, t.y, v[4 * q + 1]);
-        v[4 * q + 2] = fmaf(a, t.z, v[4 * q + 2]);
-        v[4 * q + 3] = fmaf(a, t.w, v[4 * q + 3]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* yr, int nq,
-                                        int accumulate) const {
-    float4* y4 = reinterpret_cast<float4*>(yr);
-#pragma unroll
-    for (int q = 0; q < NACC / 4; ++q) {
-      if (q < nq) {
-        float4 t = make_float4(v[4 * q + 0], v[4 * q + 1], v[4 * q + 2],
-                               v[4 * q + 3]);
-        if (accumulate) {
-          const float4 o = y4[q];
-          t = make_float4(o.x + t.x, o.y + t.y, o.z + t.z, o.w + t.w);
-        }
-        y4[q] = t;
-      }
-    }
-  }
-};
-
 // slots whose column and value loads a lane keeps in flight: 8 when a row
 // has one lane, 4 when it has more (G*4 slots a row; fewer registers, so
 // more warps an SM: faster at R = 8, 16 and 32 on the H100)
 template <int G>
 constexpr int kSpmmBatch = G == 1 ? 8 : 4;
+
+// wl: slots whose x loads a lane issues before it adds them (a divisor of
+// G*kSpmmBatch<G>): 8 with one lane a row; 1 with more, where more of them
+// took registers, so fewer warps an SM, and ran slower on the H100
+// (PERF.md §6)
+template <int G>
+constexpr int kWlXRound = G == 1 ? 8 : 1;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -237,8 +212,89 @@ k_major_spmm_kernel(const int* __restrict__ group_ids,
   }
 }
 
-template <typename T, int NACC>
-__global__ void __launch_bounds__(kLanes)
+// wl: lane p's four sums of row j over its n slots, slot q at plane offset
+// off + q*128 as a value and a 2-byte code, whose column is
+// x_base[code >> 7] + (code & 127). As k_major_sums, the G lanes of the
+// row load the codes and values of G*kSpmmBatch<G> slots at once, lane p
+// those of slots q0 + u*G + p; the loading lane decodes the column and
+// passes it and the value on with __shfl_sync, and each lane loads the x
+// rows of kWlXRound<G> slots before the sums take them in order, one fmaf a
+// slot (the planes hold no zero value). Rows differ in length within a
+// warp: n_warp, the longest of the warp's rows, bounds the loop, so every
+// lane takes part in every shuffle; a slot q >= n (value 0, code 0, which
+// may name the spare slab, past a raw X's rows) is neither added nor its x
+// row read.
+template <typename T, int G>
+__device__ __forceinline__ float4 wl_sums(
+    const int16_t* __restrict__ codes, const T* __restrict__ as,
+    const int* x_base, const float* __restrict__ x, int64_t ldx, int n,
+    int n_warp, int nq, int p, int64_t off) {
+  constexpr int B = kSpmmBatch<G>;
+  constexpr int C = kWlXRound<G>;
+  static_assert((G * B) % C == 0, "whole rounds of slots");
+  const int first = (threadIdx.x & 31) - p;  // the row's lane 0
+  const bool live = p < nq;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int q0 = 0; q0 < n_warp; q0 += G * B, off += G * B * kLanes) {
+    int col[B];
+    float a[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      col[u] = 0;
+      a[u] = 0.f;
+      if (q0 + u * G + p < n) {
+        const int c = __ldg(codes + off + (u * G + p) * kLanes);
+        col[u] = x_base[c >> 7] + (c & (kLanes - 1));
+        a[u] = widen(__ldg(as + off + (u * G + p) * kLanes));
+      }
+    }
+#pragma unroll
+    for (int s0 = 0; s0 < G * B; s0 += C) {  // slots q0 + s0 + t
+      int c[C];
+      float v[C];
+      float4 xv[C];
+#pragma unroll
+      for (int t = 0; t < C; ++t) {
+        const int u = (s0 + t) / G, q = (s0 + t) % G;
+        c[t] = col[u];
+        v[t] = a[u];
+        if (G > 1 && q0 + s0 + t < n_warp) {  // uniform across the warp
+          c[t] = __shfl_sync(~0u, col[u], first + q);
+          v[t] = __shfl_sync(~0u, a[u], first + q);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < C; ++t) {
+        const float4* xr =
+            reinterpret_cast<const float4*>(x + int64_t(c[t]) * ldx) + p;
+        xv[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+        // the same loads written two ways: on the H100 the first ran the
+        // bins faster at G = 1 and the second at G = 2 (PERF.md §6)
+        if constexpr (G == 1) {
+          if (q0 + s0 + t < n) xv[t] = live ? __ldg(xr) : xv[t];
+        } else {
+          if (live && q0 + s0 + t < n) xv[t] = __ldg(xr);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < C; ++t) {
+        if (q0 + s0 + t < n) {
+          acc.x = fmaf(v[t], xv[t].x, acc.x);
+          acc.y = fmaf(v[t], xv[t].y, acc.y);
+          acc.z = fmaf(v[t], xv[t].z, acc.z);
+          acc.w = fmaf(v[t], xv[t].w, acc.w);
+        }
+      }
+    }
+  }
+  return acc;
+}
+
+// wl: one block of 128*G threads per (group, row-block) b = g*8 + rb, G
+// lanes a row as in k_major_spmm_kernel; the block's NW*8 slab offsets in
+// shared memory.
+template <typename T, int G>
+__global__ void __launch_bounds__(kLanes* G)
 wl_spmm_kernel(const int* __restrict__ group_ids, const int* __restrict__ slabs,
                const int* __restrict__ plane_off,
                const int* __restrict__ row_len,
@@ -247,26 +303,29 @@ wl_spmm_kernel(const int* __restrict__ group_ids, const int* __restrict__ slabs,
                int nq, int64_t ldx, int64_t ldy, int accumulate) {
   extern __shared__ int x_base[];  // NW*8 slot columns 128*slab
   const int b = blockIdx.x;        // g*8 + rb
-  const int j = threadIdx.x;
+  const int j = threadIdx.x / G;   // the block's row
+  const int p = threadIdx.x % G;   // its float4 of columns
   const int nslot = NW * 8;
   const int* block_slabs = slabs + int64_t(b) * nslot;
-  for (int q = j; q < nslot; q += kLanes) {
+  for (int q = threadIdx.x; q < nslot; q += kLanes * G) {
     x_base[q] = __ldg(block_slabs + q) * kLanes;
   }
   __syncthreads();
 
   const int n = __ldg(row_len + int64_t(b) * kLanes + j);
-  int64_t off = int64_t(__ldg(plane_off + b)) * kLanes + j;
-  RowSums<NACC> acc;
-  acc.zero();
-  for (int q = 0; q < n; ++q, off += kLanes) {
-    const int c = __ldg(codes + off);
-    acc.add(widen(__ldg(as + off)),
-            x + int64_t(x_base[c >> 7] + (c & (kLanes - 1))) * ldx, nq);
+  const int n_warp = G == 1 ? n : __reduce_max_sync(~0u, n);
+  float4 acc = wl_sums<T, G>(codes, as, x_base, x, ldx, n, n_warp, nq, p,
+                             int64_t(__ldg(plane_off + b)) * kLanes + j);
+  if (p < nq) {
+    const int64_t row = int64_t(group_ids[b / kSublanes]) * kGroupRows +
+                        (b % kSublanes) * kLanes + j;
+    float4* yr = reinterpret_cast<float4*>(y + row * ldy) + p;
+    if (accumulate) {
+      const float4 o = *yr;
+      acc = make_float4(o.x + acc.x, o.y + acc.y, o.z + acc.z, o.w + acc.w);
+    }
+    *yr = acc;
   }
-  const int64_t row = int64_t(group_ids[b / kSublanes]) * kGroupRows +
-                      (b % kSublanes) * kLanes + j;
-  acc.store(y + row * ldy, nq, accumulate);
 }
 
 // The accumulator count: the smallest of 4, 8, 16, 32 that holds W columns
@@ -314,9 +373,10 @@ int launch_wl_spmm(const int* group_ids, const int* slabs, const int* plane_off,
                    const float* x, float* y, int64_t n_groups, int NW, int W,
                    int64_t ldx, int64_t ldy, int accumulate, void* stream) {
   return with_nacc(W, [&](auto nacc) {
+    constexpr int G = decltype(nacc)::value / 4;  // lanes a row
     if (n_groups > 0) {
-      wl_spmm_kernel<T, decltype(nacc)::value>
-          <<<dim3(unsigned(n_groups * kSublanes)), kLanes,
+      wl_spmm_kernel<T, G>
+          <<<dim3(unsigned(n_groups * kSublanes)), kLanes * G,
              size_t(NW) * 8 * sizeof(int),
              static_cast<cudaStream_t>(stream)>>>(
               group_ids, slabs, plane_off, row_len, codes, as, x, y, NW,

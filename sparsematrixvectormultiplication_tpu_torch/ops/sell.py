@@ -561,8 +561,9 @@ def _wl_slots(b: DeviceBinIndex):
 
 def _wl_steps(b: DeviceBinIndex):
     """Each step q of the wl kernel's row loops: the plane position of every
-    row's q-th slot (0 where the row has none), its column, and whether the
-    row has one; rows ``g*1024 + rb*128 + j``."""
+    row's q-th slot (0 where the row has none), its column (0 where the row
+    has none: a raw X holds no spare slab), and whether the row has one;
+    rows ``g*1024 + rb*128 + j``."""
     n_rows = b.n_groups * GROUP_ROWS
     if n_rows == 0:
         return
@@ -576,7 +577,8 @@ def _wl_steps(b: DeviceBinIndex):
         has = q < n
         pos = torch.where(has, base + q * LANES, 0)
         code = codes[pos].long()
-        yield pos, slab_x[blk, code >> 7] + (code & (LANES - 1)), has
+        col = slab_x[blk, code >> 7] + (code & (LANES - 1))
+        yield pos, torch.where(has, col, 0), has
 
 
 def _chunk_table(b: DeviceBinIndex, per_chunk: int) -> torch.Tensor:

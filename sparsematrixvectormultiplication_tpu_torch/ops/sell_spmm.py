@@ -25,7 +25,9 @@ The x table (:func:`pack_x_multi`) is X padded to the SpMV table's rows
 (``slab_table_rows(ncols)*128``), row-major, so an entry's R values are
 contiguous: a ``(rows, R)`` view of a ``(rows, W)`` f32 buffer, W = R
 rounded up to 4 (the JAX package stacks R separate tables, ``(R, Rp,
-128)``). y is laid out the same way. :func:`sell_spmm` runs a
+128)``). y is laid out the same way. The wl kernel reads x only at real
+columns, so :func:`sell_spmm` hands a raw f32 X whose rows are whole
+float4s to a SELL of wl bins only as it is, packing nothing. It runs a
 :class:`DeviceSell` (core bins store, then ``add_into`` bins accumulate) or
 a :class:`DevicePanelSell` (each panel packs its own x table from the raw
 X; every bin accumulates).
@@ -96,26 +98,32 @@ def device_put_x_multi(X, ncols: int, *, device) -> torch.Tensor:
     return pack_x_multi(X.to(device), ncols)
 
 
+def _whole_rows(t: torch.Tensor, multiple: int) -> bool:
+    """Whether 2-D ``t`` is a view of a row-major buffer the kernels can
+    read whole 16-byte chunks of: unit column stride, a row stride that is a
+    multiple of ``multiple`` elements and at least the width rounded up to
+    it, 16-byte aligned, with the buffer's storage behind every row."""
+    rows, cols = t.shape
+    ld = t.stride(0)
+    width = -(-cols // multiple) * multiple
+    return not (t.stride(1) != 1 or ld % multiple or ld < width
+                or t.data_ptr() % 16
+                or (t.storage_offset() + rows * ld) * t.element_size()
+                > t.untyped_storage().nbytes())
+
+
 def _check_rows_view(t: torch.Tensor, name: str, shape: tuple,
                      dtypes: tuple, multiple: int):
-    """Check that ``t`` is a ``shape`` view of a row-major buffer the
-    kernels can read whole 16-byte chunks of: unit column stride, a row
-    stride that is a multiple of ``multiple`` elements and at least the
-    width rounded up to it, 16-byte aligned, with the buffer's storage
-    behind every row."""
+    """Check that ``t`` is a ``shape`` view the kernels can read whole
+    16-byte chunks of (:func:`_whole_rows`)."""
     if t.dtype not in dtypes:
         raise ValueError(f"{name} must be "
                          f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, the kernel "
                          f"needs {tuple(shape)}")
-    rows, cols = shape
-    ld = t.stride(0)
-    width = -(-cols // multiple) * multiple
-    if (t.stride(1) != 1 or ld % multiple or ld < width
-            or t.data_ptr() % 16
-            or (t.storage_offset() + rows * ld) * t.element_size()
-            > t.untyped_storage().nbytes()):
+    if not _whole_rows(t, multiple):
+        width = -(-shape[1] // multiple) * multiple
         raise ValueError(
             f"{name} must be a view of a row-major buffer with a row stride "
             f"that is a multiple of {multiple} (>= {width}) and 16-byte "
@@ -158,7 +166,9 @@ def wl_spmm_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     """``out[g, rb, j, r]``: row rb*128 + j's real slots (``_wl_steps``) in
     the kernel's order, ``acc[r] = fmaf(v, X[col, r], acc[r])`` from 0 —
     column r equals :func:`~.sell.wl_bin_plain` on ``X[:, r]`` (the
-    compacted planes hold no zero value, so neither skips a slot)."""
+    compacted planes hold no zero value, so neither skips a slot). A row
+    past its length adds nothing, whatever x holds; ``x_tab`` may be the
+    raw ``(ncols, R)`` X."""
     rhs = x_tab.shape[1]
     acc = torch.zeros(b.n_groups * GROUP_ROWS, rhs, dtype=torch.float32,
                       device=x_tab.device)
@@ -277,9 +287,17 @@ def _check_layouts(bins):
 
 
 def _x_table(dsell: DeviceSell, X: torch.Tensor) -> torch.Tensor:
-    """The raw ``(ncols, R)`` X packed, or the packed table as it is."""
+    """The x table for ``dsell``: the packed table as it is; the raw
+    ``(ncols, R)`` X itself where every bin is wl (whose kernel reads x only
+    at real columns, all below ``ncols``) and X is f32 with whole float4
+    rows (:func:`_whole_rows`: unit column stride, a row stride that is a
+    multiple of 4, 16-byte aligned); else the raw X packed."""
     rows = slab_table_rows(dsell.ncols) * LANES
     if X.ndim == 2 and X.shape[0] == dsell.ncols:
+        if (X.dtype == torch.float32 and 1 <= X.shape[1] <= MAX_RHS
+                and all(b.layout == "wl" for b in dsell.bins)
+                and _whole_rows(X, 4)):
+            return X
         return pack_x_multi(X, dsell.ncols)
     if X.ndim == 2 and X.shape[0] == rows and X.dtype == torch.float32:
         if X.shape[1] > MAX_RHS:
@@ -326,7 +344,11 @@ def sell_spmm(d, X: torch.Tensor) -> torch.Tensor:
 
     ``d`` is a :class:`DeviceSell` or a :class:`DevicePanelSell`. ``X`` is
     the raw ``(ncols, R)`` matrix or (not for panels) the table of
-    :func:`pack_x_multi` / :func:`device_put_x_multi`. Raises
+    :func:`pack_x_multi` / :func:`device_put_x_multi`; a raw X is packed
+    into that table, unless every bin is wl and X is f32 with unit column
+    stride, a row stride that is a multiple of 4 and 16-byte aligned data
+    (a contiguous X at R = 4, 8, ..., 32): then the kernels read it in
+    place. Raises
     ``ValueError`` for R > ``MAX_RHS`` and ``NotImplementedError`` for
     other layouts. CUDA tensors run the CUDA kernels, CPU tensors the plain
     versions."""

@@ -16,7 +16,9 @@ also held to the fp64 oracle at the JAX tests' ``max|Δ| / max(1, |ref|) <
 atol=1e-5*max|Y| against their plain versions in both value types (the
 plain versions widen bf16 exactly as the kernels do, so only the order of
 the f32 sums differs), the SELL SpMM columns equal to the SpMV kernel bit
-for bit, and f32 BSR within 1e-5*max|Y| of the fp64 oracle. The solvers
+for bit, and f32 BSR within 1e-5*max|Y| of the fp64 oracle; the wl SpMM
+kernel bit for bit against its plain version also on the raw X, and with x
+infinite or NaN where the planes' tail slots point. The solvers
 over the kernels: CG and multi-RHS CG on the card in as many iterations as
 the same solve on the CPU's plain versions and at the f32 tolerance above of
 it, each launching the kernels of its container and never a plain version;
@@ -587,17 +589,45 @@ def test_stored_zero_adds_nothing(layout, precision, dev):
         _close(y, ref)
 
 
-@pytest.mark.parametrize("rhs", [1, 6, 16])
-def test_wl_spmm_equals_plain_bit_for_bit(rhs, dev):
+def _wl_band(drop_lane0=False):
+    """``banded(1024, 18, 40, seed=2)`` as a SELL of one 1-group wl bin;
+    with ``drop_lane0`` without the entries of columns 128*s, so that the
+    column code 0 names in each block is no real slot's."""
+    coo = banded(1024, 18, 40, seed=2)
+    if drop_lane0:
+        keep = coo.col % 128 != 0
+        coo = COOMatrix(coo.nrows, coo.ncols, coo.row[keep], coo.col[keep],
+                        coo.val[keep])
+    csr = CSRMatrix.from_coo(coo)
+    sell = SellMatrix.from_csr(csr, layout="wl")
+    assert [(b.layout, b.n_groups) for b in sell.bins] == [("wl", 1)]
+    return csr, sell
+
+
+# matrix -> (CSR, SELL): fem's wl bins of 17 and 6 groups, the band's one
+WL_SPMM_MATRICES = {
+    "fem20": lambda: (lambda c: (c, SellMatrix.from_csr(c)))(
+        CSRMatrix.from_coo(fem_3d(20, 20, 20, dof=3, seed=1))),
+    "band_1group": _wl_band,
+}
+
+
+@pytest.mark.parametrize("rhs", [1, 4, 6, 8, 12, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("matrix", sorted(WL_SPMM_MATRICES))
+def test_wl_spmm_equals_plain_bit_for_bit(matrix, dtype, rhs, dev):
     """The wl SpMM kernel on the compacted planes against its plain
-    version, storing and adding, and each column against the SpMV kernel."""
-    csr = CSRMatrix.from_coo(fem_3d(20, 20, 20, dof=3, seed=1))
-    d = S.device_put_sell(SellMatrix.from_csr(csr), device=dev)
+    version, storing and adding, and each column against the SpMV kernel,
+    f32 and bf16 values."""
+    csr, sell = WL_SPMM_MATRICES[matrix]()
+    d = S.device_put_sell(sell, dtype, device=dev)
     X = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (csr.ncols, rhs))).float().to(dev)
     x_tab = SM.pack_x_multi(X, csr.ncols)
     y0 = torch.randn(d.num_groups * 1024, 32, device=dev)[:, :rhs]
-    for b in (b for b in d.bins if b.layout == "wl"):
+    wl = [b for b in d.bins if b.layout == "wl"]
+    assert wl and all(b.as_.dtype == dtype for b in wl)
+    for b in wl:
         want = SM.wl_spmm_bin_plain(b, x_tab)
         rows = b.group_ids.long()
         for accumulate in (False, True):
@@ -612,6 +642,47 @@ def test_wl_spmm_equals_plain_bit_for_bit(rhs, dev):
             y = torch.zeros(d.num_groups * 1024, device=dev)
             S.wl_bin(b, S.pack_x_table(X[:, j], csr.ncols), y)
             assert torch.equal(y.view(-1, 8, 128)[rows], want[..., j])
+
+
+@pytest.mark.parametrize("rhs", [4, 16])
+@pytest.mark.parametrize("bad", [np.inf, np.nan])
+def test_wl_spmm_tail_slots_add_nothing(bad, rhs, dev):
+    """Slots past a row's length hold value 0 and code 0: with x = inf or
+    NaN at every column code 0 names (no real slot's) and at the padded
+    table's rows past ncols, the kernel's y stays finite and equal to the
+    plain version, from the raw X and from the table."""
+    csr, sell = _wl_band(drop_lane0=True)
+    d = S.device_put_sell(sell, device=dev)
+    b = d.bins[0]
+    assert int(b.row_len.min()) < int(b.row_len.max())  # rows have tails
+    X = np.random.default_rng(14).standard_normal((csr.ncols, rhs))
+    X[::128] = bad
+    Xd = torch.from_numpy(X).float().to(dev)
+    tab = SM.pack_x_multi(Xd, csr.ncols)
+    tab[csr.ncols:] = bad
+    for x in (Xd, tab):
+        want = SM.wl_spmm_bin_plain(b, x)
+        assert torch.isfinite(want).all()
+        y = SM._rhs_buffer(d.num_groups * 1024, rhs, dev)
+        SM.wl_spmm_bin(b, x, y)
+        assert torch.equal(y.view(-1, 8, 128, rhs)[b.group_ids.long()], want)
+        assert torch.equal(SM.sell_spmm(d, x), SM.sell_spmm_plain(d, x))
+
+
+@pytest.mark.parametrize("rhs", [4, 8, 16, 32])
+def test_wl_spmm_reads_raw_x_in_place(rhs, dev):
+    """``sell_spmm`` on an all-wl SELL passes a contiguous f32 X straight to
+    the kernels: equal bit for bit to the packed table's result."""
+    csr = CSRMatrix.from_coo(fem_3d(20, 20, 20, dof=3, seed=1))
+    d = S.device_put_sell(SellMatrix.from_csr(csr, layout="wl"), device=dev)
+    assert {b.layout for b in d.bins} == {"wl"}
+    X = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (csr.ncols, rhs))).float().to(dev)
+    assert SM._x_table(d, X) is X
+    before = SM.wl_spmm_bin.launches
+    Y = SM.sell_spmm(d, X)
+    assert SM.wl_spmm_bin.launches == before + len(d.bins)
+    assert torch.equal(Y, SM.sell_spmm(d, SM.pack_x_multi(X, csr.ncols)))
 
 
 # ---- the compacted sb-list kernels and the k-major SpMM, bit for bit ----

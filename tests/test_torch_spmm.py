@@ -36,6 +36,7 @@ from sparsematrixvectormultiplication_tpu.ops.pallas_sell_spmm import (
 )
 from sparsematrixvectormultiplication_tpu_torch import (
     BSRMatrix,
+    COOMatrix,
     CSRMatrix,
     SellMatrix,
     run_matrix,
@@ -178,6 +179,100 @@ def test_packed_table_and_raw_x_agree():
         y = S.sell_spmv(d, S.pack_x_table(X[:, j], sell.ncols))
         torch.testing.assert_close(y_raw[:, j], y, rtol=1e-5,
                                    atol=1e-5 * float(y.abs().max()))
+
+
+def _wl_sell(drop_lane0=False):
+    """The all-wl SELL of ``banded(1024, 18, 40, seed=2)`` (one group); with
+    ``drop_lane0`` without the entries of columns 128*s, so that the column
+    code 0 names in each block is no real slot's."""
+    coo = syn.banded(1024, 18, 40, seed=2)
+    if drop_lane0:
+        keep = coo.col % 128 != 0
+        coo = COOMatrix(coo.nrows, coo.ncols, coo.row[keep], coo.col[keep],
+                        coo.val[keep])
+    csr = CSRMatrix.from_coo(coo)
+    sell = SellMatrix.from_csr(csr, layout="wl")
+    assert {b.layout for b in sell.bins} == {"wl"}
+    return csr, S.device_put_sell(sell, device="cpu")
+
+
+@pytest.mark.parametrize("r", [8, 16])
+def test_x_table_is_the_raw_x_on_all_wl_sells(r):
+    """An all-wl SELL reads a contiguous f32 X in place: no table is
+    packed, and Y equals the packed table's bit for bit."""
+    _, d = _wl_sell()
+    X = torch.from_numpy(_X(d.ncols, r, 10)).float()
+    tab = SM._x_table(d, X)
+    assert tab is X and tab.data_ptr() == X.data_ptr()
+    assert torch.equal(SM.sell_spmm(d, X),
+                       SM.sell_spmm(d, SM.pack_x_multi(X, d.ncols)))
+
+
+# case -> (the SELL, X): each needs the packed table
+PACKED_CASES = {
+    "r6": lambda: (_wl_sell()[1], _X(1024, 6, 11)),
+    "k-major": lambda: (S.device_put_sell(SellMatrix.from_csr(
+        CSRMatrix.from_coo(syn.fem_3d(8, 8, 8, dof=3))), device="cpu"),
+        _X(1536, 8, 12)),
+    "strided": lambda: (_wl_sell()[1], _X(16, 1024, 13).T),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_x_table_packs_otherwise(case):
+    """R not a multiple of 4, a SELL with a k-major bin, or an X whose rows
+    are not unit-stride: the raw X is packed into the padded table, and Y
+    equals the packed table's bit for bit."""
+    d, X = PACKED_CASES[case]()
+    X = torch.from_numpy(X).float()
+    tab = SM._x_table(d, X)
+    assert tab.shape == (slab_table_rows(d.ncols) * 128, X.shape[1])
+    assert tab.data_ptr() != X.data_ptr()
+    assert torch.equal(SM.sell_spmm(d, X),
+                       SM.sell_spmm(d, SM.pack_x_multi(X, d.ncols)))
+
+
+@pytest.mark.parametrize("bad", [np.inf, np.nan])
+def test_wl_tail_slots_add_nothing(bad):
+    """Slots past a row's length hold value 0 and code 0: with x = inf or
+    NaN at every column code 0 names (no real slot's) and at the padded
+    table's rows past ncols, y stays finite and equal to the oracle, from
+    the raw X and from the table."""
+    csr, d = _wl_sell(drop_lane0=True)
+    b = d.bins[0]
+    assert int(b.row_len.min()) < int(b.row_len.max())  # rows have tails
+    X = _X(csr.ncols, 8, 14)
+    want = np.column_stack([csr.spmv(X[:, j]) for j in range(8)])
+    X[::128] = bad
+    Xt = torch.from_numpy(X).float()
+    tab = SM.pack_x_multi(Xt, csr.ncols)
+    tab[csr.ncols:] = bad
+    for x in (Xt, tab):
+        y = SM.sell_spmm(d, x)
+        assert torch.isfinite(y).all()
+        _close(y, want)
+
+
+@pytest.mark.parametrize("layout", ["wl", "k-major"])
+def test_spmm_sweep_counts_each_entry_once(layout, monkeypatch):
+    """bench/spmm_sweep.py's bound counts every real entry once, each x row
+    a bin reads and each y row it writes, and the sweep refuses to run
+    without a card."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import spmm_sweep
+    csr = CSRMatrix.from_coo(syn.fem_3d(8, 8, 8, dof=3, seed=1))
+    d = S.device_put_sell(SellMatrix.from_csr(csr, layout=layout),
+                          device="cpu")
+    counts = [spmm_sweep.bin_counts(b) for b in d.bins]
+    assert sum(c[0] for c in counts) == csr.nnz
+    assert sum(c[2] for c in counts) == csr.nrows  # every row has entries
+    assert all(c[1] <= csr.ncols for c in counts)
+    nnz, n_x, n_y = counts[0]
+    ms, by = spmm_sweep.bound(nnz, n_x, n_y, 16, 4, 2)
+    assert by == "bytes"
+    assert ms == pytest.approx((nnz * 6 + 64 * (n_x + n_y)) / 3.35e9)
+    assert spmm_sweep.main(["--rhs"]) == 2
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert spmm_sweep.main([]) == 1
 
 
 def test_cpu_tensors_run_plain_without_launching():
