@@ -4,9 +4,10 @@ bandwidth and kernel-variant probes, SELL SpMV (f32, bf16 and
 double-double), the benchmark harness's HLL, CSR, ELL and SELL-sigma stages
 and RCM reordering, the PR layout (f32, bf16 values and double-double) and
 the locality split, ``auto_device_op``, multi-RHS SpMM (SELL k-major and
-wl, 128x128 BSR), and the solvers over those kernels (CG and PCG,
+wl, 128x128 BSR), the solvers over those kernels (CG and PCG,
 ``cg_multi``, BiCGSTAB, GMRES, PageRank, power iteration, Lanczos, subspace
-iteration, iterative refinement).
+iteration, iterative refinement), and the sweep CLI with the measured
+autotuner, the K-bin ladder sweep, resume and profiling.
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -119,6 +120,34 @@ device time (``device_time_fn`` on the same container) and the share of the
 solve outside the matvecs. The wl kernel (f32, bf16, dd), the wl SpMM, the
 BSR blockspec kernel and the kernels of cfd_like's and pagerank's layouts
 (f32 and dd) must launch in the phase.
+
+Then the sweep phase (:func:`sweep_phase`): the sweep and tune layer at full
+size through ``bench.cli.main``, in process, with the SELL kernels' launch
+counters set to 0 just before it and read just after (the launches of the
+stages and the ladder sweep are added to the main path's in the JSON
+summary; the tuner's timing launches are printed apart). Call A sweeps the bench suite's kkt_like
+(1,057,453 rows, 22,711,437 nnz: above the tuner's 20M-nnz cap, so it tunes
+on a row prefix) and cfd_like (162,000 rows, 7,236,100 nnz) with
+``--autotune --ladder-sweep`` and the stages ``serial_hll``, ``csr``,
+``ell``, ``sell``, ``sell_bf16``, ``sell_dd`` and ``hll``; the tuner converts,
+uploads and times its 10 default candidates on the card (forced k-major,
+sb-major, sb-list and wl among them) and the bin assembly of the winner.
+Call B sweeps the same two and amazon_like (k-major and sg) with ``--resume
+--profile-dir``. Both must exit 0; every CSV header must be the reference
+schema's the port copied; every stage and ladder row must have
+``significant_diffs == 0`` and every ``sell_dd`` stage a norm-scaled error
+below 1e-12; every SELL that the stages, the ladder sweep and the tuner
+run (each candidate and the assembly A/B) must agree with its plain
+version at its first call, as in the SELL phases (f32 within rtol 1e-5,
+dd within 1e-12 of max|y|); each matrix's tuner table must hold the 10
+candidates, each measured or refused by a guard; call B must skip the two
+checkpointed matrices and run amazon_like; the k-major, wl, sb-major,
+sb-list and sg kernels and the dd kernels of each layout the ``sell_dd``
+stages ran must launch, by the stages or the tuner. It prints each tuner table (measured ms, padding,
+bins), each pick and assembly against the default ladder's time (the
+converter's ``layout="auto"``), the ladder rows, the SELL stages,
+``report.best_table`` of the output and the number of CUDA kernel events in
+amazon_like's trace (reported, never checked).
 
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
@@ -241,6 +270,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -789,6 +819,276 @@ def solver_phase(dev, fem_csr):
     launched = {f"{k}{g}": n for (g, k), n in got.items() if n}
     print(f"[solvers] launches {launched}, of which wl bf16 {bf16_wl}; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return got
+
+
+# the sweep phase: bench.cli.main in-process on suite entries at full size
+SWEEP_A = ("kkt_like", "cfd_like")   # call A: --autotune --ladder-sweep
+SWEEP_B = (*SWEEP_A, "amazon_like")  # call B: --resume --profile-dir
+SWEEP_KERNELS = "serial_hll,csr,ell,sell,sell_bf16,sell_dd,hll"
+SWEEP_LAYOUTS = ("k-major", "wl", "sb-major", "sb-list", "sg")
+
+
+def sweep_phase(dev):
+    """The sweep and tune layer at full size: ``bench.cli.main`` on the
+    bench suite's kkt_like and cfd_like with ``--autotune --ladder-sweep``
+    (call A), then on those two and amazon_like with ``--resume
+    --profile-dir`` (call B), into one temporary output directory. Fails
+    unless both exit 0, every CSV header is the reference schema's, every
+    stage and ladder row has ``significant_diffs == 0``, every ``sell_dd``
+    stage a norm-scaled error below ``DD_TOL``, every SELL the stages, the
+    ladder sweep and the tuner run agrees with its plain version (f32:
+    ``RTOL``/``ATOL_REL``; dd: ``DD_TOL``), the tuner measured or refused
+    by a guard each default candidate, call B skipped the two checkpointed
+    matrices and ran amazon_like, and the k-major, wl, sb-major, sb-list
+    and sg kernels and the dd kernels of every layout the ``sell_dd`` stages
+    ran were launched (by the stages or the tuner). Prints each tuner table,
+    pick and assembly, the ladder rows, ``report.best_table``, the tuner's
+    launches and the number of CUDA kernel events in amazon_like's trace
+    (reported only). Returns the launches of the stages and the ladder
+    sweep, not the tuner's timing, keyed (group, layout) with group ""
+    (SELL SpMV) or " dd"."""
+    import csv
+
+    from sparsematrixvectormultiplication_tpu_torch.bench import cli
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        csv_report as R)
+    from sparsematrixvectormultiplication_tpu_torch.bench import harness as H
+    from sparsematrixvectormultiplication_tpu_torch.bench import report
+    from sparsematrixvectormultiplication_tpu_torch.bench import scale as SC
+    from sparsematrixvectormultiplication_tpu_torch.ops.doubledouble import (
+        combine_f64)
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+    from sparsematrixvectormultiplication_tpu_torch.tune import (
+        autotune as T)
+    from sparsematrixvectormultiplication_tpu_torch.utils.profiling import (
+        TRACE_FILE)
+
+    t_phase = time.perf_counter()
+    groups = {"": S._KERNEL, " dd": D._KERNEL_DD}
+    for ws in groups.values():
+        for w in ws.values():
+            w.launches = 0
+            w.accumulating = 0
+    lines = []
+
+    def counts():
+        return {(g, k): (w.launches, w.accumulating)
+                for g, ws in groups.items() for k, w in ws.items()}
+
+    def restore(saved):
+        for (g, k), (n, acc) in saved.items():
+            groups[g][k].launches, groups[g][k].accumulating = n, acc
+
+    # every SELL the sweep runs is held against its plain version at its
+    # first call (outside the timed reps): the stages' and the ladder
+    # sweep's SpMVs on their own first call, each tuner candidate by one
+    # extra call whose launches are taken back off the counters
+    held = {"f32": 0.0, "dd": 0.0, "n": 0}
+
+    def first_call(d, key):
+        done = d.__dict__.setdefault("_held_to_plain", set())
+        new = key not in done
+        done.add(key)
+        return new
+
+    def spmv_held(d, xt, assembly="auto"):
+        y = S.sell_spmv(d, xt, assembly)
+        if first_call(d, assembly):
+            y_p = S.sell_spmv_plain(d, xt, assembly)
+            scale = y_p.abs().max().item()
+            if not torch.allclose(y, y_p, rtol=RTOL, atol=ATOL_REL * scale):
+                fail(f"sweep: a SELL ({len(d.bins)} bins, assembly "
+                     f"{assembly}) disagrees with its plain version, "
+                     f"max|k-p| = {(y - y_p).abs().max().item()}")
+            held["f32"] = max(held["f32"], (y - y_p).abs().max().item()
+                              / (scale or 1.0))
+            held["n"] += 1
+        return y
+
+    def spmv_dd_held(d, xh, xl):
+        y = D.sell_spmv_dd(d, xh, xl)
+        if first_call(d, "dd"):
+            y_k = combine_f64(*y)
+            y_p = combine_f64(*D.sell_spmv_dd_plain(d, xh, xl))
+            scale = y_p.abs().max().item()
+            e = (y_k - y_p).abs().max().item()
+            if not e <= DD_TOL * scale:
+                fail(f"sweep: a dd SELL ({len(d.bins)} bins) disagrees with "
+                     f"its plain version, max|k-p| = {e}")
+            held["dd"] = max(held["dd"], e / (scale or 1.0))
+            held["n"] += 1
+        return y
+
+    tuner = {}  # the tuner's timing launches, kept out of the JSON's
+    tuner_seconds = T._device_seconds
+
+    def tuner_seconds_held(dsell, xt, device, reps, assembly="auto"):
+        saved = counts()
+        spmv_held(dsell, xt, assembly)
+        restore(saved)
+        sec = tuner_seconds(dsell, xt, device, reps, assembly)
+        for key, (n, _) in counts().items():
+            tuner[key] = tuner.get(key, 0) + n - saved[key][0]
+        return sec
+
+    patches = [(H, "sell_spmv", spmv_held), (H, "sell_spmv_dd", spmv_dd_held),
+               (SC, "sell_spmv", spmv_held),
+               (T, "_device_seconds", tuner_seconds_held)]
+    originals = [(m, a, getattr(m, a)) for m, a, _ in patches]
+
+    def log(m):
+        lines.append(str(m))
+        print(m, flush=True)
+
+    def rows(path):
+        with open(path, newline="") as f:
+            return list(csv.reader(f))
+
+    tmp = tempfile.mkdtemp(prefix="sweep_")
+    base = ["--kernels", SWEEP_KERNELS, "--output-dir", tmp]
+    args_a = [a for m in SWEEP_A for a in ("--suite-entry", m)]
+    args_b = [a for m in SWEEP_B for a in ("--suite-entry", m)]
+    for m, a, f in patches:
+        setattr(m, a, f)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(args_a + base + ["--autotune", "--ladder-sweep"],
+                      log=log)
+        wall_a = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"sweep call A exited {rc}")
+        native = os.path.join(tmp, "spmv_results.csv")
+        per_matrix = {}
+        for r in rows(native)[1:]:
+            per_matrix[r[0]] = per_matrix.get(r[0], 0) + 1
+        n_a = len(lines)
+        t0 = time.perf_counter()
+        rc = cli.main(args_b + base + ["--resume", "--profile-dir",
+                                       os.path.join(tmp, "trace")], log=log)
+        wall_b = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"sweep call B exited {rc}")
+    finally:
+        for m, a, f in originals:
+            setattr(m, a, f)
+    for m in SWEEP_A:
+        if f"[{m}] skipped (checkpoint)" not in lines[n_a:]:
+            fail(f"sweep call B did not skip the checkpointed {m}")
+    again = {}
+    for r in rows(native)[1:]:
+        again[r[0]] = again.get(r[0], 0) + 1
+    if ({m: again.get(m) for m in SWEEP_A} != {m: per_matrix.get(m)
+                                               for m in SWEEP_A}
+            or not again.get("amazon_like")):
+        fail(f"sweep: stage rows per matrix {per_matrix} after call A, "
+             f"{again} after call B: a checkpointed matrix ran again or "
+             "amazon_like did not run")
+
+    headers = {"spmv_results.csv": R.NATIVE_HEADER,
+               "spmv_scale_ladders.csv": R.NATIVE_HEADER,
+               "spmv_results_openmp.csv": R.OPENMP_HEADER,
+               "spmv_results_cuda.csv": R.CUDA_HEADER,
+               "spmv_tile_config.csv": R.TILE_HEADER,
+               "matrix_memory_stats.csv": R.MEMORY_STATS_HEADER}
+    for name, header in headers.items():
+        got = rows(os.path.join(tmp, name))
+        if got[0] != header:
+            fail(f"sweep: {name} has header {got[0]}, not the reference "
+                 "schema's")
+        if header is R.NATIVE_HEADER:
+            col = header.index
+            for r in got[1:]:
+                if r[col("significant_diffs")] != "0":
+                    fail(f"sweep {name}: {r[0]} {r[col('stage')]} has "
+                         f"{r[col('significant_diffs')]} significant diffs")
+
+    # the dd stages to the oracle as in the other phases: the norm-scaled
+    # error of each sell_dd line below DD_TOL
+    dd_err = {}
+    for ln in lines:
+        m = re.match(r"\[(\w+)\] sell_dd: .* norm_err=(\S+)$", ln)
+        if m:
+            dd_err[m.group(1)] = float(m.group(2))
+    if sorted(dd_err) != sorted(SWEEP_B) or not all(
+            e < DD_TOL for e in dd_err.values()):
+        fail(f"sweep: sell_dd norm-scaled errors {dd_err}: each of "
+             f"{list(SWEEP_B)} must be below {DD_TOL}")
+
+    # the tuner's table: every default candidate measured or refused by a
+    # guard (its log lines follow the matrix's load line)
+    names = [c.name for c in T._default_candidates()]
+    matrix, seen = None, {}
+    for ln in lines[:n_a]:
+        m = re.match(r"\[(\w+)\] load/generate", ln)
+        if m:
+            matrix = m.group(1)
+        m = re.match(r"\[tune\] ([\w-]+)(:| skipped| refused)", ln)
+        if m and m.group(1) in names:
+            seen.setdefault(matrix, {})[m.group(1)] = ln
+    for m in SWEEP_A:
+        tab = seen.get(m, {})
+        if list(tab) != names or not all(
+                "ms measured" in ln
+                or re.match(r"\[tune\] [\w-]+ (skipped|refused)", ln)
+                for ln in tab.values()):
+            fail(f"sweep {m}: the tuner's table {list(tab)} is not the "
+                 f"{len(names)} default candidates, each measured or refused")
+        ms = {n: float(ln.split(": ")[1].split(" ms")[0])
+              for n, ln in tab.items() if "ms measured" in ln}
+        pick = next(ln for ln in lines[:n_a]
+                    if ln.startswith(f"[{m}] autotune:"))
+        ladder = pick.split("ladder=")[1].split()[0]
+        print(f"[sweep] {m} tuner: {len(ms)} of {len(names)} candidates "
+              f"measured; {pick.split('autotune: ')[1]}; pick "
+              f"{ms.get(ladder, float('nan')):.4f} ms against layout='auto' "
+              f"(the default ladder) {ms.get('default', float('nan')):.4f} "
+              f"ms: x{ms.get('default', float('nan')) / ms.get(ladder, float('nan')):.3f}",
+              flush=True)
+
+    # the dd kernels of every layout the sell_dd stages ran (the sell
+    # stage's bins: sell_dd runs the same SELL)
+    tiles = rows(os.path.join(tmp, "spmv_tile_config.csv"))
+    dd_layouts = {r[4] for r in tiles[1:] if r[2] == "sell"}
+    total = {(g, k): w.launches for g, ws in groups.items()
+             for k, w in ws.items()}
+    got = {key: n - tuner.get(key, 0) for key, n in total.items()}
+    want = [("", lay) for lay in SWEEP_LAYOUTS]
+    want += [(" dd", lay) for lay in sorted(dd_layouts)]
+    idle = sorted(f"{lay}{g}" for g, lay in want if total[g, lay] <= 0)
+    if idle:
+        fail(f"sweep: kernels {idle} were not launched")
+
+    print("[sweep] ladder rows (stage, time_s, padding, bytes/nnz, "
+          "%copy rate):", flush=True)
+    for r in rows(os.path.join(tmp, "spmv_scale_ladders.csv"))[1:]:
+        print(f"[sweep]   {r[0]} {r[4]} {r[7]} s, pad {r[14]}, {r[15]} B, "
+              f"{r[16]}%", flush=True)
+    print("[sweep] sell stages (time_s, GFLOPS, bytes/nnz, %copy rate): "
+          + "; ".join(f"{r[0]} {r[4]} {r[7]} s {r[8]} GF {r[15]} B {r[16]}%"
+                      for r in rows(native)[1:]
+                      if r[4].startswith("sell")), flush=True)
+    print(report.best_table([tmp]), flush=True)
+    trace = os.path.join(tmp, "trace", "amazon_like", TRACE_FILE)
+    if not os.path.exists(trace):
+        fail(f"sweep: call B wrote no trace at {trace}")
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[sweep] amazon_like trace: {len(events)} events, {kernels} CUDA "
+          f"kernel events (reported only)", flush=True)
+    launched = {f"{k}{g}": n for (g, k), n in got.items() if n}
+    timing = {f"{k}{g}": n for (g, k), n in tuner.items() if n}
+    print(f"[sweep] {held['n']} SELLs held to their plain versions: max "
+          f"|k-p| / max|p| f32 {held['f32']:.3e}, dd {held['dd']:.3e}; "
+          f"sell_dd norm-scaled errors {dd_err}", flush=True)
+    print(f"[sweep] launches of the stages and the ladder sweep {launched}; "
+          f"of the tuner's timing (not in the JSON) {timing}; dd layouts of "
+          f"the sell_dd stages {sorted(dd_layouts)}; call A {wall_a:.1f} s, "
+          f"call B {wall_b:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    shutil.rmtree(tmp)
     return got
 
 
@@ -1361,6 +1661,14 @@ def main() -> int:
                       (" SpMM", launches_mm)):
         for key in ls:
             ls[key] += solver_launches[group, key]
+
+    # ---- the sweep and tune layer at full size through bench.cli; its
+    # launches are counted from a reset just before the phase ----
+    torch.cuda.empty_cache()
+    sweep_launches = sweep_phase(dev)
+    for group, ls in (("", launches), (" dd", launches_dd)):
+        for key in ls:
+            ls[key] += sweep_launches[group, key]
 
     # ---- cuSPARSE's CSR SpMV on each phase's matrix: the yardstick ----
     library = {}

@@ -20,10 +20,17 @@ the kernels, the solvers of ``solvers/``: CG and PCG (Jacobi, Chebyshev),
 ``cg_sell`` over the device containers, multi-RHS ``cg_multi``, BiCGSTAB,
 GMRES(m), power iteration and PageRank, Lanczos, block subspace iteration
 and mixed-precision iterative refinement, each a Python loop over any
-matvec or matmat with its state on the device. It never imports JAX.
+matvec or matmat with its state on the device. Above the harness, the
+sweep and tune layer: the directory sweep ``python -m
+sparsematrixvectormultiplication_tpu_torch.bench.cli`` with checkpoint and
+resume, the reference-schema CSVs (``bench.csv_report``) and their report
+(``bench.report``), the SELL and hack-size autotuner (``tune.autotune``,
+measured on the card), the K-bin ladder sweep (``bench.scale``) and
+``torch.profiler`` traces (``utils.profiling``). It never imports JAX.
 """
 
 from .bench.harness import run_matrix
+from .bench.scale import run_ladder_sweep
 from .formats.bsr import BSRMatrix
 from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
@@ -51,6 +58,8 @@ from .solvers import (bicgstab, cg, cg_multi, cg_sell,
                       jacobi_preconditioner, lanczos, lanczos_bounds,
                       lanczos_extremal, pagerank, pagerank_operator,
                       power_iteration, subspace_iteration)
+from .tune.autotune import autotune_hack_size, autotune_sell
+from .utils.profiling import annotate, profile_trace
 
 __version__ = "0.1.0"
 
@@ -97,6 +106,11 @@ __all__ = [
     "device_put_csr",
     "device_put_ell",
     "run_matrix",
+    "run_ladder_sweep",
+    "autotune_sell",
+    "autotune_hack_size",
+    "profile_trace",
+    "annotate",
     "cg",
     "cg_multi",
     "cg_sell",

@@ -56,18 +56,28 @@ bf16-rounded values and x, as ``sell_bf16`` does. "float64" runs ``csr`` and
 ``sell_dd`` / ``pr_dd`` / ``split_dd``), so its kernel stages are recorded
 as skipped.
 
-The JAX config's other knobs keep its defaults here, as no caller of the
-port sets another value: HLL blocks of ``DEFAULT_HACK_SIZE`` rows,
-``ELL_MAX_ELEMENTS``, the default K-bin ladder, merged bins and chunk
-height of ``SellMatrix.from_csr``, ``difference_metrics``' default
-tolerances, validation always on and the flush before every stage.
+The JAX config's knobs that the sweep CLI sets are ``BenchConfig``'s too,
+with the JAX defaults: ``hack_size`` (HLL block rows), ``sell_merge_bins``, ``sell_chunk_k`` (> 0 forces the sb-major chunk
+height), ``abs_tol`` / ``rel_tol`` (``difference_metrics``), ``validate``
+(False records empty ``DiffMetrics``) and ``autotune``. ``autotune`` runs
+:func:`..tune.autotune.autotune_sell` and ``autotune_hack_size`` on the CSR
+before the stages, on ``device`` (measured on a CUDA device, modeled on the
+CPU): the picked ladder, layout and merge replace the SELL keywords, the
+picked bin assembly runs ``sell`` and ``sell_bf16``, the picked hack size
+builds the HLL, and ``format_stats["tune"]`` records the pick and the
+tables, with the JAX harness's keys. A tuned SELL that fails raises like
+any other stage: nothing falls back to the default ladder. The rest keep
+the JAX defaults: ``ELL_MAX_ELEMENTS`` and the flush before every stage.
 
 Timing (``StageResult``): before each device stage's correctness pass,
 :func:`flush_hbm` scrubs the cache, as the JAX harness does.
 ``seconds`` on a CUDA device is the best of ``rounds`` device
 times of ``iterations`` calls back to back (``utils.timing.
 device_time_fn``; ≙ the JAX ``time_device_fn_slope``, chained calls with no
-host in between); ``per_call_s`` is the median of ``iterations`` calls each
+host in between), fewer where they would queue more than
+``utils.timing.MAX_QUEUED_LAUNCHES`` (400) launches behind its spin: a
+SELL with more than 19 bins (``ops.sell.sell_spmv_launches``; "sum": more
+than 6), ``sell_dd`` with more than 17 (``sell_spmv_dd_launches``); ``per_call_s`` is the median of ``iterations`` calls each
 bracketed by CUDA events, host dispatch included. On the CPU ``seconds`` is
 the best of ``rounds`` host medians. The flush removes what one stage left
 in the cache for the next; it does not make the timed reps cold (they run
@@ -77,11 +87,16 @@ back to back, so x stays in the L2 between them). ``device_validate`` adds
 bracket calls that the host dispatches in between).
 
 Every stage records its norm-scaled error ``max|y - y_ref| / max|y_ref|``
-(SpMM: over the sampled columns). Any other failure of a stage raises.
+(SpMM: over the sampled columns), and every device stage in
+``StageResult.extra["device_bytes"]`` the bytes of the tensors it ran on:
+its planes and tables, its x and its y. Any other failure of a stage
+raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 from dataclasses import dataclass, field
 
@@ -101,20 +116,24 @@ from ..ops.doubledouble import combine_f64
 from ..ops.hll import hll_to_sell
 from ..ops.pr import device_put_pr, pr_spmv
 from ..ops.pr_dd import DD_PANEL_TARGET_ROWS, device_put_pr_dd, pr_spmv_dd
-from ..ops.sell import device_put_sell, device_put_x, sell_spmv
-from ..ops.sell_dd import device_put_sell_dd, device_put_x_dd, sell_spmv_dd
+from ..ops.sell import (device_put_sell, device_put_x, sell_spmv,
+                        sell_spmv_launches)
+from ..ops.sell_dd import (device_put_sell_dd, device_put_x_dd, sell_spmv_dd,
+                           sell_spmv_dd_launches)
 from ..ops.sell_spmm import device_put_x_multi, sell_spmm
 from ..ops.split import (device_put_split, device_put_split_dd, split_spmv,
                          split_spmv_dd)
 from ..ops.xla import device_put_csr, device_put_ell
+from ..tune.autotune import autotune_hack_size, autotune_sell
 from ..utils.metrics import calculate_flops
-from ..utils.timing import (ITERATION_SKIP, device_time_fn,
-                            run_device_validated, time_fn)
-from ..utils.validation import (DiffMetrics, difference_metrics,
+from ..utils.timing import (ITERATION_SKIP, MAX_QUEUED_LAUNCHES,
+                            device_time_fn, run_device_validated, time_fn)
+from ..utils.validation import (DEFAULT_ABS_TOL, DEFAULT_REL_TOL,
+                                DiffMetrics, difference_metrics,
                                 sampled_spmm_metrics)
 
 __all__ = ["BenchConfig", "StageResult", "MatrixResult", "run_matrix",
-           "quantize_bf16", "flush_hbm", "STAGES", "DTYPES",
+           "quantize_bf16", "flush_hbm", "device_bytes", "STAGES", "DTYPES",
            "ELL_MAX_ELEMENTS"]
 
 STAGES = ("serial_hll", "csr", "ell", "sell", "sell_bf16", "sell_dd", "hll",
@@ -148,6 +167,15 @@ class BenchConfig:
                                    # on the device, one readback
     sell_spmm_rhs: int = 16       # R of the sell_spmm stage (<= MAX_RHS)
     spmm_rhs: int = 128           # B of the bsr_spmm stage
+    hack_size: int = DEFAULT_HACK_SIZE  # HLL block rows (hll_matrix.h:12)
+    abs_tol: float = DEFAULT_ABS_TOL    # significant-difference tolerances
+    rel_tol: float = DEFAULT_REL_TOL    # (≙ main.c:145)
+    validate: bool = True
+    autotune: bool = False        # pick the SELL ladder/layout, the bin
+                                  # assembly and the hack size by measurement
+                                  # (≙ cudaOccupancyMaxPotentialBlockSize)
+    sell_merge_bins: bool = True  # False keeps span/layout sub-bins apart
+    sell_chunk_k: int = 0         # > 0 forces the sb-major chunk height
 
 
 @dataclass
@@ -182,6 +210,13 @@ class MatrixResult:
     sell_spmm: SellMatrix | None = None  # the k-major SELL sell_spmm ran
     bsr: BSRMatrix | None = None         # the blocks bsr_spmm ran
     skipped: dict = field(default_factory=dict)  # stage -> reason
+    device: str = "cpu"     # where the device stages ran ("cuda:0", "cpu")
+
+    def speedup(self, stage: str, baseline: str = "serial_csr") -> float:
+        b, s = self.stages.get(baseline), self.stages.get(stage)
+        if not b or not s or s.seconds <= 0:
+            return 0.0
+        return b.seconds / s.seconds
 
 
 def quantize_bf16(values: np.ndarray) -> np.ndarray:
@@ -211,6 +246,27 @@ def flush_hbm(device, mbytes: int | None = None) -> int:
     return buf.numel() * 4
 
 
+def device_bytes(*objs) -> int:
+    """Bytes of the distinct tensors in ``objs``: tensors and the
+    dataclasses, lists and tuples that hold them (a device container, its
+    x tables, its y)."""
+    sizes = {}
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            ptr = o.data_ptr()
+            sizes[ptr] = max(sizes.get(ptr, 0), o.numel() * o.element_size())
+        elif dataclasses.is_dataclass(o) and not isinstance(o, type):
+            for f in dataclasses.fields(o):
+                walk(getattr(o, f.name))
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+
+    walk(objs)
+    return sum(sizes.values())
+
+
 def _csr_with(csr: CSRMatrix, values: np.ndarray) -> CSRMatrix:
     return CSRMatrix(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx, values)
 
@@ -226,9 +282,9 @@ def run_matrix(
 ) -> MatrixResult:
     """Run ``serial_csr`` and ``cfg.stages`` on one matrix (≙ the per-matrix
     body of main.c:39-459 / main_cuda.cu:52-729). SELL bins take
-    ``cfg.sell_layout``, rebuilt with SELL-sigma row order when the plain
-    conversion is pathological; differences count at the default tolerances
-    of ``difference_metrics``."""
+    ``cfg.sell_layout`` (or the tuner's pick), rebuilt with SELL-sigma row
+    order when the plain conversion is pathological; differences count at
+    ``cfg.abs_tol`` / ``cfg.rel_tol``."""
     unknown = [s for s in cfg.stages if s not in STAGES]
     if unknown:
         raise ValueError(f"unknown stages {unknown}; the port runs {STAGES}")
@@ -255,7 +311,8 @@ def run_matrix(
         if perm is not None:
             x = np.asarray(x)[perm]
     stages: dict = {}
-    res = MatrixResult(name, M, N, nnz, stages, fstats, cfg, csr=csr)
+    res = MatrixResult(name, M, N, nnz, stages, fstats, cfg, csr=csr,
+                       device=str(device))
 
     # --- golden oracle: host fp64 serial CSR (≙ csr_matrix_vector_mult) ---
     times = []
@@ -276,6 +333,14 @@ def run_matrix(
     if dt == torch.bfloat16:
         x_dt = quantize_bf16(x)
         y_dt = _csr_with(csr, quantize_bf16(csr.values)).spmv(x_dt)
+
+    sell_kw = {"layout": cfg.sell_layout, "merge_bins": cfg.sell_merge_bins}
+    if cfg.sell_chunk_k > 0:
+        sell_kw.update(chunk_k=cfg.sell_chunk_k, chunk_k_forced=True)
+    assembly, hack_size = "auto", cfg.hack_size
+    if cfg.autotune:
+        sell_kw, assembly, hack_size = _autotune(res, sell_kw, x, dt, device,
+                                                 log)
 
     # ultra-heavy rows split into <=cap-entry segments; the segments' sums
     # are reduced back to rows (classic row splitting). Short-row matrices
@@ -313,10 +378,11 @@ def run_matrix(
     xh, xl = device_put_x_dd(x, N, device=device)
 
     if want & {"serial_hll", "csr", "ell", "hll"}:
-        _hll_csr_stages(res, want, x, x_dt, y_ref, y_dt, dt, device, log)
+        _hll_csr_stages(res, want, hack_size, x, x_dt, y_ref, y_dt, dt,
+                        device, log)
     if want & set(_SELL_STAGES):
-        _sell_stages(res, want, csr_k, seg_map, x_dt, y_ref, y_dt, xt, xh,
-                     xl, dt, device, log)
+        _sell_stages(res, want, csr_k, seg_map, sell_kw, assembly, x_dt,
+                     y_ref, y_dt, xt, xh, xl, dt, device, log)
     if "hll" in want:
         _hll_stage(res, xt, y_dt, dt, device, log)
 
@@ -328,7 +394,8 @@ def run_matrix(
         fstats["sell_sigma"] = sig.memory_stats()
         _run_sell(res, "sell_sigma", sig, _kernel_ids(sig, seg_map,
                                                       csr_k.nrows),
-                  dt, xt, y_dt, device, log, f" (pad {sig.padding_ratio:.2f})")
+                  dt, xt, y_dt, device, log, f" (pad {sig.padding_ratio:.2f})",
+                  padding_ratio=sig.padding_ratio)
 
     # --- PR: gather in column order, route to sigma order, reduce ---
     if "pr" in want:
@@ -341,7 +408,8 @@ def run_matrix(
         y = pr_spmv(d, xt).cpu().numpy().astype(np.float64)
         _record(res, device, log, "pr", _timed(cfg, device, pr_spmv, d, xt),
                 y_dt, to_rows(y, res.pr.row_perm),
-                f" (pad {res.pr.padding_ratio:.2f}, {str(dt)[6:]} values)")
+                f" (pad {res.pr.padding_ratio:.2f}, {str(dt)[6:]} values)",
+                padding_ratio=res.pr.padding_ratio)
         del d
     if "pr_dd" in want:
         t0 = time.perf_counter()
@@ -359,7 +427,8 @@ def run_matrix(
         y64 = combine_f64(*pr_spmv_dd(d, xh, xl)).cpu().numpy()
         _record(res, device, log, "pr_dd",
                 _timed(cfg, device, pr_spmv_dd, d, xh, xl), y_ref,
-                to_rows(y64, pr_dd.row_perm), " (fp64-class)")
+                to_rows(y64, pr_dd.row_perm), " (fp64-class)",
+                padding_ratio=pr_dd.padding_ratio)
         del d
 
     # --- split: near SELL + natural-order PR far side ---
@@ -399,41 +468,79 @@ def run_matrix(
     return res
 
 
-def _timed(cfg: BenchConfig, device, fn, *args):
+def _autotune(res: MatrixResult, sell_kw: dict, x, dt, device, log):
+    """Measure the SELL candidates and hack sizes on ``res.csr`` (≙ the JAX
+    harness's autotune block); returns the SELL keywords, bin assembly and
+    hack size to run, and records ``format_stats["tune"]``. The tuner runs
+    the f32 kernels where the stages' dtype is float64 (no SELL stage runs
+    then). Nothing here is caught: a launch error raises."""
+    name, cfg = res.name, res.config
+    tr = autotune_sell(res.csr, x=x, device=device, log=log,
+                       dtype=torch.float32 if dt == torch.float64 else dt)
+    if tr.best is not None:
+        sell_kw = {"layout": tr.best.layout, "k_bins": tr.best.k_bins,
+                   "merge_bins": tr.best.merge_bins}
+    best_hack, hack_rows = autotune_hack_size(res.csr, log=log)
+    # tr.best None: the tuner ran and every candidate was refused, so the
+    # configured SELL runs; "default" records that decision
+    res.format_stats["tune"] = {
+        "ladder": tr.best.name if tr.best else "default",
+        "layout": tr.best.layout if tr.best else cfg.sell_layout,
+        "assembly": tr.assembly,
+        "hack_size": best_hack,
+        "table": [(n, s) for n, s, _ in tr.table],
+        "hack_table": hack_rows,
+    }
+    tune = res.format_stats["tune"]
+    log(f"[{name}] autotune: ladder={tune['ladder']} layout={tune['layout']} "
+        f"assembly={tr.assembly} hack={best_hack}")
+    return sell_kw, tr.assembly, best_hack or cfg.hack_size
+
+
+def _timed(cfg: BenchConfig, device, fn, *args, launches: int = 1):
     """``(seconds, per_call_s, extra)`` of ``fn(*args)``: the stage
-    statistic of the module doc."""
+    statistic of the module doc; ``extra["device_bytes"]`` counts the
+    tensors of ``args`` and of the result. ``launches`` (what one call
+    queues) caps the device-time reps at ``MAX_QUEUED_LAUNCHES``."""
+    extra = {"device_bytes": device_bytes(args, fn(*args))}
     per_call = time_fn(fn, *args, device=device, reps=cfg.iterations,
                        skip=cfg.skip)
     if device.type == "cuda":
-        sec = min(device_time_fn(fn, *args, device=device,
-                                 reps=cfg.iterations, skip=max(cfg.skip, 1))
+        reps = max(1, min(cfg.iterations, MAX_QUEUED_LAUNCHES // launches))
+        sec = min(device_time_fn(fn, *args, device=device, reps=reps,
+                                 skip=max(cfg.skip, 1))
                   for _ in range(cfg.rounds))
     else:
         sec = min([per_call] + [
             time_fn(fn, *args, device=device, reps=cfg.iterations,
                     skip=cfg.skip) for _ in range(cfg.rounds - 1)])
-    extra = {}
     if cfg.device_validate:
         reps = min(cfg.iterations, 16)
         first = fn(*args)
         first = first[0] if isinstance(first, tuple) else first
         diff, dv_sec = run_device_validated(fn, *args, y_ref=first,
                                             device=device, reps=reps)
-        extra = {"device_val_max_diff": diff, "device_val_reps": reps,
-                 "device_val_overhead_pct":
-                     (dv_sec / per_call - 1.0) * 100.0 if per_call else 0.0}
+        extra.update({"device_val_max_diff": diff, "device_val_reps": reps,
+                      "device_val_overhead_pct":
+                          (dv_sec / per_call - 1.0) * 100.0 if per_call
+                          else 0.0})
     return sec, per_call, extra
 
 
-def _record(res: MatrixResult, device, log, stage, timing, ref, y, what=""):
-    """Validate ``y`` against ``ref`` and store the stage's result."""
-    sec, per_call, extra = timing
-    dm = difference_metrics(ref, y)
-    scale = float(np.abs(ref).max()) if ref.size else 0.0
-    err = float(np.abs(y - ref).max()) / scale if scale else 0.0
+def _record(res: MatrixResult, device, log, stage, timing, ref, y, what="",
+            **extra):
+    """Validate ``y`` against ``ref`` (unless ``cfg.validate`` is off) and
+    store the stage's result, ``extra`` added to its timing's."""
+    sec, per_call, timing_extra = timing
+    cfg = res.config
+    dm, err = DiffMetrics(), 0.0
+    if cfg.validate:
+        dm = difference_metrics(ref, y, cfg.abs_tol, cfg.rel_tol)
+        scale = float(np.abs(ref).max()) if ref.size else 0.0
+        err = float(np.abs(y - ref).max()) / scale if scale else 0.0
     st = res.stages[stage] = StageResult(
         stage, sec, calculate_flops(res.nnz, sec) / 1e9, dm, err,
-        per_call_s=per_call, extra=extra)
+        per_call_s=per_call, extra={**timing_extra, **extra})
     log(f"[{res.name}] {stage}: {sec*1e3:.4f} ms = {st.gflops:.3f} GFLOPS"
         f"{what} on {device} (per call {per_call*1e3:.4f} ms), "
         f"sig_diffs={dm.significant_diffs}, max_rel={dm.max_rel_err:.2e}, "
@@ -471,28 +578,33 @@ def _kernel_ids(sell, seg_map, n_rows: int):
     return np.asarray(ids, np.int64)
 
 
-def _run_sell(res, stage, sell, ids, dtype, xt, ref, device, log, what=""):
-    """Upload ``sell`` with ``dtype`` values, flush, run it once, map its
-    rows back through ``ids`` (:func:`_kernel_ids`) and time the SpMV; the
-    segment reduction is an epilogue kept out of the timed call, as the JAX
-    harness keeps it."""
+def _run_sell(res, stage, sell, ids, dtype, xt, ref, device, log, what="",
+             assembly="auto", **extra):
+    """Upload ``sell`` with ``dtype`` values, flush, run it once with the
+    bin ``assembly`` of :func:`..ops.sell.sell_spmv`, map its rows back
+    through ``ids`` (:func:`_kernel_ids`) and time the SpMV; the segment
+    reduction is an epilogue kept out of the timed call, as the JAX harness
+    keeps it."""
     d = device_put_sell(sell, dtype, device=device)
+    spmv = functools.partial(sell_spmv, assembly=assembly)
     flush_hbm(device)
-    y = sell_spmv(d, xt)
+    y = spmv(d, xt)
     if ids is not None:
         y = torch.zeros(res.nrows, dtype=y.dtype, device=device) \
             .index_add_(0, torch.from_numpy(ids).to(device), y)
-    _record(res, device, log, stage,
-            _timed(res.config, device, sell_spmv, d, xt), ref,
-            y.cpu().numpy().astype(np.float64), what)
+    timing = _timed(res.config, device, spmv, d, xt,
+                    launches=sell_spmv_launches(d, assembly))
+    _record(res, device, log, stage, timing, ref,
+            y.cpu().numpy().astype(np.float64), what, **extra)
 
 
-def _hll_csr_stages(res, want, x, x_dt, y_ref, y_dt, dt, device, log):
+def _hll_csr_stages(res, want, hack_size, x, x_dt, y_ref, y_dt, dt, device,
+                    log):
     """``serial_hll`` (host), ``csr`` and ``ell`` (plain PyTorch)."""
     csr, fstats, cfg = res.csr, res.format_stats, res.config
     if want & {"serial_hll", "ell", "hll"}:
         t0 = time.perf_counter()
-        res.hll = HLLMatrix.from_csr(csr, DEFAULT_HACK_SIZE)
+        res.hll = HLLMatrix.from_csr(csr, hack_size)
         fstats["convert_hll_s"] = time.perf_counter() - t0
         fstats["hll"] = res.hll.memory_stats()
     if "serial_hll" in want:
@@ -548,22 +660,25 @@ def _hll_stage(res, xt, y_dt, dt, device, log):
               f"{sorted({b.layout for b in sell.bins})})")
 
 
-def _sell_stages(res, want, csr_k, seg_map, x_dt, y_ref, y_dt, xt, xh, xl,
-                 dt, device, log):
-    """The SELL stages: ``sell``, ``sell_bf16`` and ``sell_dd``."""
+def _sell_stages(res, want, csr_k, seg_map, sell_kw, assembly, x_dt, y_ref,
+                 y_dt, xt, xh, xl, dt, device, log):
+    """The SELL stages: ``sell``, ``sell_bf16`` and ``sell_dd``, on the SELL
+    ``sell_kw`` builds; ``sell`` and ``sell_bf16`` assemble its bins by
+    ``assembly``."""
     name, fstats, cfg = res.name, res.format_stats, res.config
     t0 = time.perf_counter()
-    sell = res.sell = _build_sell(csr_k, name, log, layout=cfg.sell_layout)
+    sell = res.sell = _build_sell(csr_k, name, log, **sell_kw)
     fstats["convert_sell_s"] = time.perf_counter() - t0
     fstats["sell"] = sell.memory_stats()
     ids = _kernel_ids(sell, seg_map, csr_k.nrows)
 
     if "sell" in want:
-        _run_sell(res, "sell", sell, ids, dt, xt, y_dt, device, log)
+        _run_sell(res, "sell", sell, ids, dt, xt, y_dt, device, log,
+                  assembly=assembly)
     if "sell_bf16" in want:
         ref = _csr_with(res.csr, quantize_bf16(res.csr.values)).spmv(x_dt)
         _run_sell(res, "sell_bf16", sell, ids, torch.bfloat16, xt, ref,
-                  device, log)
+                  device, log, assembly=assembly)
     if "sell_dd" not in want:
         return
 
@@ -574,7 +689,8 @@ def _sell_stages(res, want, csr_k, seg_map, x_dt, y_ref, y_dt, xt, xh, xl,
     if ids is not None:  # host-exact f64 segment reduction
         y64 = np.bincount(ids, weights=y64, minlength=res.nrows)[:res.nrows]
     _record(res, device, log, "sell_dd",
-            _timed(cfg, device, sell_spmv_dd, d, xh, xl), y_ref, y64,
+            _timed(cfg, device, sell_spmv_dd, d, xh, xl,
+                   launches=sell_spmv_dd_launches(d)), y_ref, y64,
             " (fp64-class)")
 
 
@@ -589,13 +705,15 @@ def _spmm_stages(res, want, csr_k, seg_map, dt, device, log):
     def record(stage, timing, X, Y, rhs, what=""):
         """Validate ``Y`` against the fp64 oracle on sampled columns."""
         sec, per_call, extra = timing
-        dm = sampled_spmm_metrics(ocsr, X, Y)
-        cols = np.unique(np.linspace(0, rhs - 1, min(4, rhs)).astype(int))
-        refs = [ocsr.spmv(X[:, j].astype(np.float64)) for j in cols]
-        scale = max((float(np.abs(r).max()) for r in refs if r.size),
-                    default=0.0)
-        err = max((float(np.abs(Y[:M, j] - r).max())
-                   for j, r in zip(cols, refs) if r.size), default=0.0)
+        dm, err, scale = DiffMetrics(), 0.0, 0.0
+        if cfg.validate:
+            dm = sampled_spmm_metrics(ocsr, X, Y, cfg.abs_tol, cfg.rel_tol)
+            cols = np.unique(np.linspace(0, rhs - 1, min(4, rhs)).astype(int))
+            refs = [ocsr.spmv(X[:, j].astype(np.float64)) for j in cols]
+            scale = max((float(np.abs(r).max()) for r in refs if r.size),
+                        default=0.0)
+            err = max((float(np.abs(Y[:M, j] - r).max())
+                       for j, r in zip(cols, refs) if r.size), default=0.0)
         stages[stage] = StageResult(
             stage, sec, calculate_flops(csr.nnz * rhs, sec) / 1e9, dm,
             err / scale if scale else 0.0, rhs, per_call, extra)

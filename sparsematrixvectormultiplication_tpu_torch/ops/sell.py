@@ -62,7 +62,8 @@ __all__ = [
     "device_put_sell", "device_put_x", "pack_x_table", "k_major_bin",
     "wl_bin", "sb_major_bin", "sb_list_bin", "sg_bin", "k_major_bin_plain",
     "wl_bin_plain", "sb_major_bin_plain", "sb_list_bin_plain", "sg_bin_plain",
-    "sell_spmv", "sell_spmv_plain", "panel_sell_spmv", "panel_sell_spmv_plain",
+    "sell_spmv", "sell_spmv_plain", "sell_spmv_launches", "panel_sell_spmv",
+    "panel_sell_spmv_plain",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -1295,28 +1296,81 @@ def _assemble(dsell, xs: tuple, write) -> tuple:
     return tuple(y[: dsell.nrows] for y in ys)
 
 
-def _spmv(dsell: DeviceSell, x_tab: torch.Tensor, write) -> torch.Tensor:
+ASSEMBLIES = ("auto", "sum", "chain")
+
+
+def sell_spmv_launches(dsell: DeviceSell, assembly: str = "auto") -> int:
+    """The CUDA launches one :func:`sell_spmv` call queues: a zero fill of
+    y and a kernel per bin; "sum" (more than one bin) adds a zero fill and
+    an add per bin."""
+    n = len(dsell.bins)
+    return 1 + (3 * n if assembly == "sum" and n > 1 else n)
+
+
+def _spmv(dsell: DeviceSell, x_tab: torch.Tensor, write,
+          assembly: str) -> torch.Tensor:
     if not isinstance(dsell, DeviceSell):
         raise TypeError(f"sell_spmv takes a DeviceSell, got "
                         f"{type(dsell).__name__} (column panels: "
                         "panel_sell_spmv; dd: sell_spmv_dd)")
-    return _assemble(dsell, (x_tab,), write)[0]
+    if assembly not in ASSEMBLIES:
+        raise ValueError(f"assembly {assembly!r}: one of {ASSEMBLIES}")
+    if assembly == "auto":
+        return _assemble(dsell, (x_tab,), write)[0]
+    _check_x_table(dsell, x_tab)
+
+    def zeros():
+        return torch.zeros(dsell.num_groups * GROUP_ROWS,
+                           dtype=torch.float32, device=x_tab.device)
+
+    y = zeros()
+    if assembly == "sum" and len(dsell.bins) > 1:
+        # every bin stores into its own zeroed y; the y's summed in bin order
+        parts = []
+        for b in dsell.bins:
+            parts.append(zeros())
+            write(b, x_tab, parts[-1], False)
+        for part in parts:
+            y = y + part
+    else:  # one y through every bin
+        # a core bin stores its groups' rows: after an add_into bin of the
+        # same groups it would overwrite that bin's sums
+        adds = [b.add_into for b in dsell.bins]
+        if any(adds[i] and not adds[j] for i in range(len(adds))
+               for j in range(i + 1, len(adds))):
+            raise ValueError("assembly 'chain' runs the bins in order: a "
+                             "core bin after an add_into bin would "
+                             "overwrite its sums")
+        for b in dsell.bins:
+            write(b, x_tab, y, b.add_into)
+    return y[: dsell.nrows]
 
 
-def sell_spmv(dsell: DeviceSell, x_tab: torch.Tensor) -> torch.Tensor:
+def sell_spmv(dsell: DeviceSell, x_tab: torch.Tensor,
+              assembly: str = "auto") -> torch.Tensor:
     """``y = A @ x`` over the binned SELL layout; returns ``y[:nrows]`` (f32).
 
     ``x_tab`` is x padded by :func:`device_put_x` or :func:`pack_x_table`.
-    Core bins store their own groups' rows, then ``add_into`` bins add onto
-    them; CUDA tensors run the CUDA kernels, CPU tensors the plain
-    versions."""
-    return _spmv(dsell, x_tab, _run_kernel)
+    CUDA tensors run the CUDA kernels, CPU tensors the plain versions.
+    ``assembly`` (≙ the JAX ``sell_spmv_pallas``'s):
+
+    * ``"auto"``: core bins store their own groups' rows, then ``add_into``
+      bins add onto them;
+    * ``"sum"``: every bin stores into its own zeroed y, and the y's are
+      summed in bin order (one bin: as "chain");
+    * ``"chain"``: one y through every bin in bin order, each bin adding
+      onto it when it is ``add_into``; a core bin after an ``add_into`` bin
+      raises ``ValueError`` (it would overwrite that bin's sums).
+
+    :func:`sell_spmv_launches` gives the launches one call queues."""
+    return _spmv(dsell, x_tab, _run_kernel, assembly)
 
 
-def sell_spmv_plain(dsell: DeviceSell, x_tab: torch.Tensor) -> torch.Tensor:
+def sell_spmv_plain(dsell: DeviceSell, x_tab: torch.Tensor,
+                    assembly: str = "auto") -> torch.Tensor:
     """:func:`sell_spmv` through the plain versions on any device — the
     reference the kernels are held against."""
-    return _spmv(dsell, x_tab, _write_plain)
+    return _spmv(dsell, x_tab, _write_plain, assembly)
 
 
 def _assemble_panels(dps, xs: tuple, write) -> tuple:

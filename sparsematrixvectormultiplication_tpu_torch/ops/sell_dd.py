@@ -59,6 +59,7 @@ __all__ = [
     "sb_major_bin_dd", "sb_list_bin_dd", "sg_bin_dd", "k_major_bin_plain_dd",
     "wl_bin_plain_dd", "sb_major_bin_plain_dd", "sb_list_bin_plain_dd",
     "sg_bin_plain_dd", "sell_spmv_dd", "sell_spmv_dd_plain",
+    "sell_spmv_dd_launches",
     "panel_sell_spmv_dd", "panel_sell_spmv_dd_plain", "sell_spmv_dd_f64",
     "pack_x_pair", "wl_padded_plain_dd", "sb_list_padded_plain_dd",
 ]
@@ -452,6 +453,13 @@ def sell_spmv_dd(d: DeviceSellDD, xh_tab: torch.Tensor,
     the plain versions. The pair bins' interleaved x table is built once per
     call, inside it."""
     return _spmv_dd(d, xh_tab, xl_tab, _kernel_writer())
+
+
+def sell_spmv_dd_launches(d: DeviceSellDD) -> int:
+    """The CUDA launches one :func:`sell_spmv_dd` call queues: the zero
+    fills of yh and yl, a kernel per bin and, with pair bins, the
+    :func:`pack_x_pair` table."""
+    return 2 + len(d.bins) + any(_pairs(b) for b in d.bins)
 
 
 def sell_spmv_dd_plain(d: DeviceSellDD, xh_tab, xl_tab):

@@ -26,9 +26,13 @@ import time
 import torch
 
 __all__ = ["time_fn", "device_time_fn", "run_device_validated",
-           "ITERATION_SKIP"]
+           "ITERATION_SKIP", "MAX_QUEUED_LAUNCHES"]
 
 ITERATION_SKIP = 5  # warm-up iterations to skip (≙ reference utility.h:7)
+# launches a caller of device_time_fn keeps queued behind its spin, at most:
+# the stream's launch queue overflows near a thousand pending launches, and
+# the timer then raises (a dd SpMV over 37 bins, 20 reps)
+MAX_QUEUED_LAUNCHES = 400
 _SPIN_TRIES = 8     # each retry doubles the spin
 
 

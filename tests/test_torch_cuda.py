@@ -1653,3 +1653,119 @@ def test_solvers_on_cuda_containers_never_run_plain(dev, monkeypatch):
             SV.gmres(mv32, b.float(), tol=1e-5, restart=8)]
     for x, _, _ in runs:
         assert x.device.type == "cuda" and bool(torch.isfinite(x).all())
+
+
+# ---- the sweep and tune layer on the card ----
+
+
+def test_autotune_measures_on_card_and_its_pick_validates(dev):
+    from sparsematrixvectormultiplication_tpu_torch.tune import (
+        autotune as T)
+
+    csr = CSRMatrix.from_coo(banded(5 * 1024, 24, 512, seed=0))
+    before = {lay: w.launches for lay, w in S._KERNEL.items()}
+    tr = T.autotune_sell(csr, device=dev)
+    assert [n for n, _, _ in tr.table] == [
+        c.name for c in T._default_candidates()]
+    for name, sec, stats in tr.table:
+        assert np.isfinite(sec) and stats["measured"] == sec > 0, name
+    assert tr.best_seconds == min(s for _, s, _ in tr.table)
+    assert tr.assembly in ("auto", "sum")
+    forced = {"k-major", "sb-major", "sb-list", "wl"}
+    assert all(S._KERNEL[lay].launches > before[lay] for lay in forced)
+    res = run_matrix("tuned", banded(5 * 1024, 24, 512, seed=0), BenchConfig(
+        iterations=4, rounds=1, stages=("sell", "sell_dd"), autotune=True),
+        log=lambda m: None, device=dev)
+    # the stage ran its own tuner's pick: the fastest of its table (a
+    # second tuner run may pick another of candidates that time alike)
+    tune = res.format_stats["tune"]
+    assert len(tune["table"]) == 10 and tune["hack_size"] > 0
+    assert tune["ladder"] == min(tune["table"], key=lambda r: r[1])[0]
+    for stage in ("sell", "sell_dd"):
+        assert res.stages[stage].diff.significant_diffs == 0, stage
+        assert res.stages[stage].extra["device_bytes"] > 0
+
+
+def test_assembly_sum_and_chain_equal_auto_on_card(dev):
+    csr = CSRMatrix.from_coo(banded(20 * 1024, 24, 64, seed=2))
+    sell = SellMatrix.from_csr(csr, layout="wl-shed")
+    assert any(b.add_into for b in sell.bins) and len(sell.bins) > 1
+    x = np.random.default_rng(5).standard_normal(csr.ncols)
+    d = S.device_put_sell(sell, device=dev)
+    x_tab = S.device_put_x(x, csr.ncols, device=dev)
+    auto = S.sell_spmv(d, x_tab)
+    for assembly in ("sum", "chain"):
+        got = S.sell_spmv(d, x_tab, assembly)
+        _close(got, auto)
+        _close(got, S.sell_spmv_plain(d, x_tab, assembly))
+    ref = torch.from_numpy(csr.spmv(x.astype(np.float32).astype(np.float64)))
+    _close(auto.double().cpu(), ref)
+
+
+def test_ladder_sweep_rows_validate_on_card(dev, tmp_path):
+    import csv
+
+    from sparsematrixvectormultiplication_tpu_torch.bench.scale import (
+        run_ladder_sweep)
+
+    csr = CSRMatrix.from_coo(power_law(20_000, 6, seed=5))
+    out = str(tmp_path / "ladders.csv")
+    rows = run_ladder_sweep("pl", csr, out, iterations=4, rounds=1,
+                            device=dev, log=lambda m: None)
+    assert len(rows) == 4
+    with open(out) as f:
+        table = list(csv.DictReader(f))
+    for r in table:
+        assert r["significant_diffs"] == "0", r["stage"]
+        assert float(r["pct_stream_bw"]) > 0 and float(r["time_s"]) > 0
+
+
+def test_autotune_launch_error_propagates(dev, monkeypatch):
+    from sparsematrixvectormultiplication_tpu_torch.formats.sell import (
+        DEFAULT_K_BINS)
+    from sparsematrixvectormultiplication_tpu_torch.tune import (
+        autotune as T)
+
+    def broken(*args, **kw):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    monkeypatch.setitem(S._KERNEL, "k-major", broken)
+    csr = CSRMatrix.from_coo(banded(5 * 1024, 24, 512, seed=0))
+    cands = [T.SellCandidate("default-kmajor", DEFAULT_K_BINS, "k-major")]
+    with pytest.raises(RuntimeError, match="illegal memory access"):
+        T.autotune_sell(csr, candidates=cands, device=dev)
+
+
+def test_sweep_cli_on_card(dev, tmp_path):
+    import csv
+
+    from sparsematrixvectormultiplication_tpu_torch.bench import cli
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        csv_report as R)
+    from sparsematrixvectormultiplication_tpu_torch.io.mmio import (
+        write_matrix_market)
+
+    coo = banded(8192, 16, 200, seed=1)
+    (tmp_path / "m").mkdir()
+    write_matrix_market(str(tmp_path / "m" / "band.mtx"), coo.nrows,
+                        coo.ncols, coo.row, coo.col, coo.val)
+    out = tmp_path / "r"
+    assert cli.main(["--matrix-dir", str(tmp_path / "m"), "--output-dir",
+                     str(out), "--iterations", "4", "--rounds", "1",
+                     "--kernels", "serial_hll,csr,ell,sell,sell_bf16,"
+                     "sell_dd,hll"], log=lambda m: None) == 0
+    for name, header in (("spmv_results.csv", R.NATIVE_HEADER),
+                         ("spmv_results_openmp.csv", R.OPENMP_HEADER),
+                         ("spmv_results_cuda.csv", R.CUDA_HEADER),
+                         ("spmv_tile_config.csv", R.TILE_HEADER),
+                         ("matrix_memory_stats.csv", R.MEMORY_STATS_HEADER)):
+        with open(out / name) as f:
+            assert next(csv.reader(f)) == header, name
+    with open(out / "spmv_results.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert len(rows) == 8
+    for r in rows:
+        assert r["significant_diffs"] == "0", r["stage"]
+        if not r["stage"].startswith("serial"):
+            assert float(r["pct_stream_bw"]) > 0, r["stage"]
