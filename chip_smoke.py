@@ -6,8 +6,10 @@ and RCM reordering, the PR layout (f32, bf16 values and double-double) and
 the locality split, ``auto_device_op``, multi-RHS SpMM (SELL k-major and
 wl, 128x128 BSR), the solvers over those kernels (CG and PCG,
 ``cg_multi``, BiCGSTAB, GMRES, PageRank, power iteration, Lanczos, subspace
-iteration, iterative refinement), and the sweep CLI with the measured
-autotuner, the K-bin ladder sweep, resume and profiling.
+iteration, iterative refinement), the sweep CLI with the measured
+autotuner, the K-bin ladder sweep, resume and profiling, and the
+multi-device layer (``parallel/``: ranks on ``torch.distributed`` device
+meshes, gloo ranks sharing the card and one NCCL rank per card).
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -149,6 +151,27 @@ converter's ``layout="auto"``), the ladder rows, the SELL stages,
 ``report.best_table`` of the output and the number of CUDA kernel events in
 amazon_like's trace (reported, never checked).
 
+Then the multi-device phase (:func:`multidevice_phase`, 107 s on the card
+alone): four gloo ranks share ``cuda:0`` (``parallel.launch.spawn``), each
+handed only its own host shard of shards built here once, and run the
+headline's held wl SELL in 4 row shards (``sell_spmv_spmd``, and
+``sell_spmm_spmd`` at R=16), banded_adversarial in 4 row shards (sb-major;
+each rank's kernels also held against their plain versions), in 4 column
+shards (``sell_spmv_spmd_cols``) and as the row-, 2x2- and column-sharded
+ELL of ``sharding.py``, scattered_uniform in 4 row shards (sg and
+accumulating k-major bins), webbase_like's PR panels (``pr_spmv_spmd``),
+road's locality split (``split_spmv_spmd``) and band64_250k's block-rows
+(``bsr_spmm_spmd``, B=128); then banded_adversarial in SELL shards on
+``[cuda:0] * 4`` from one process (``shard_sell_rows``), on
+``torch.cuda.device_count()`` NCCL ranks, and ``python -m
+...bench.cli --suite-entry cfd_like --scale-sweep`` at that count. Every
+path must give every rank the same y, no significant difference from the
+fp64 oracle, and agree with the same matrix's single-device kernels in
+this run within 1e-5 of max|y| (SpMM: per column); it prints each rank's
+kernel device time, the collective's time, the call and its wall, the
+partition's imbalance and the bytes each rank holds. The ranks count their
+own launches; the phase adds them to the JSON summary's.
+
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
 sampled columns); the dd stages also a norm-scaled error ``max|y - y_ref| /
@@ -271,6 +294,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1092,6 +1116,344 @@ def sweep_phase(dev):
     return got
 
 
+MD_RANKS = 4       # gloo ranks that share cuda:0
+MD_TOL = 1e-5      # max|y_sharded - y_single| / max|y_single| (per column)
+MD_REPS = 5        # timed calls per measurement of a rank
+MD_RHS = 16        # sell_spmm_spmd's right-hand sides on the headline
+MD_BSR_RHS = 128   # bsr_spmm_spmd's on band64_250k
+MD_SCALE_ENTRY = "cfd_like"
+
+
+def multidevice_phase(dev, mats):
+    """The multi-device layer of ``parallel/`` at full size. ``mats`` maps
+    the phases' names to ``(host SELL, x, csr)`` (the SELL that phase's
+    ``sell`` stage ran, of the heavy-row-split CSR where the harness split
+    it) and ``"band64_250k"`` to its ``(bsr, csr)``.
+
+    Four gloo ranks share ``cuda:0`` (``parallel.launch.spawn``; the parent
+    has built the kernels and routers, every rank only loads them), each
+    handed only its own host shard, built here once: the headline's held
+    SELL sliced into 4 row shards (``sell_spmv_spmd`` and ``sell_spmm_spmd``
+    at R=16, wl), banded_adversarial's (sb-major; each rank's kernels also
+    held against their plain versions), its 4 column shards
+    (``sell_spmv_spmd_cols``, k-major) and its ELL rectangle row-, 2x2- and
+    column-sharded (``sharding.py``), scattered_uniform's (sg and
+    accumulating k-major bins), webbase_like's PR panels (``pr_spmv_spmd``),
+    road's locality split (``split_spmv_spmd``) and band64_250k's block-rows
+    (``bsr_spmm_spmd``, B=128). Then banded_adversarial in 4 SELL shards on
+    ``[cuda:0] * 4`` from this process (``shard_sell_rows``), the row-sharded
+    SELL on ``torch.cuda.device_count()`` NCCL ranks, and ``python -m
+    ...bench.cli --suite-entry cfd_like --scale-sweep`` at that count.
+
+    Every path must return the same y on every rank, no significant
+    difference from the fp64 oracle, and ``max|y - y_single| /
+    max|y_single|`` at most ``MD_TOL`` against the same matrix's
+    single-device kernels in this run (SpMM: per column); every path that
+    runs kernels must launch those of its layouts. Prints per path each
+    rank's kernel device time (the ranks in turn), the collective's time,
+    the slowest rank's call and the wall of one call, the partition's
+    imbalance and the bytes each rank holds: correctness runs of 4 ranks
+    on one card, not a scaling curve. Returns the launches of the ranks
+    and of this process, keyed (group, kernel) with group "" (SELL SpMV),
+    " SpMM" or " PR"."""
+    import csv
+
+    from sparsematrixvectormultiplication_tpu_torch.bench import scale as SC
+    from sparsematrixvectormultiplication_tpu_torch.formats.hll import (
+        HLLMatrix)
+    from sparsematrixvectormultiplication_tpu_torch.ops import bsr as BSR
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_spmm as SM
+    from sparsematrixvectormultiplication_tpu_torch.parallel import (
+        launch, multidevice, spmd_bsr, spmd_colsell, spmd_pallas, spmd_pr,
+        spmd_split)
+    from sparsematrixvectormultiplication_tpu_torch.utils.validation import (
+        difference_metrics, sampled_spmm_metrics)
+
+    t_phase = time.perf_counter()
+    n = MD_RANKS
+
+    def natural(y, row_perm, seg, nrows):
+        """A y over a SELL's (or PR build's) rows in natural row order: the
+        sigma order undone, heavy-row segments summed."""
+        y = np.asarray(y, np.float64)
+        if row_perm is not None:
+            z = np.empty(len(row_perm))
+            z[row_perm] = y[: len(row_perm)]
+            y = z
+        if seg is not None:
+            y = np.bincount(np.asarray(seg), weights=y[: len(seg)],
+                            minlength=nrows)[:nrows]
+        return y[:nrows]
+
+    def single_spmv(sell, x, seg, nrows):
+        d = S.device_put_sell(sell, device=dev)
+        y = S.sell_spmv(d, S.device_put_x(x, sell.ncols, device=dev))
+        return natural(y.cpu().numpy(), sell.row_perm, seg, nrows)
+
+    def segments(csr):
+        """The harness's heavy-row split of ``csr``: ``(csr_k, seg)``."""
+        med = float(np.median(csr.row_nnz())) if csr.nrows else 0.0
+        cap = 16 if med <= 24 else 256
+        return csr.split_heavy_rows(cap, strided=cap < 256)
+
+    t0 = time.perf_counter()
+    cases = []   # (tag, ShardJob, post, oracle, single, loads, want)
+
+    def add(tag, job, post, oracle, single, want, loads=None):
+        cases.append((tag, job, post, oracle, single,
+                      loads or SC.shard_loads(job.obj), want))
+
+    def spmv_case(tag, path, obj, x, csr, single, want, seg=None,
+                  mesh=((n,), ("rows",)), loads=None, **kw):
+        y_ref = csr.spmv(x)
+        add(tag, SC.ShardJob(path, obj, x, *mesh, reps=MD_REPS, detail=True,
+                             **kw),
+            lambda y: natural(y, None, seg, csr.nrows),
+            lambda y: difference_metrics(y_ref, y), single, want, loads)
+
+    # headline: the held wl SELL, sliced, SpMV and SpMM on one host build
+    h_sell, h_x, h_csr = mats["headline"]
+    h_spmd = spmd_pallas._spmd_from_sell(h_sell, h_csr, n)
+    h_single = single_spmv(h_sell, h_x, None, h_csr.nrows)
+    spmv_case("headline sell_spmv_spmd", "sell", h_spmd, h_x, h_csr,
+              h_single, {("sell", "wl")})
+    X = np.random.default_rng(SEED).standard_normal(
+        (h_csr.ncols, MD_RHS), dtype=np.float32)
+    d = S.device_put_sell(h_sell, device=dev)
+    Y_single = SM.sell_spmm(d, SM.device_put_x_multi(
+        X, h_csr.ncols, device=dev)).double().cpu().numpy()
+    del d
+    add("headline sell_spmm_spmd R=16",
+        SC.ShardJob("sell_spmm", h_spmd, X, (n,), reps=MD_REPS, detail=True),
+        lambda Y: np.asarray(Y, np.float64),
+        lambda Y: sampled_spmm_metrics(h_csr, X, Y), Y_single,
+        {("spmm", "wl")})
+
+    # banded_adversarial: rows (sb-major), columns, the ELL paths
+    b_sell, b_x, b_csr = mats["banded_adversarial"]
+    b_single = single_spmv(b_sell, b_x, None, b_csr.nrows)
+    b_spmd = spmd_pallas._spmd_from_sell(b_sell, b_csr, n)
+    spmv_case("banded_adversarial sell_spmv_spmd", "sell", b_spmd, b_x,
+              b_csr, b_single, {("sell", "sb-major")}, check_plain=True)
+    spmv_case("banded_adversarial sell_spmv_spmd_cols", "sell_cols",
+              spmd_colsell.build_spmd_sell_cols(b_csr, n), b_x, b_csr,
+              b_single, {("sell", "k-major")}, mesh=((n,), ("cols",)))
+    hll = HLLMatrix.from_csr(b_csr)
+    rows_of = b_csr.row_ids().astype(np.int64)
+    rect = hll.num_blocks * hll.hack_size
+
+    def ell_loads(nr, nc):
+        """Entries per (row shard, column shard) of the ELL paths."""
+        per_r, per_c = -(-rect // nr), -(-b_csr.ncols // nc)
+        part = (rows_of // per_r) * nc + np.minimum(
+            b_csr.col_idx.astype(np.int64) // per_c, nc - 1)
+        return [int(v) for v in np.bincount(part, minlength=nr * nc)]
+
+    for tag, path, mesh, grid in (
+            ("row_sharded_spmv", "ell_rows", ((n,), ("rows",)), (n, 1)),
+            ("sharded_spmv_2d 2x2", "ell_2d", ((2, 2), ("rows", "cols")),
+             (2, 2)),
+            ("col_sharded_spmv", "ell_cols", ((n,), ("cols",)), (1, n))):
+        spmv_case(f"banded_adversarial {tag}", path, hll, b_x, b_csr,
+                  b_single, set(), mesh=mesh, dtype=torch.float32,
+                  loads=ell_loads(*grid))
+
+    # scattered_uniform: sg and accumulating k-major bins, sliced
+    u_sell, u_x, u_csr = mats["scattered_uniform"]
+    spmv_case("scattered_uniform sell_spmv_spmd", "sell",
+              spmd_pallas._spmd_from_sell(u_sell, u_csr, n), u_x, u_csr,
+              single_spmv(u_sell, u_x, None, u_csr.nrows),
+              {("sell", "sg"), ("sell accumulating", "k-major")})
+
+    # webbase_like: PR panels of the heavy-row-split CSR
+    w_sell, w_x, w_csr = mats["webbase_pr"]
+    w_k, w_seg = segments(w_csr)
+    spmv_case("webbase_pr pr_spmv_spmd", "pr",
+              spmd_pr.build_spmd_pr(w_k, n), w_x, w_csr,
+              single_spmv(w_sell, w_x, w_seg, w_csr.nrows), {("pr", "pr")},
+              seg=w_seg)
+
+    # road: the locality split of the heavy-row-split CSR
+    r_sell, r_x, r_csr = mats["road_scattered"]
+    r_k, r_seg = segments(r_csr)
+    r_spmd = spmd_split.build_spmd_split(r_k, n)
+    spmv_case("road_scattered split_spmv_spmd", "split", r_spmd, r_x, r_csr,
+              single_spmv(r_sell, r_x, r_seg, r_csr.nrows),
+              {("pr", "pr")} | {("sell", b.layout) for s in r_spmd.near.shards
+                                for b in s.bins}, seg=r_seg)
+
+    # band64_250k: block-rows, B=128
+    bsr, c64 = mats["band64_250k"]
+    X64 = np.random.default_rng(SEED).standard_normal(
+        (c64.ncols, MD_BSR_RHS), dtype=np.float32)
+    d = BSR.device_put_bsr(bsr, device=dev)
+    Y64 = BSR.bsr_spmm(d, BSR.pad_rhs(X64, c64.ncols, device=dev))[
+        :, :MD_BSR_RHS].double().cpu().numpy()
+    del d
+    add("band64_250k bsr_spmm_spmd B=128",
+        SC.ShardJob("bsr", spmd_bsr.shard_bsr(bsr, n), X64, (n,),
+                    reps=MD_REPS, detail=True),
+        lambda Y: np.asarray(Y, np.float64)[:, :MD_BSR_RHS],
+        lambda Y: sampled_spmm_metrics(c64, X64, Y), Y64,
+        {("bsr", "blockspec")})
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out = launch.spawn(
+        SC.run_shard_jobs, n, device_type="cuda", timeout_s=600,
+        rank_args=[([dataclasses.replace(job, obj=SC.for_rank(job.obj, r))
+                     for _, job, *_ in cases],) for r in range(n)])
+    ranks_s = time.perf_counter() - t0
+    totals = {}
+
+    def check(tag, recs, post, oracle, single, loads, want, ranks_note):
+        for rec in recs[1:]:
+            if not np.array_equal(rec["y"], recs[0]["y"]):
+                fail(f"[multidevice] {tag}: the ranks returned different y")
+        y = post(recs[0]["y"])
+        dm = oracle(y)
+        if dm.significant_diffs:
+            fail(f"[multidevice] {tag}: {dm.significant_diffs} significant "
+                 "diffs vs the oracle")
+        ys, ss = (a.reshape(len(a), -1) for a in (y, single))
+        err = max(float(np.abs(ys[:, j] - ss[:, j]).max()
+                        / max(np.abs(ss[:, j]).max(), 1e-300))
+                  for j in range(ss.shape[1]))
+        if not err <= MD_TOL:
+            fail(f"[multidevice] {tag}: max|y - y_single| / max|y_single| "
+                 f"{err:.3e} > {MD_TOL}")
+        launched = {}
+        for rec in recs:
+            for key, v in rec["launches"].items():
+                launched[key] = launched.get(key, 0) + v
+                totals[key] = totals.get(key, 0) + v
+        idle = sorted(f"{g} {k}" for g, k in want if not launched.get((g, k)))
+        if idle:
+            fail(f"[multidevice] {tag}: kernels {idle} were not launched")
+        for rec in recs:
+            if "plain_max_abs_err" in rec and not rec["plain_max_abs_err"] <= \
+                    (RTOL + ATOL_REL) * rec["plain_scale"]:
+                fail(f"[multidevice] {tag}: a rank's kernels differ from "
+                     f"their plain versions by {rec['plain_max_abs_err']}")
+        ms = lambda k: [round(r[k] * 1e3, 4) for r in recs]
+        plain = ("; each rank's kernels equal to their plain versions "
+                 "within f32 rounding, max|k-p| "
+                 f"{max(r['plain_max_abs_err'] for r in recs):.2e}"
+                 if "plain_max_abs_err" in recs[0] else "")
+        imb = max(loads) / max(np.mean(loads), 1e-30)
+        print(f"[multidevice] {tag}, {ranks_note}: kernel device ms per rank "
+              f"{ms('local_s')}; collective ms {ms('collective_s')}; call "
+              f"ms (slowest rank) {max(ms('call_s'))}; wall ms of one call "
+              f"{ms('wall_s')}; imbalance {imb:.4f} (entries {loads}); bytes "
+              f"per rank {[r['bytes'] for r in recs]}; sig_diffs 0, "
+              f"max|y - y_single| / max|y_single| {err:.2e}; launches "
+              f"{ {f'{g} {k}': v for (g, k), v in sorted(launched.items())} }"
+              f"{plain}", flush=True)
+
+    note = (f"{n} gloo ranks sharing cuda:0 (a correctness run, not a "
+            "scaling curve)")
+    for j, (tag, job, post, oracle, single, loads, want) in enumerate(cases):
+        recs = [o[j] for o in out]
+        if {r["backend"] for r in recs} != {"gloo"}:
+            fail(f"[multidevice] {tag}: ran on {recs[0]['backend']}, not "
+                 "gloo")
+        check(tag, recs, post, oracle, single, loads, want, note)
+
+    # one process, four SELL shards on cuda:0; its launches counted from here
+    for w in S._KERNEL.values():
+        w.launches = 0
+        w.accumulating = 0
+    t0 = time.perf_counter()
+    md = multidevice.shard_sell_rows(b_csr, [dev] * n)
+    y = md.spmv(b_x)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(MD_REPS):
+        t1 = time.perf_counter()
+        md.spmv(b_x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    y = y.double().cpu().numpy()
+    err = float(np.abs(y - b_single).max() / np.abs(b_single).max())
+    sig = difference_metrics(b_csr.spmv(b_x), y).significant_diffs
+    if sig or not err <= MD_TOL or y.shape != (b_csr.nrows,):
+        fail(f"[multidevice] shard_sell_rows: {sig} significant diffs, "
+             f"max|y - y_single| / max|y_single| {err:.3e}")
+    md_launches = {("sell", k): w.launches for k, w in S._KERNEL.items()
+                   if w.launches}
+    if not md_launches.get(("sell", "sb-major")):
+        fail("[multidevice] shard_sell_rows: the sb-major kernel was not "
+             "launched")
+    for key, v in md_launches.items():
+        totals[key] = totals.get(key, 0) + v
+    loads = [int(s.nnz) for _, s in md.shards]
+    print(f"[multidevice] banded_adversarial shard_sell_rows on [cuda:0] * "
+          f"{n}, one process: row starts {md.row_starts.tolist()}, "
+          f"imbalance {max(loads) / np.mean(loads):.4f}; wall ms of one "
+          f"call (host x to y, median of {MD_REPS}) "
+          f"{statistics.median(walls) * 1e3:.4f}; sig_diffs 0, max|y - "
+          f"y_single| / max|y_single| {err:.2e}; launches {md_launches}; "
+          f"conversions and call {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del md
+    torch.cuda.empty_cache()
+
+    # the NCCL code path: one rank per card
+    t0 = time.perf_counter()
+    ndev = torch.cuda.device_count()
+    spmd = spmd_pallas._spmd_from_sell(b_sell, b_csr, ndev)
+    job = SC.ShardJob("sell", spmd, b_x, (ndev,), reps=MD_REPS, detail=True)
+    out = launch.spawn(SC.run_shard_jobs, ndev, device_type="cuda",
+                       timeout_s=300, rank_args=[(
+                           [dataclasses.replace(job, obj=SC.for_rank(spmd, r))],)
+                           for r in range(ndev)])
+    recs = [o[0] for o in out]
+    if {r["backend"] for r in recs} != {"nccl"}:
+        fail(f"[multidevice] the NCCL ranks ran on {recs[0]['backend']}")
+    y_ref = b_csr.spmv(b_x)
+    check("banded_adversarial sell_spmv_spmd", recs,
+          lambda y: np.asarray(y, np.float64),
+          lambda y: difference_metrics(y_ref, y), b_single,
+          SC.shard_loads(spmd), {("sell", "sb-major")},
+          f"{ndev} NCCL rank(s), one a card; whole call by device time "
+          f"({time.perf_counter() - t0:.1f} s with the spawn)")
+
+    # the device-count sweep through the CLI, at the card's count
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="scale_sweep_")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.bench.cli", "--suite-entry",
+         MD_SCALE_ENTRY, "--scale-sweep", "--kernels", "sell",
+         "--output-dir", tmp],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        fail(f"[multidevice] bench.cli --scale-sweep exited "
+             f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(os.path.join(tmp, "spmv_scale_devices.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    shutil.rmtree(tmp)
+    counts = [n_ for n_ in (1, 2, 4, 8, 16, 32) if n_ <= ndev]
+    col = rows[0].index("num_threads") if rows else 0
+    if [r[col] for r in rows[1:]] != [str(c) for c in counts]:
+        fail(f"[multidevice] the scale sweep wrote rows {rows[1:]}, not one "
+             f"per count {counts}")
+    t_col = rows[0].index("time_parallel")
+    sweep = [ln for ln in proc.stdout.splitlines() if "spmd_sell x" in ln]
+    print(f"[multidevice] bench.cli --suite-entry {MD_SCALE_ENTRY} "
+          f"--scale-sweep: {len(rows) - 1} row(s), time_parallel s "
+          f"{[r[t_col] for r in rows[1:]]}; {sweep}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    print(f"[multidevice] host builds {build_s:.1f} s, the gloo ranks "
+          f"{ranks_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    group = {"sell": "", "spmm": " SpMM", "bsr": " SpMM", "pr": " PR"}
+    return {(group[g], k): v for (g, k), v in totals.items() if g in group}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1669,6 +2031,20 @@ def main() -> int:
     for group, ls in (("", launches), (" dd", launches_dd)):
         for key in ls:
             ls[key] += sweep_launches[group, key]
+
+    # ---- the multi-device layer: ranks sharing the card, then NCCL; the
+    # ranks count their own launches and the phase returns them ----
+    torch.cuda.empty_cache()
+    held = {r[0]: (r[1], r[3], r[4]) for r in runs}
+    md_launches = multidevice_phase(dev, {
+        **{k: held[k] for k in ("headline", "banded_adversarial",
+                                "scattered_uniform", "webbase_pr",
+                                "road_scattered")},
+        "band64_250k": (band64.bsr, band64.csr)})
+    for group, ls in (("", launches), (" SpMM", launches_mm),
+                      (" PR", launches_pr)):
+        for key in ls:
+            ls[key] += md_launches.get((group, key), 0)
 
     # ---- cuSPARSE's CSR SpMV on each phase's matrix: the yardstick ----
     library = {}

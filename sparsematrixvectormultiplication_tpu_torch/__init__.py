@@ -26,11 +26,20 @@ sparsematrixvectormultiplication_tpu_torch.bench.cli`` with checkpoint and
 resume, the reference-schema CSVs (``bench.csv_report``) and their report
 (``bench.report``), the SELL and hack-size autotuner (``tune.autotune``,
 measured on the card), the K-bin ladder sweep (``bench.scale``) and
-``torch.profiler`` traces (``utils.profiling``). It never imports JAX.
+``torch.profiler`` traces (``utils.profiling``). Across devices, the
+multi-device layer of ``parallel/``: one rank per shard on a
+``torch.distributed`` device mesh (NCCL, or gloo for CPU ranks and ranks
+that share a card) for row-sharded SELL SpMV and SpMM, column-sharded
+SELL, BSR SpMM, PR and the locality split, the row-, column- and
+2-D-sharded ELL paths, SELL shards on several devices from one process
+(``shard_sell_rows``), ranks spawned by ``parallel.launch.spawn`` or
+``torchrun``, and the device-count sweeps of ``bench.scale``. It never
+imports JAX.
 """
 
 from .bench.harness import run_matrix
-from .bench.scale import run_ladder_sweep
+from .bench.scale import (run_device_scale_sweep, run_ladder_sweep,
+                          run_path_scale_sweep, run_spmm_device_scale_sweep)
 from .formats.bsr import BSRMatrix
 from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
@@ -52,6 +61,17 @@ from .ops.sell_spmm import (MAX_RHS, device_put_x_multi, pack_x_multi,
 from .ops.split import (device_put_split, device_put_split_dd, split_spmv,
                         split_spmv_dd)
 from .ops.xla import device_put_csr, device_put_ell
+from .parallel.multidevice import MultiDeviceSell, shard_sell_rows
+from .parallel.scheduler import balanced_partition
+from .parallel.sharding import (col_sharded_spmv, make_mesh,
+                                row_sharded_spmv, shard_ell_2d,
+                                shard_ell_rows, sharded_spmv_2d)
+from .parallel.spmd_bsr import bsr_spmm_spmd, shard_bsr
+from .parallel.spmd_colsell import build_spmd_sell_cols, sell_spmv_spmd_cols
+from .parallel.spmd_pallas import (build_spmd_sell, sell_spmm_spmd,
+                                   sell_spmv_spmd)
+from .parallel.spmd_pr import build_spmd_pr, pr_spmv_spmd
+from .parallel.spmd_split import build_spmd_split, split_spmv_spmd
 from .solvers import (bicgstab, cg, cg_multi, cg_sell,
                       chebyshev_preconditioner, chebyshev_smooth,
                       gershgorin_bounds, gmres, iterative_refinement,
@@ -107,6 +127,29 @@ __all__ = [
     "device_put_ell",
     "run_matrix",
     "run_ladder_sweep",
+    "run_device_scale_sweep",
+    "run_path_scale_sweep",
+    "run_spmm_device_scale_sweep",
+    "balanced_partition",
+    "make_mesh",
+    "shard_ell_rows",
+    "row_sharded_spmv",
+    "shard_ell_2d",
+    "sharded_spmv_2d",
+    "col_sharded_spmv",
+    "MultiDeviceSell",
+    "shard_sell_rows",
+    "build_spmd_sell",
+    "sell_spmv_spmd",
+    "sell_spmm_spmd",
+    "shard_bsr",
+    "bsr_spmm_spmd",
+    "build_spmd_pr",
+    "pr_spmv_spmd",
+    "build_spmd_split",
+    "split_spmv_spmd",
+    "build_spmd_sell_cols",
+    "sell_spmv_spmd_cols",
     "autotune_sell",
     "autotune_hack_size",
     "profile_trace",

@@ -9,8 +9,9 @@ main.c:145):
     python -m sparsematrixvectormultiplication_tpu_torch.bench.cli \\
         --suite-entry cfd_like --autotune --ladder-sweep
 
-It runs on the CUDA device unless ``--device cpu`` asks for the CPU, and
-raises when there is none. It writes the native CSV plus the
+It runs on the CUDA device unless ``--device cpu`` or
+``--force-cpu-devices N`` asks for the CPU, and raises when there is none.
+It writes the native CSV plus the
 reference-compatible openmp/cuda-style CSVs, the bin geometry and the
 per-format memory footprint, and resumes a sweep from a checkpoint file (a
 capability the reference lacks: its startup wipes result/,
@@ -18,12 +19,15 @@ utility.c:200-216). ``--kernels`` takes the port's stage names
 (``bench.harness.STAGES``; ``serial_csr`` always runs) or the JAX package's
 (``xla_csr``, ``pallas_sell``, ...), so a JAX sweep line runs unchanged.
 A matrix that fails prints its traceback and the sweep goes on; the exit
-code is then 1.
+code is then 1. ``--scale-sweep`` adds, per matrix, the row-sharded SELL
+SpMV at 1, 2, 4, ... ranks (``bench.scale.run_device_scale_sweep``: one
+NCCL rank per GPU) to ``spmv_scale_devices.csv``; ``--force-cpu-devices N``
+runs everything on the CPU, that sweep over up to N gloo CPU ranks (the
+plain versions), as the JAX flag forces N virtual CPU devices.
 """
 
 # Ported from sparsematrixvectormultiplication_tpu/bench/cli.py (the port
-# must not import the JAX package). The device-count sweep (--scale-sweep,
-# --force-cpu-devices) comes with the multi-device layer.
+# must not import the JAX package).
 
 from __future__ import annotations
 
@@ -116,9 +120,17 @@ def build_parser():
                         "size per matrix: measured on a CUDA device, from "
                         "the host cost model on the CPU "
                         "(≙ cudaOccupancyMaxPotentialBlockSize)")
+    p.add_argument("--scale-sweep", action="store_true",
+                   help="per matrix, also sweep the device-count axis with the "
+                        "row-sharded SELL SpMV (openmp-schema rows, "
+                        "num_threads = device count ≙ main.c:18 thread sweep)")
     p.add_argument("--ladder-sweep", action="store_true",
                    help="per matrix, also time every K-bin ladder "
                         "(launch-config axis; native-schema rows)")
+    p.add_argument("--force-cpu-devices", type=int, default=0, metavar="N",
+                   help="run on the CPU, the device-count sweep over up to N "
+                        "gloo CPU ranks (for multi-device sweeps without "
+                        "several GPUs)")
     p.add_argument("--resume", action="store_true",
                    help="skip matrices already present in the checkpoint")
     p.add_argument("--profile-dir", default=None,
@@ -193,7 +205,7 @@ def main(argv=None, *, log=print):
         stages = stages_of(args.kernels)
     except ValueError as e:
         parser.error(str(e))
-    device = torch.device(args.device)
+    device = torch.device("cpu" if args.force_cpu_devices else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             f"--device {args.device}: torch.cuda.is_available() is false, "
@@ -262,6 +274,16 @@ def main(argv=None, *, log=print):
             write_openmp_style_row(openmp_csv, res)
             write_cuda_style_row(cuda_csv, res)
             write_tile_config_row(tiles_csv, res)
+            if args.scale_sweep:
+                from .scale import run_device_scale_sweep
+
+                run_device_scale_sweep(
+                    name, res.csr,
+                    os.path.join(args.output_dir, "spmv_scale_devices.csv"),
+                    iterations=max(4, args.iterations // 4), log=log,
+                    device=device.type,
+                    n_devices=args.force_cpu_devices or None,
+                )
             if args.ladder_sweep:
                 from .scale import run_ladder_sweep
 

@@ -23,7 +23,10 @@ over the kernels: CG and multi-RHS CG on the card in as many iterations as
 the same solve on the CPU's plain versions and at the f32 tolerance above of
 it, each launching the kernels of its container and never a plain version;
 CG over the dd kernels within 1e-10*max|x| of CG over the fp64 CSR
-container, in as many iterations.
+container, in as many iterations. The multi-device layer: 4 gloo ranks
+sharing the card launch the kernels of every sharded path and equal 4 CPU
+ranks' plain versions at the f32 tolerance; one NCCL rank per card and
+``shard_sell_rows`` on ``[cuda:0] * 4`` within it of the oracle.
 """
 
 import dataclasses
@@ -1769,3 +1772,98 @@ def test_sweep_cli_on_card(dev, tmp_path):
         assert r["significant_diffs"] == "0", r["stage"]
         if not r["stage"].startswith("serial"):
             assert float(r["pct_stream_bw"]) > 0, r["stage"]
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer: ranks on the card against the same paths' plain
+# versions on CPU ranks
+# ---------------------------------------------------------------------------
+
+
+def _shard_jobs(n):
+    """Row-sharded SELL (sg and add_into k-major bins), SELL SpMM (k-major),
+    BSR, PR, the split and column-sharded SELL over ``n`` shards."""
+    from sparsematrixvectormultiplication_tpu_torch.parallel import (
+        spmd_bsr, spmd_colsell, spmd_pallas, spmd_pr, spmd_split)
+    from sparsematrixvectormultiplication_tpu_torch.bench.scale import (
+        ShardJob)
+
+    rng = np.random.default_rng(0)
+    uni = CSRMatrix.from_coo(random_general(20000, 20000, 2.5e-4, seed=8))
+    band = CSRMatrix.from_coo(banded(8192, 9, 300, seed=1))
+    road = CSRMatrix.from_coo(road_network(50_000, seed=2))
+    x_u, x_b, x_r = (rng.standard_normal(c.ncols) for c in (uni, band, road))
+    X = rng.standard_normal((band.ncols, 8)).astype(np.float32)
+    return [
+        (ShardJob("sell", spmd_pallas.build_spmd_sell(uni, n), x_u, (n,),
+                  check_plain=True), uni.spmv(x_u)),
+        (ShardJob("sell_spmm", spmd_pallas.build_spmd_sell(
+            band, n, sell_kwargs={"layout": "k-major"}), X, (n,)), None),
+        (ShardJob("bsr", spmd_bsr.shard_bsr(BSRMatrix.from_csr(band), n), X,
+                  (n,)), None),
+        (ShardJob("pr", spmd_pr.build_spmd_pr(road, n), x_r, (n,)),
+         road.spmv(x_r)),
+        (ShardJob("split", spmd_split.build_spmd_split(road, n), x_r, (n,)),
+         road.spmv(x_r)),
+        (ShardJob("sell_cols", spmd_colsell.build_spmd_sell_cols(band, n),
+                  x_b, (n,), ("cols",)), band.spmv(x_b))]
+
+
+def test_sharded_paths_on_ranks_sharing_the_card(dev, tmp_path):
+    """4 gloo ranks on cuda:0 launch the kernels, and equal 4 CPU ranks'
+    plain versions within the f32 tolerance (and the oracle)."""
+    from sparsematrixvectormultiplication_tpu_torch.bench.scale import (
+        run_shard_jobs)
+    from sparsematrixvectormultiplication_tpu_torch.parallel import launch
+
+    jobs = _shard_jobs(4)
+    out, want = (launch.spawn(run_shard_jobs, 4, device_type=t,
+                              args=([j for j, _ in jobs],), timeout_s=300,
+                              store_dir=str(tmp_path))
+                 for t in ("cuda", "cpu"))
+    for i, (job, ref) in enumerate(jobs):
+        got = [torch.from_numpy(o[i]["y"]) for o in out]
+        for g in got[1:]:
+            assert torch.equal(g, got[0]), job.path
+        _close(got[0], torch.from_numpy(want[0][i]["y"]))
+        if ref is not None:
+            assert np.abs(got[0].double().numpy() - ref).max() <= \
+                1e-5 * np.abs(ref).max(), job.path
+        assert {o[i]["backend"] for o in out} == {"gloo"}
+        assert sum(sum(o[i]["launches"].values()) for o in out) > 0, job.path
+    assert out[0][0]["plain_max_abs_err"] <= 2e-5 * out[0][0]["plain_scale"]
+
+
+def test_nccl_ranks_one_per_card(dev, tmp_path):
+    from sparsematrixvectormultiplication_tpu_torch.bench.scale import (
+        ShardJob, run_shard_jobs)
+    from sparsematrixvectormultiplication_tpu_torch.parallel import (
+        launch, spmd_pallas)
+
+    n = torch.cuda.device_count()
+    csr = CSRMatrix.from_coo(banded(8192, 9, 300, seed=1))
+    x = np.random.default_rng(0).standard_normal(csr.ncols)
+    job = ShardJob("sell", spmd_pallas.build_spmd_sell(csr, n), x, (n,),
+                   reps=3)
+    out = launch.spawn(run_shard_jobs, n, device_type="cuda", args=([job],),
+                       timeout_s=300, store_dir=str(tmp_path))
+    assert {o[0]["backend"] for o in out} == {"nccl"}
+    ref = csr.spmv(x)
+    for o in out:
+        assert np.abs(o[0]["y"] - ref).max() <= 1e-5 * np.abs(ref).max()
+        assert o[0]["call_s"] > 0 and o[0]["launches"]
+
+
+def test_shard_sell_rows_on_one_card(dev):
+    from sparsematrixvectormultiplication_tpu_torch.parallel import (
+        multidevice)
+
+    csr = CSRMatrix.from_coo(banded(8192, 9, 300, seed=1))
+    x = np.random.default_rng(0).standard_normal(csr.ncols)
+    md = multidevice.shard_sell_rows(csr, [dev] * 4)
+    before = S.k_major_bin.launches + S.sb_major_bin.launches
+    y = md.spmv(x)
+    assert y.device == dev
+    assert S.k_major_bin.launches + S.sb_major_bin.launches > before
+    want = multidevice.shard_sell_rows(csr, [torch.device("cpu")] * 4).spmv(x)
+    _close(y.cpu(), want)
