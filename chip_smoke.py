@@ -9,7 +9,8 @@ wl, 128x128 BSR), the solvers over those kernels (CG and PCG,
 iteration, iterative refinement), the sweep CLI with the measured
 autotuner, the K-bin ladder sweep, resume and profiling, and the
 multi-device layer (``parallel/``: ranks on ``torch.distributed`` device
-meshes, gloo ranks sharing the card and one NCCL rank per card).
+meshes, gloo ranks sharing the card and one NCCL rank per card), and the
+entry programs (``entry.entry()``, ``entry.dryrun_multichip(n)`` and the demo).
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -171,6 +172,19 @@ this run within 1e-5 of max|y| (SpMM: per column); it prints each rank's
 kernel device time, the collective's time, the call and its wall, the
 partition's imbalance and the bytes each rank holds. The ranks count their
 own launches; the phase adds them to the JSON summary's.
+
+Then the entry-programs phase (:func:`entry_programs_phase`):
+``entry.entry()`` on ``cuda:0`` (its y equal to the plain k-major version
+bit for bit, no significant difference from the fp64 oracle,
+``sell_k_major`` launched),
+``entry.dryrun_multichip(4)`` on four gloo ranks sharing the card and
+``dryrun_multichip(torch.cuda.device_count())`` on one NCCL rank a card
+(every path of the JAX dryrun OK with the same y on every rank and its
+kernels launched; the 2-D ELL path reported as skipped at n = 1), and
+``python -m ...demo`` in a subprocess (exit 0, every tier without a
+significant difference, refinement within 1e-11, the SELL f32 time beside
+the card's name). The launches of ``entry()`` and of the ranks are added to
+the JSON summary's.
 
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
@@ -1454,6 +1468,129 @@ def multidevice_phase(dev, mats):
     return {(group[g], k): v for (g, k), v in totals.items() if g in group}
 
 
+DRYRUN_RANKS = 4   # dryrun_multichip's gloo ranks sharing cuda:0
+# the demo's lines, in its order; those with significant_diffs are its tiers
+DEMO_LINES = ("SELL f32:", "SELL fp64dd:", "BSR SpMM (", "SELL bf16:",
+              "SELL SpMM (", "refinement (bf16 inner CG):",
+              "Chebyshev(4) PCG:", "PageRank:", "auto format:",
+              "auto matvec (")
+
+
+def entry_programs_phase(dev, smi):
+    """The entry programs ``entry.py`` and ``demo.py`` through their entry
+    points. ``entry.entry()`` on ``dev``: its y equal to the plain version
+    of its k-major bin bit for bit and without a significant difference
+    from the fp64 oracle, and ``sell_k_major`` launched.
+    ``dryrun_multichip(DRYRUN_RANKS)`` (gloo ranks sharing the card) and
+    ``dryrun_multichip(torch.cuda.device_count())`` (one NCCL rank a card):
+    every path OK on the expected backend (``dryrun_multichip`` raises
+    where the ranks' y differ or a path but the ELL ones launched none of
+    its kernels), and the 2-D ELL path reported as skipped where the JAX
+    dryrun's mesh does not cover the ranks (n = 1). ``python -m ...demo``
+    in a subprocess: exit 0, each line of ``DEMO_LINES`` printed, every
+    tier ``significant_diffs=0`` and the SELL f32 time beside the card's
+    name.
+    Returns the launches of ``entry()`` and of the ranks, keyed (group,
+    kernel) with group "" (SELL SpMV), " SpMM" or " PR"."""
+    from sparsematrixvectormultiplication_tpu_torch.entry import (
+        _mesh_2d, dryrun_multichip, entry)
+    from sparsematrixvectormultiplication_tpu_torch.formats.csr import (
+        CSRMatrix)
+    from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
+        banded)
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
+    from sparsematrixvectormultiplication_tpu_torch.parallel.launch import (
+        backend_for)
+    from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
+        device_time_fn)
+    from sparsematrixvectormultiplication_tpu_torch.utils.validation import (
+        difference_metrics)
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    # entry(): one SpMV step; its launches read before it is timed
+    t0 = time.perf_counter()
+    fn, (dsell, x) = entry(dev)
+    k0 = S._KERNEL["k-major"].launches
+    y = fn(dsell, x)
+    torch.cuda.synchronize()
+    n_entry = S._KERNEL["k-major"].launches - k0
+    if not n_entry:
+        fail("[entry programs] entry(): sell_k_major was not launched")
+    totals["sell", "k-major"] = n_entry
+    if not torch.equal(y, S.sell_spmv_plain(dsell, x)):
+        fail("[entry programs] entry(): y differs from the plain k-major "
+             "version")
+    csr = CSRMatrix.from_coo(banded(8192, 24, 512, seed=0))
+    dm = difference_metrics(csr.spmv(np.ones(csr.ncols)),
+                            y.double().cpu().numpy())
+    if dm.significant_diffs or y.shape != (csr.nrows,):
+        fail(f"[entry programs] entry(): {dm.significant_diffs} significant "
+             f"diffs vs the oracle, y of shape {tuple(y.shape)}")
+    ms = device_time_fn(fn, dsell, x, device=dev) * 1e3
+    print(f"[entry programs] entry() on {dev}: bins "
+          f"{[(b.layout, b.k, b.n_groups) for b in dsell.bins]}, "
+          f"sell_k_major launched {n_entry}; y equal to the plain version "
+          f"bit for bit; sig_diffs 0, max_rel {dm.max_rel_err:.2e}; device "
+          f"{ms:.4f} ms ({smi}); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del dsell, x, y
+
+    for n in (DRYRUN_RANKS, torch.cuda.device_count()):
+        t0 = time.perf_counter()
+        summary = dryrun_multichip(
+            n, "cuda",
+            log=lambda m: print(f"[entry programs] {m}", flush=True))
+        skip = _mesh_2d(n)[1]
+        backend = backend_for("cuda", n)
+        for s in summary:
+            if s["path"] == "ell_2d" and skip is not None:
+                if s["status"] != "skipped":
+                    fail(f"[entry programs] dryrun_multichip({n}): the 2-D "
+                         "path ran on a mesh that does not cover the ranks")
+                continue
+            if s["status"] != "ok" or s["backend"] != backend:
+                fail(f"[entry programs] dryrun_multichip({n}) "
+                     f"{s['function']}: {s['status']} on {s.get('backend')}, "
+                     f"not ok on {backend}")
+            for key, v in s["launches"].items():
+                totals[key] = totals.get(key, 0) + v
+        errs = {s["path"]: f"{s['rel_err']:.2e}" for s in summary
+                if s["status"] == "ok"}
+        print(f"[entry programs] dryrun_multichip({n}): {n} {backend} "
+              f"rank(s) on {torch.cuda.device_count()} card(s), "
+              f"max|y - y_ref| / max|y_ref| by path {errs}; 2-D "
+              f"{'skipped: ' + skip if skip else 'ran'}; "
+              f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"{PKG}.demo"], capture_output=True,
+        text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = proc.stdout.splitlines()
+    for ln in lines:
+        print(f"[entry programs] demo: {ln}", flush=True)
+    if proc.returncode != 0:
+        fail(f"[entry programs] the demo exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    timed = f"SELL f32 time on {torch.cuda.get_device_name(0)}:"
+    for head in (*DEMO_LINES, timed):
+        got = [ln for ln in lines if ln.startswith(head)]
+        if len(got) != 1:
+            fail(f"[entry programs] the demo printed {len(got)} lines that "
+                 f"start with {head!r}")
+        if "significant_diffs=" in got[0] and \
+                "significant_diffs=0 " not in got[0]:
+            fail(f"[entry programs] demo tier: {got[0]}")
+    print(f"[entry programs] demo exited 0 in "
+          f"{time.perf_counter() - t0:.1f} s ({smi}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    group = {"sell": "", "spmm": " SpMM", "bsr": " SpMM", "pr": " PR"}
+    return {(group[g], k): v for (g, k), v in totals.items() if g in group}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -2045,6 +2182,15 @@ def main() -> int:
                       (" PR", launches_pr)):
         for key in ls:
             ls[key] += md_launches.get((group, key), 0)
+
+    # ---- the entry programs: entry(), dryrun_multichip on shared and own
+    # cards, the demo; entry() and the ranks count their own launches ----
+    torch.cuda.empty_cache()
+    ep_launches = entry_programs_phase(dev, smi)
+    for group, ls in (("", launches), (" SpMM", launches_mm),
+                      (" PR", launches_pr)):
+        for key in ls:
+            ls[key] += ep_launches.get((group, key), 0)
 
     # ---- cuSPARSE's CSR SpMV on each phase's matrix: the yardstick ----
     library = {}
@@ -2830,6 +2976,12 @@ def main() -> int:
         spmm_phase("headline", d, csr, rhs, "headline",
                    hsell if rhs == SPMM_RHS else None)
     rhs_sweep("headline", d, WL_SWEEP_RHS)
+    # cuSPARSE SpMM at the sweep's other R: the wl rows' library yardstick
+    lib_by_r = {rhs: cusparse_spmm("headline", csr, np.random.default_rng(
+        SEED).standard_normal((csr.ncols, rhs), dtype=np.float32))
+        for rhs in WL_SWEEP_RHS}
+    print(f"[headline] cuSPARSE SpMM device ms by R: "
+          f"{ {r: round(v, 4) for r, v in lib_by_r.items()} }", flush=True)
     columns_equal_spmv("[headline] wl", d, np.random.default_rng(
         SEED).standard_normal((csr.ncols, SPMM_RHS), dtype=np.float32))
     del d, headline

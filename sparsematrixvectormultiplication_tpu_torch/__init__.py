@@ -33,8 +33,11 @@ that share a card) for row-sharded SELL SpMV and SpMM, column-sharded
 SELL, BSR SpMM, PR and the locality split, the row-, column- and
 2-D-sharded ELL paths, SELL shards on several devices from one process
 (``shard_sell_rows``), ranks spawned by ``parallel.launch.spawn`` or
-``torchrun``, and the device-count sweeps of ``bench.scale``. It never
-imports JAX.
+``torchrun``, and the device-count sweeps of ``bench.scale``. The
+entry programs: ``entry`` (``entry()``, one SELL SpMV step, and
+``dryrun_multichip(n)``, one step of every sharded path on n ranks) and
+``demo`` (every kernel tier on one matrix, validated), each runnable with
+``python -m``. It never imports JAX.
 """
 
 from .bench.harness import run_matrix
@@ -43,10 +46,12 @@ from .bench.scale import (run_device_scale_sweep, run_ladder_sweep,
 from .formats.bsr import BSRMatrix
 from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
-from .formats.hll import HLLMatrix
+from .formats.hll import DEFAULT_HACK_SIZE, HLLMatrix
 from .formats.pr import PanelPRMatrix, PRMatrix, pr_from_csr
 from .formats.sell import PanelSellMatrix, SellMatrix
 from .formats.split import SplitMatrix
+from .io.mmio import (MMIOError, MMTypeCode, read_banner,
+                      read_matrix_market, write_matrix_market)
 from .ops.auto import AutoOp, auto_device_op, choose_format
 from .ops.bsr import DeviceBSR, bsr_spmm, device_put_bsr, pad_rhs
 from .ops.hll import hll_to_sell
@@ -122,7 +127,13 @@ __all__ = [
     "pad_rhs",
     "bsr_spmm",
     "HLLMatrix",
+    "DEFAULT_HACK_SIZE",
     "hll_to_sell",
+    "MMIOError",
+    "MMTypeCode",
+    "read_banner",
+    "read_matrix_market",
+    "write_matrix_market",
     "device_put_csr",
     "device_put_ell",
     "run_matrix",
