@@ -59,7 +59,8 @@ each stage and each stage timed as the best of 3 device-time rounds:
 * band64_250k:        banded(250_000, 64, 64, seed=11), the BSR case of
                       probes/bsr_spmm_tpu.py: ``sell`` and ``sell_dd``
                       (forced to k-major: the main path's k-major bin that
-                      streams from HBM, f32 and dd), ``sell_spmm`` and
+                      streams from HBM, f32 and dd; the dd bin, of one
+                      lane a row, must be compacted), ``sell_spmm`` and
                       ``bsr_spmm`` (B=128); then ``bsr_spmm`` on its
                       blocks in f32 and bf16, at B=128 and B=512, by both
                       routes, each validated against the fp64 oracle (bf16:
@@ -211,11 +212,12 @@ k-major, wl, sb-list and sg kernels (dd: k-major, wl, sb-list and sg), whose
 plain versions add in the kernels' order and rounding, bit for bit, each
 k-major bin whether its rows are split over lanes or not (the smoke prints
 each bin's lanes a row). Each compacted bin's kernel (wl, and sb-list with
-int32 planes; f32 and dd) must also return what the padded layout before
-compaction returned (``wl_padded_plain``, ``sb_list_padded_plain``: every
-slot, pads included) bit for bit, and each compacted sg bin's (f32, bf16) the
-padded tiles' sums (``sg_padded_plain``) within f32 rounding, the same
-products in another order; the smoke prints each such bin's padded (sg: its
+int32 planes; f32 and dd; and dd k-major bins of one lane a row) must also
+return what the padded layout before compaction returned
+(``wl_padded_plain``, ``sb_list_padded_plain``, ``k_major_padded_plain_dd``:
+every slot, pads included) bit for bit, and each compacted sg bin's (f32,
+bf16) the padded tiles' sums (``sg_padded_plain``) within f32 rounding, the
+same products in another order; the smoke prints each such bin's padded (sg: its
 real tiles') and compacted slots and bytes, the headline's upload seconds,
 and scattered_uniform's dd SpMV bin by bin. A zero-rule phase then runs, for
 each SELL layout (k-major, sb-major, sb-list with int32 and int16 planes, wl,
@@ -2288,9 +2290,11 @@ def main() -> int:
 
     def shape_note(b):
         """What a bin's kernel launch depends on beyond its planes: a
-        k-major bin's lanes a row, a padded sg bin's chunks a group."""
+        k-major bin's lanes a row (dd, one lane: compacted), a padded sg
+        bin's chunks a group."""
         if b.layout == "k-major":
-            return f" lanes={S._k_major_lanes(b)}"
+            return (f" lanes={S._k_major_lanes(b)}"
+                    f"{' compacted' if b.row_table is not None else ''}")
         if b.layout == "sg":
             return (" compacted" if b.row_table is not None
                     else f" chunks={S._sg_chunks(b)}")
@@ -2410,7 +2414,7 @@ def main() -> int:
 
     def compacted(b):
         """Whether ``b``'s planes were compacted at upload: wl, sb-list with
-        int32 planes, and f32/bf16 sg."""
+        int32 planes, f32/bf16 sg and dd k-major of one lane a row."""
         return b.layout == "wl" or b.row_table is not None
 
     def padded_check(tag, hb, b, xs, dd):
@@ -2422,8 +2426,9 @@ def main() -> int:
         ys = [torch.zeros(n, device=dev) for _ in xs]
         if dd:
             dd_wrappers[b.layout](b, *xs, *ys)
-            want = (D.wl_padded_plain_dd if b.layout == "wl"
-                    else D.sb_list_padded_plain_dd)(hb, *xs)
+            want = {"wl": D.wl_padded_plain_dd,
+                    "sb-list": D.sb_list_padded_plain_dd,
+                    "k-major": D.k_major_padded_plain_dd}[b.layout](hb, *xs)
         else:
             wrappers[b.layout](b, *xs, *ys)
             want = ({"wl": S.wl_padded_plain, "sb-list":
@@ -2528,6 +2533,9 @@ def main() -> int:
             up_s = time.perf_counter() - t0
             if i16 and not any(b.ja.dtype == torch.int16 for b in d.bins):
                 fail(f"{name}: sb_i16 packed no dd bin")
+            if name == "band64_250k" and any(b.row_table is None
+                                             for b in d.bins):
+                fail(f"{name}: its k-major dd bin was not compacted")
             xh, xl = D.device_put_x_dd(x, sell.ncols, device=dev)
             y_k = combine_f64(*D.sell_spmv_dd(d, xh, xl))
             y_p = combine_f64(*D.sell_spmv_dd_plain(d, xh, xl))

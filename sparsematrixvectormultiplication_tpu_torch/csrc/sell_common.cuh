@@ -16,7 +16,8 @@
 //   DDSum: double-double (hi, lo) f32 planes of values, x and y; each slot's
 //     product by dd::mul_dd, the row's sum by dd::add_dd (dd.cuh), which
 //     nvcc cannot contract. With `accumulate` the row's sum is added onto y
-//     (f32 add, or dd::add_dd of y's pair and the sum), else stored.
+//     (f32 add, or dd::add_dd of y's pair and the sum), else stored. Its
+//     `gather` loads a column's (hi, lo) x pair from the two tables.
 // Partial sums of one row are joined by `combine` (one f32 add, or
 // dd::add_dd). Kernels that batch their loads load a slot's value apart from
 // its add (`load`, then `add(acc, v, col)`):
@@ -112,6 +113,13 @@ struct DDSum {
   __device__ __forceinline__ void add(Acc& acc, int64_t off, int col) const {
     add(acc, load(off), col);
   }
+  using XVal = float2;  // a column's (hi, lo) x
+  __device__ __forceinline__ XVal gather(int col) const {
+    return make_float2(__ldg(x_hi + col), __ldg(x_lo + col));
+  }
+  __device__ __forceinline__ void add(Acc& acc, Val v, XVal xv) const {
+    add_unless_zero(acc, v, xv.x, xv.y);
+  }
   __device__ __forceinline__ static Acc combine(Acc a, Acc b) {
     dd::add_dd(a.hi, a.lo, b.hi, b.lo);
     return a;
@@ -174,8 +182,9 @@ __device__ __forceinline__ DDSum::Acc shfl_xor(DDSum::Acc v, int m) {
   return {__shfl_xor_sync(~0u, v.hi, m), __shfl_xor_sync(~0u, v.lo, m)};
 }
 
-// The row-list kernel of the compacted layouts: sb-list with int32 planes
-// and sg in f32 and bf16 (ops/sell.py `_compact_sl`, `_compact_sg`). The
+// The row-list kernel of the compacted layouts: sb-list with int32 planes,
+// sg in f32 and bf16, and k-major dd bins of one lane a row (ops/sell.py
+// `_compact_sl`, `_compact_sg`, `_compact_km`). The
 // upload sorts each group's rows by their real length, longest first, keeps
 // each row's real slots in the order its layout adds them and gives each 32
 // sorted rows a plane as wide as the longest of them: sorted row s = g*1024
@@ -185,8 +194,8 @@ __device__ __forceinline__ DDSum::Acc shfl_xor(DDSum::Acc v, int m) {
 // rows: a warp reads 128 contiguous bytes of each plane row, its rows'
 // lengths nearly equal, and each thread loads B slots' columns and values
 // before it adds them; with kGatherFirst it gathers the batch's x in a pass
-// of its own before the adds (sg's long rows run faster so on the H100,
-// sb-list's rows of 1-8 slots slower). Rows are unique within a bin, so the
+// of its own before the adds (sg's long rows and k-major dd's run faster so
+// on the H100, sb-list's rows of 1-8 slots slower). Rows are unique within a bin, so the
 // scattered y stores need no atomics.
 constexpr int kWarp = 32;       // sorted rows sharing one compacted plane
 constexpr int kRowBits = 10;    // row_table: (length << 10) | row in group

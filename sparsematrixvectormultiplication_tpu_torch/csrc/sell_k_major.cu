@@ -29,7 +29,28 @@
 // the lower lane's sum first (Sum::combine), so the row's sum is the same
 // fixed pairwise tree on every run; its first lane writes y. A block then
 // covers 128/G rows, and the bin launches n_groups * 8 * G blocks. Bins at
-// or above the threshold run with G = 1, the path above.
+// or above the threshold run with G = 1, the path above, or in dd the
+// compacted path below.
+//
+// A dd bin of one thread a row streamed its pads at 12 B a slot and at the
+// card's read rate: on banded(250_000, 64, 64) 21% of its K = 64 slots were
+// pads, since K is the longest row of each group. Those bins are compacted
+// at upload (ops/sell.py `_compact_km`: the rows of each 128-row block
+// sorted by their real length, a row's real slots in k order, one plane per
+// 32 sorted rows, hi and lo value planes) and run by the row-list kernel of
+// sell_common.cuh with the DDSum policy (`sell_k_major_dd_list`), a block
+// on the 128 rows the padded kernel's block ran: a real slot's two 4-byte
+// values and its 4-byte column, 4 slots a batch, then the batch's x pairs
+// gathered from the two x tables before its adds. Measured on the H100
+// (bench/kmajor_dd_sweep.py): rows sorted within their block, whose x
+// gathers and y stores lie near each other, ran 1-7% faster than rows
+// sorted within their group, and the two x tables spared the launch of the
+// interleaved table that one (hi, lo) pair a slot (DDPairs) needs, for a
+// faster whole SpMV. A row's real slots are added in the order the padded
+// kernel adds them, and a pad added (0, 0) there, which leaves a
+// normalised pair as it was, so the two layouts give the same sums bit for
+// bit.
+//
 // Rows within a bin are unique and bins run in order on one stream, so y is
 // written with a plain store, or, with `accumulate` (the sg far-remainder
 // bins and column panels), read and added onto without atomics.
@@ -41,6 +62,8 @@ namespace sell {
 // kSplit: the rows' slots are split over `lanes` lanes (a power of two, at
 // most 32); otherwise one thread a row
 constexpr int kSplitBatch = 4;  // a split lane's slots in flight together
+// a compacted dd row's slots in flight together, its x gathered after them
+constexpr int kKmListBatch = 4;
 
 template <typename Sum, bool kSplit>
 __global__ void __launch_bounds__(kLanes)
@@ -142,4 +165,20 @@ extern "C" int sell_k_major_dd(const int* group_ids, const int* ja,
   return sell::launch_k_major(
       group_ids, ja, sell::DDSum{as_hi, as_lo, x_hi, x_lo, y_hi, y_lo},
       n_groups, K, lanes, accumulate, stream);
+}
+
+// the compacted planes of a bin of one lane a row: group_ids, plane_off,
+// row_table, ja, then the hi/lo value planes, x tables and y
+extern "C" int sell_k_major_dd_list(const int* group_ids,
+                                    const int* plane_off,
+                                    const int* row_table, const int* ja,
+                                    const float* as_hi, const float* as_lo,
+                                    const float* x_hi, const float* x_lo,
+                                    float* y_hi, float* y_lo,
+                                    int64_t n_groups, int accumulate,
+                                    void* stream) {
+  return sell::launch_row_list<sell::DDSum, sell::kKmListBatch, true>(
+      group_ids, plane_off, row_table, ja,
+      sell::DDSum{as_hi, as_lo, x_hi, x_lo, y_hi, y_lo}, n_groups,
+      accumulate, stream);
 }

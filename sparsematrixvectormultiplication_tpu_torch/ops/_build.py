@@ -36,8 +36,9 @@ _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 # C entry -> argument types; every entry returns cudaGetLastError() as an int.
 # The k-major and sb dd entries take, in place of (as, x, y), the hi/lo
-# planes (as_hi, as_lo, x_hi, x_lo, y_hi, y_lo); the wl and sg dd entries
-# (as2, x2, y_hi, y_lo): (hi, lo) value pairs and an interleaved x table.
+# planes (as_hi, as_lo, x_hi, x_lo, y_hi, y_lo); the wl, sg and compacted
+# sb-list dd entries (as2, x2, y_hi, y_lo): (hi, lo) value pairs and an
+# interleaved x table.
 _DD = (_P,) * 6
 _ENTRIES = {
     # group_ids, ja, as, x, y, n_groups, K, lanes, accumulate, stream
@@ -63,6 +64,9 @@ _ENTRIES = {
     **{f"sell_{lay}_{v}": (*(_P,) * 7, _I64, _I32, _P)
        for lay in ("sb_list", "sg") for v in ("f32", "bf16")},
     "sell_sb_list_dd": (*(_P,) * 8, _I64, _I32, _P),
+    # compacted k-major dd: group_ids, plane_off, row_table, ja, as_hi,
+    # as_lo, x_hi, x_lo, y_hi, y_lo, n_groups, accumulate, stream
+    "sell_k_major_dd_list": (*(_P,) * 4, *_DD, _I64, _I32, _P),
     # padded sg, dd: group_ids, table, counts, ja, as2, x2, y_hi, y_lo,
     # scratch, n_groups, T, stride, slots, chunks, accumulate, stream
     "sell_sg_dd": (*(_P,) * 9, _I64, _I32, _I32, _I32, _I32, _I32, _P),

@@ -5,7 +5,8 @@ bin layout:
 
 * ``k-major`` (``_kernel_k_major``) -> ``csrc/sell_k_major.cu``; a bin of
   few groups splits each row's slots over lanes (:func:`_k_major_lanes`)
-  joined in a fixed order
+  joined in a fixed order (the dd bins of one lane a row are compacted:
+  :func:`_compact_km`, :mod:`.sell_dd`)
 * ``wl`` window-layered (``_kernel_wl``) -> ``csrc/sell_wl.cu``, on planes
   the upload compacts (:func:`_compact_wl`: the pad slots are dropped and
   each real slot carries a 2-byte column code)
@@ -84,7 +85,9 @@ class DeviceBinIndex:
     Every layout's value plane is ``(n_groups*k*8, 128)``.
 
     * ``k-major``: ``ja`` holds absolute columns; entry e of row i*128+j of
-      group g at row ``(g*k + e)*8 + i``. ``slab_list`` is not read.
+      group g at row ``(g*k + e)*8 + i``. ``slab_list`` is not read. A dd
+      bin of one lane a row is compacted (:func:`_compact_km`) into the
+      compacted sb-list layout below, a row's slots in e order.
     * ``sb-major`` / ``sb-list``: entry e of row sb*128+j at row
       ``g*8k + sb*k + e``, in chunks of ``chunk_k`` entries. ``ja`` holds
       absolute columns (int32, sb-major) or the int16 planes of
@@ -134,7 +137,8 @@ class DeviceBinIndex:
     row_len: torch.Tensor | None = None    # wl: (n_groups*1024,) int32
     # wl: (n_groups*8 + 1,) int32; compacted sb-list, sg: (n_groups*32 + 1,)
     plane_off: torch.Tensor | None = None
-    # compacted sb-list and f32/bf16 sg: (n_groups*1024,) int32
+    # compacted sb-list, f32/bf16 sg and dd k-major of one lane a row:
+    # (n_groups*1024,) int32
     row_table: torch.Tensor | None = None
 
     @property
@@ -335,19 +339,25 @@ def _sl_compacts(index: dict) -> bool:
 
 
 def _row_lists(index: dict, length: torch.Tensor, r: torch.Tensor,
-               q: torch.Tensor, cols: torch.Tensor, srcs: list) -> tuple:
-    """The compacted row-list planes of sb-list and sg bins, on the bin's
-    device: ``length`` ``(n_groups, 1024)`` holds each row's real slots,
-    and real slot i is slot ``q[i]`` of row ``r[i]`` (``g*1024 + row``), its
-    absolute column ``cols[i]`` and its values ``srcs`` (one tensor a
-    plane). Each group's rows are sorted by their length, longest first, in
-    a stable order, and each 32 sorted rows get a plane as wide as the
-    longest of them. Returns the index fields, with ``ja`` the columns,
+               q: torch.Tensor, cols: torch.Tensor, srcs: list,
+               window: int = GROUP_ROWS) -> tuple:
+    """The compacted row-list planes of sb-list, sg and dd k-major bins, on
+    the bin's device: ``length`` ``(n_groups, 1024)`` holds each row's real
+    slots, and real slot i is slot ``q[i]`` of row ``r[i]`` (``g*1024 +
+    row``), its absolute column ``cols[i]`` and its values ``srcs`` (one
+    tensor a plane). The rows of each ``window`` rows of a group (the whole
+    group by default) are sorted by their length, longest first, in a
+    stable order, and each 32 sorted rows get a plane as wide as the longest
+    of them. Returns the index fields, with ``ja`` the columns,
     ``row_table`` and ``plane_off`` (see :class:`DeviceBinIndex`) and an
     empty ``slab_list``, and the value planes."""
     ng = index["n_groups"]
     dev = length.device
-    lens, local = torch.sort(length, dim=1, descending=True, stable=True)
+    lens, local = torch.sort(length.view(ng, -1, window), dim=2,
+                             descending=True, stable=True)
+    lens = lens.view(ng, GROUP_ROWS)
+    local = (local + torch.arange(0, GROUP_ROWS, window, device=dev)[
+        :, None]).view(ng, GROUP_ROWS)
     plane_off = torch.zeros(ng * GROUP_ROWS // _WARP + 1, dtype=torch.int32,
                             device=dev)
     plane_off[1:] = torch.cumsum(lens.view(-1, _WARP).amax(1), 0,
@@ -373,30 +383,58 @@ def _row_lists(index: dict, length: torch.Tensor, r: torch.Tensor,
     return index, [scatter(v) for v in srcs]
 
 
-def _compact_sl(index: dict, planes: list) -> tuple:
-    """Drop the pad slots of an sb-list bin with int32 planes, on the bin's
-    device, with torch ops.
+def _compact_rows(index: dict, planes: list, by_row,
+                  window: int = GROUP_ROWS) -> tuple:
+    """Drop the pad slots of a padded bin, on the bin's device, with torch
+    ops: ``by_row`` lays a plane out as ``(n_groups*1024, k)``, row ``g*1024
+    + r``'s slots in the order its padded kernel adds them. A slot is kept
+    when its value is not zero in some plane, as :func:`_compact_wl` keeps
+    it; a row's real slots keep their order, laid out by :func:`_row_lists`
+    (rows sorted within ``window`` rows). The padded planes are not
+    kept."""
+    keep = by_row(planes[0] != 0)
+    for p in planes[1:]:
+        keep |= by_row(p != 0)
+    length = keep.sum(1, dtype=torch.int32).view(index["n_groups"],
+                                                 GROUP_ROWS)
+    r, slot = keep.nonzero(as_tuple=True)
+    q = keep.cumsum(1, dtype=torch.int32)[r, slot] - 1
+    del keep
+    return _row_lists(index, length, r, q, by_row(index["ja"])[r, slot],
+                      [by_row(p)[r, slot] for p in planes], window)
 
-    ``index`` holds the bin's fields from :func:`_put_bin_index` and
-    ``planes`` its padded value planes (f32 or bf16, or the dd hi and lo
-    planes). A slot is kept when its value is not zero in some plane, as
-    :func:`_compact_wl` keeps it; a row's real slots keep their entry order,
-    laid out by :func:`_row_lists`. The padded planes are not kept."""
+
+def _compact_sl(index: dict, planes: list) -> tuple:
+    """Drop the pad slots of an sb-list bin with int32 planes
+    (:func:`_compact_rows`): ``index`` holds the bin's fields from
+    :func:`_put_bin_index` and ``planes`` its padded value planes (f32 or
+    bf16, or the dd hi and lo planes); a row's slots in entry order."""
     ng, k = index["n_groups"], index["k"]
 
     def by_row(t):  # (rows g*1024 + sb*128 + j, the k slots in entry order)
         return t.view(ng, SUBLANES, k, LANES).transpose(2, 3).reshape(
             ng * GROUP_ROWS, k)
 
-    keep = by_row(planes[0] != 0)
-    for p in planes[1:]:
-        keep |= by_row(p != 0)
-    length = keep.sum(1, dtype=torch.int32).view(ng, GROUP_ROWS)
-    r, slot = keep.nonzero(as_tuple=True)
-    q = keep.cumsum(1, dtype=torch.int32)[r, slot] - 1
-    del keep
-    return _row_lists(index, length, r, q, by_row(index["ja"])[r, slot],
-                      [by_row(p)[r, slot] for p in planes])
+    return _compact_rows(index, planes, by_row)
+
+
+def _compact_km(index: dict, planes: list) -> tuple:
+    """Drop the pad slots of a k-major bin (:func:`_compact_rows`), the dd
+    bins of one lane a row (:mod:`.sell_dd`): entry k of row i*128 + j of
+    group g sits at plane row ``(g*K + k)*8 + i``, lane j, and a row's slots
+    keep k order, the order in which the padded kernel adds them. Rows are
+    sorted by length within their 128-row block, so that each 128-thread
+    block of the kernel runs the rows the padded kernel's block ran, whose
+    x gathers and y stores lie near each other (on an H100 1-7% faster than
+    a sort over the whole group on band64's bin, by kernel variant:
+    ``bench/kmajor_dd_sweep.py``)."""
+    ng, k = index["n_groups"], index["k"]
+
+    def by_row(t):  # (rows g*1024 + i*128 + j, the k slots in k order)
+        return t.view(ng, k, SUBLANES, LANES).permute(0, 2, 3, 1).reshape(
+            ng * GROUP_ROWS, k)
+
+    return _compact_rows(index, planes, by_row, LANES)
 
 
 def _compact_sg(index: dict, planes: list) -> tuple:
@@ -538,7 +576,10 @@ def device_put_x(x, ncols: int, *, device) -> torch.Tensor:
 
 def _k_major_slots(b: DeviceBinIndex):
     """Entry k of row i*128+j of group g at plane row ``(g*K + k)*8 + i``
-    gathers ``x[ja]``."""
+    gathers ``x[ja]``; a compacted bin (:func:`_compact_km`) decodes as a
+    compacted sb-list bin (:func:`_list_slots`)."""
+    if b.row_table is not None:
+        return _list_slots(b)
     shape = (b.n_groups, b.k, SUBLANES, LANES)
     return shape, b.ja.view(shape).long(), None, (1,)
 
@@ -643,10 +684,10 @@ def _sl_slots(b: DeviceBinIndex):
 
 
 def _list_slots(b: DeviceBinIndex):
-    """Slot (r, l) of a compacted bin's planes (sb-list, sg): its column
-    ``ja[r, l]`` and whether it is a real slot (within its sorted row's
-    length). No axes sum the compacted planes into rows: the plain versions
-    walk each row's slots (:func:`_list_steps`)."""
+    """Slot (r, l) of a compacted bin's planes (sb-list, sg, k-major): its
+    column ``ja[r, l]`` and whether it is a real slot (within its sorted
+    row's length). No axes sum the compacted planes into rows: the plain
+    versions walk each row's slots (:func:`_list_steps`)."""
     widths = (b.plane_off[1:] - b.plane_off[:-1]).long()
     warp = torch.repeat_interleave(
         torch.arange(widths.numel(), device=b.ja.device), widths)
@@ -801,7 +842,11 @@ def k_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
     0 (:func:`fma_f32`) in the kernel's order: in k order, or, split over G
     = :func:`_k_major_lanes` lanes, lane p's slots k = p, p + G, ... in
     order and the lanes joined by :func:`_lane_join`; so the kernel equals
-    it bit for bit."""
+    it bit for bit. A compacted bin (the dd layout of one lane a row, f32
+    values), which no f32 kernel takes, sums as the row-list kernel does
+    (:func:`_list_plain`)."""
+    if b.row_table is not None:
+        return _list_plain(b, x_tab)
     lanes = _k_major_lanes(b)
     shape = (b.n_groups, b.k, SUBLANES, LANES)
     vals = _lane_split(b.as_.view(shape), lanes)
@@ -870,10 +915,10 @@ def sb_major_bin_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
 
 
 def _list_plain(b: DeviceSellBin, x_tab: torch.Tensor) -> torch.Tensor:
-    """A compacted bin's rows (sb-list, sg) as the row-list kernel sums
-    them: each sorted row's slots (:func:`_list_steps`) in plane order,
-    ``acc = fmaf(v, x[col], acc)`` from 0 (:func:`fma_f32`), zero values
-    skipped; ``(n_groups, 8, 128)`` in row order."""
+    """A compacted bin's rows (sb-list, sg, k-major) as the row-list kernel
+    sums them: each sorted row's slots (:func:`_list_steps`) in plane
+    order, ``acc = fmaf(v, x[col], acc)`` from 0 (:func:`fma_f32`), zero
+    values skipped; ``(n_groups, 8, 128)`` in row order."""
     acc = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
                       device=x_tab.device)
     vals, cols = b.as_.view(-1), b.ja.view(-1)
@@ -1044,9 +1089,11 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
     tensors = {"group_ids": b.group_ids, "ja": b.ja, "slab_list": b.slab_list,
                "slab_count": b.slab_count, **values}
     tables = ["group_ids", "slab_list", "slab_count"]
-    # the row-list layouts: sb-list with int32 planes, sg in f32 and bf16
+    # the row-list layouts: sb-list with int32 planes, sg in f32 and bf16,
+    # compacted k-major (dd)
     listed = (b.layout == "sb-list" and b.ja.dtype == torch.int32) or (
-        b.layout == "sg" and not pairs)
+        b.layout == "sg" and not pairs) or (b.layout == "k-major"
+                                            and b.row_table is not None)
     if b.layout == "wl":
         if b.row_len is None or b.plane_off is None:
             raise ValueError("wl bin without row_len / plane_off: upload it "
@@ -1055,8 +1102,9 @@ def _check_bin(b: DeviceBinIndex, values: dict, device: torch.device,
         tables += ["row_len", "plane_off"]
     elif listed:
         if b.row_table is None or b.plane_off is None:
-            what = ("sb-list bin with int32 planes" if b.layout == "sb-list"
-                    else "f32/bf16 sg bin")
+            what = {"sb-list": "sb-list bin with int32 planes",
+                    "sg": "f32/bf16 sg bin",
+                    "k-major": "compacted k-major dd bin"}[b.layout]
             raise ValueError(f"{what} without row_table / plane_off: upload "
                              "it with device_put_sell")
         tensors.update(row_table=b.row_table, plane_off=b.plane_off)
@@ -1135,6 +1183,9 @@ def _check_table(b: DeviceBinIndex, numel: int, what: str):
 
 
 def _k_major_call(b):
+    if b.row_table is not None:  # _compact_km
+        return ("sell_k_major", "_list", (b.group_ids, b.plane_off,
+                                          b.row_table, b.ja), (b.n_groups,))
     return ("sell_k_major", "", (b.group_ids, b.ja),
             (b.n_groups, b.k, _k_major_lanes(b)))
 

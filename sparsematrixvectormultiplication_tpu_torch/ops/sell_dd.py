@@ -8,7 +8,9 @@ comes back as a pair that :func:`combine_f64` joins in fp64. One CUDA kernel
 per bin layout, each the dd instantiation of the f32 kernel's source:
 
 * ``k-major`` (``_kernel_k_major_dd``) -> ``csrc/sell_k_major.cu``
-  ``sell_k_major_dd``
+  ``sell_k_major_dd`` for bins whose rows split over lanes and, on the
+  compacted planes of :func:`~.sell._compact_km` (the bins of one lane a
+  row), ``sell_k_major_dd_list``
 * ``wl`` (``_kernel_wl_dd``) -> ``csrc/sell_wl.cu`` ``sell_wl_dd``, on the
   compacted planes of :func:`~.sell._compact_wl`
 * ``sb-major`` / ``sb-list`` (``_kernel_sb_major_dd``, ``_kernel_sb_list_dd``),
@@ -20,16 +22,18 @@ per bin layout, each the dd instantiation of the f32 kernel's source:
   and bf16 sg bins are compacted; the dd ones are not)
 
 The bins share their index planes, tables and column decode with
-:mod:`.sell`. k-major, sb-major and padded sb-list bins keep separate hi
-and lo value planes; wl, sg and compacted sb-list bins keep one plane of
-interleaved (hi, lo) pairs (``as_pair``, one 8-byte load a slot), and their
-kernels gather x from one interleaved table (:func:`pack_x_pair`) that
-:func:`sell_spmv_dd` builds once per call from the two halves. Each kernel
-has a wrapper (``*_bin_dd``) and a plain PyTorch version (``*_bin_plain_dd``)
-returning the ``(hi, lo)`` row sums ``(n_groups, 8, 128)``: the same slot
-products, reduced over each row's entries by a pairwise tree of
-``dd_add_dd`` (sb-major) or in the kernel's own order (k-major, wl,
-sb-list, sg: bit for bit). A slot whose value is zero (hi and lo both
+:mod:`.sell`. k-major (compacted or not), sb-major and padded sb-list bins
+keep separate hi and lo value planes; wl, sg and compacted sb-list bins
+keep one plane of interleaved (hi, lo) pairs (``as_pair``, one 8-byte load
+a slot), and their kernels gather x from one interleaved table
+(:func:`pack_x_pair`) that :func:`sell_spmv_dd` builds once per call from
+the two halves. Whether a k-major bin is compacted is a function of its
+shape (:func:`_km_compacts`), so the upload, the checks and the plain
+version agree on it. Each kernel has a wrapper (``*_bin_dd``) and a plain
+PyTorch version (``*_bin_plain_dd``) returning the ``(hi, lo)`` row sums
+``(n_groups, 8, 128)``: the same slot products, reduced over each row's
+entries by a pairwise tree of ``dd_add_dd`` (sb-major) or in the kernel's
+own order (k-major, wl, sb-list, sg: bit for bit). A slot whose value is zero (hi and lo both
 zero) adds nothing to its row, in every kernel and plain version. A wrapper
 given CUDA tensors launches its kernel, or raises; given CPU tensors it runs
 the plain version. Each wrapper counts its launches in ``.launches``, and
@@ -47,11 +51,11 @@ import torch
 from ..formats.sell import GROUP_ROWS, LANES, SUBLANES
 from .doubledouble import combine_f64, dd_add_dd, dd_mul_dd, split_f64
 from .sell import (DeviceBinIndex, _assemble, _assemble_panels,
-                   _check_launch, _check_panel_x, _compact_sl, _compact_wl,
-                   _k_major_lanes, _lane_join, _lane_split, _launch,
-                   _list_steps, _on, _put_bin_index, _sb_padded, _scratch,
-                   _sg_chunks, _sg_slots, _sg_sums, _sl_compacts, _SLOTS,
-                   _unsort, _wl_padded, _wl_steps, pack_x_table)
+                   _check_launch, _check_panel_x, _compact_km, _compact_sl,
+                   _compact_wl, _k_major_lanes, _lane_join, _lane_split,
+                   _launch, _list_steps, _on, _put_bin_index, _sb_padded,
+                   _scratch, _sg_chunks, _sg_slots, _sg_sums, _sl_compacts,
+                   _SLOTS, _unsort, _wl_padded, _wl_steps, pack_x_table)
 
 __all__ = [
     "DeviceSellBinDD", "DeviceSellDD", "DevicePanelSellDD",
@@ -62,13 +66,24 @@ __all__ = [
     "sell_spmv_dd_launches",
     "panel_sell_spmv_dd", "panel_sell_spmv_dd_plain", "sell_spmv_dd_f64",
     "pack_x_pair", "wl_padded_plain_dd", "sb_list_padded_plain_dd",
+    "k_major_padded_plain_dd",
 ]
 
 
 def _pairs(b: DeviceBinIndex) -> bool:
     """Whether the bin's values and x travel as (hi, lo) pairs: wl, sg and
     compacted sb-list bins."""
-    return b.layout in ("wl", "sg") or b.row_table is not None
+    return b.layout in ("wl", "sg") or (b.layout == "sb-list"
+                                        and b.row_table is not None)
+
+
+def _km_compacts(b) -> bool:
+    """Whether k-major bin ``b`` (a host bin or a device bin) is compacted
+    in dd (:func:`~.sell._compact_km`): its rows run one lane each
+    (:func:`~.sell._k_major_lanes`, a function of its groups and K), where
+    every pad slot streamed is a whole slot's bytes; split rows keep their
+    padded planes. Both keep hi and lo value planes."""
+    return b.layout == "k-major" and _k_major_lanes(b) == 1
 
 
 @dataclass(kw_only=True)
@@ -115,6 +130,8 @@ def _put_bin_dd(b, device, sb_i16: bool) -> DeviceSellBinDD:
         elif _sl_compacts(index):
             index, (hi, lo) = _compact_sl(index, [hi, lo])
         elif b.layout != "sg":
+            if _km_compacts(b):
+                index, (hi, lo) = _compact_km(index, [hi, lo])
             return DeviceSellBinDD(**index, as_hi=hi, as_lo=lo)
         return DeviceSellBinDD(**index, as_pair=torch.stack([hi, lo], -1))
     return _on(device, put)
@@ -129,9 +146,10 @@ def device_put_sell_dd(sell, *, device, sb_i16=False):
     :class:`DevicePanelSellDD`), or the JAX package's host counterparts.
     Index planes are those of :func:`~.sell.device_put_sell`: wl bins and
     sb-list bins with int32 planes compacted (a slot is dropped when both
-    halves of its value are zero), sb planes int16 with ``sb_i16=True``
-    where the span fits; wl, sg and compacted sb-list values as one plane of
-    (hi, lo) pairs."""
+    halves of its value are zero), and so are k-major bins of one lane a
+    row (:func:`_km_compacts`); sb planes int16 with ``sb_i16=True`` where
+    the span fits; wl, sg and compacted sb-list values as one plane of (hi,
+    lo) pairs."""
     if hasattr(sell, "panels"):
         return DevicePanelSellDD(
             int(sell.nrows), int(sell.ncols), int(sell.nnz),
@@ -202,8 +220,11 @@ def k_major_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
     """dd twin of :func:`~.sell.k_major_bin_plain`: each lane's slots that
     are not zero in the kernel's order, ``acc = dd_add_dd(acc, dd_mul_dd(v,
     x[col]))`` from (0, 0), the lanes joined by ``dd_add_dd`` in the
-    kernel's tree (:func:`~.sell._lane_join`), so the kernel equals it bit
-    for bit."""
+    kernel's tree (:func:`~.sell._lane_join`), or a compacted bin's rows in
+    k order (:func:`_list_plain_dd`); so the kernel equals it bit for
+    bit."""
+    if b.row_table is not None:
+        return _list_plain_dd(b, xh, xl)
     lanes = _k_major_lanes(b)
     shape = (b.n_groups, b.k, SUBLANES, LANES)
     vh, vl = (_lane_split(v.view(shape), lanes) for v in (b.as_hi, b.as_lo))
@@ -280,22 +301,59 @@ def _in_order_dd(b: DeviceSellBinDD, xh, xl):
     return h, l
 
 
+def _list_plain_dd(b: DeviceSellBinDD, xh, xl):
+    """dd twin of :func:`~.sell._list_plain`: a compacted bin's sorted rows
+    (sb-list: (hi, lo) pairs; k-major: hi and lo planes), each row's slots
+    in plane order, ``acc = dd_add_dd(acc, dd_mul_dd(v, x[col]))`` from (0,
+    0), zero values skipped; ``(n_groups, 8, 128)`` pairs in row order."""
+    h = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
+                    device=xh.device)
+    l = torch.zeros_like(h)
+    vh, vl = ((b.as_pair[..., 0], b.as_pair[..., 1]) if _pairs(b)
+              else (b.as_hi, b.as_lo))
+    vh, vl, cols = vh.reshape(-1), vl.reshape(-1), b.ja.view(-1)
+    for pos, has in _list_steps(b):
+        c = cols[pos].long()
+        nh, nl = dd_add_dd(h, l, *dd_mul_dd(vh[pos], vl[pos], xh[c], xl[c]))
+        live = has & _nonzero_dd(vh[pos], vl[pos])
+        h, l = torch.where(live, nh, h), torch.where(live, nl, l)
+    return _unsort(b, h), _unsort(b, l)
+
+
 def sb_list_bin_plain_dd(b: DeviceSellBinDD, xh, xl):
     """dd twin of :func:`~.sell.sb_list_bin_plain`: each row's real slots in
     entry order, ``acc = dd_add_dd(acc, dd_mul_dd(v, x[col]))`` from (0,
     0), so the kernel equals it bit for bit."""
     if b.row_table is None:
         return _in_order_dd(b, xh, xl)
-    h = torch.zeros(b.n_groups * GROUP_ROWS, dtype=torch.float32,
+    return _list_plain_dd(b, xh, xl)
+
+
+def k_major_padded_plain_dd(hb, xh, xl):
+    """The padded k-major kernel's function of one lane a row, which the
+    compaction must keep: host bin ``hb``'s values split as the upload
+    splits them, and every one of a row's ``k`` slots, pads included, in k
+    order, ``acc = dd_add_dd(acc, dd_mul_dd(v, x'))`` from (0, 0) with
+    ``x'`` the slot's x, or (0, 0) where its value is (the stored-zero rule
+    as ``csrc/sell_common.cuh`` applies it); ``(n_groups, 8, 128)`` pairs.
+    A slot of value (0, 0) adds (0, 0), which leaves the row's normalised
+    pair as it was, so :func:`k_major_bin_plain_dd` of the compacted bin
+    equals it bit for bit."""
+    shape = (hb.n_groups, hb.k, SUBLANES, LANES)
+    cols = torch.from_numpy(np.asarray(hb.ja, np.int64)).to(xh.device).view(
+        shape)
+    vh, vl = (torch.from_numpy(v).to(xh.device).view(shape)
+              for v in split_f64(np.asarray(hb.as_, np.float64)))
+    h = torch.zeros(hb.n_groups, SUBLANES, LANES, dtype=torch.float32,
                     device=xh.device)
     l = torch.zeros_like(h)
-    vals, cols = b.as_pair.view(-1, 2), b.ja.view(-1)
-    for pos, has in _list_steps(b):
-        v, c = vals[pos], cols[pos].long()
-        nh, nl = dd_add_dd(h, l, *dd_mul_dd(v[:, 0], v[:, 1], xh[c], xl[c]))
-        live = has & _nonzero_dd(v[:, 0], v[:, 1])
-        h, l = torch.where(live, nh, h), torch.where(live, nl, l)
-    return _unsort(b, h), _unsort(b, l)
+    for e in range(hb.k):
+        c = cols[:, e]
+        take = _nonzero_dd(vh[:, e], vl[:, e])
+        h, l = dd_add_dd(h, l, *dd_mul_dd(vh[:, e], vl[:, e],
+                                          torch.where(take, xh[c], 0.0),
+                                          torch.where(take, xl[c], 0.0)))
+    return h, l
 
 
 def sb_list_padded_plain_dd(hb, xh, xl):
@@ -353,6 +411,12 @@ def _bin_dd(wrapper, b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool,
             x_pair):
     if xh.device.type == "cpu":
         return _write_plain_dd(b, xh, xl, yh, yl, accumulate)
+    if b.layout == "k-major" and (b.row_table is not None) != _km_compacts(
+            b):
+        raise ValueError(
+            "a k-major dd bin of one lane a row runs on compacted planes, "
+            "one split over lanes on padded ones: upload it with "
+            "device_put_sell_dd")
     ys = {"y_hi": yh, "y_lo": yl}
     if not _pairs(b):
         _check_launch(b, {"as_hi": b.as_hi, "as_lo": b.as_lo},

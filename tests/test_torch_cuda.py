@@ -6,8 +6,10 @@ Tolerance: rtol=1e-5, atol=1e-5*max|y| (f32 sums in another order); the
 double-double kernels 1e-12*max|y| on the fp64-combined result (dd sums in
 another order), and exact on rows whose terms cancel; the k-major (split
 over lanes or not), k-major SpMM, wl, sb-list and sg kernels bit for bit
-against their plain versions, which add in the kernels' order, and the
-compacted sg kernel within f32 rounding of the padded layout's sums. Every
+against their plain versions, which add in the kernels' order, the
+compacted dd k-major kernel also against the padded layout's result
+(``k_major_padded_plain_dd``), and the compacted sg kernel within f32
+rounding of the padded layout's sums. Every
 SELL kernel follows the stored-zero rule: a stored zero with x infinite at
 its column leaves every row finite and equal to the fp64 oracle without it
 (f32: rtol=1e-5, atol=1e-5*max|y|; dd: 1e-12*max|y|). The PR kernels are
@@ -62,6 +64,7 @@ from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
     random_general,
     road_network,
 )
+from sparsematrixvectormultiplication_tpu_torch.ops import _build
 from sparsematrixvectormultiplication_tpu_torch.ops import bsr as BSR
 from sparsematrixvectormultiplication_tpu_torch.ops import pr as PRo
 from sparsematrixvectormultiplication_tpu_torch.ops import pr_dd as PRD
@@ -513,6 +516,97 @@ def test_k_major_kernel_equals_plain_bit_for_bit(split, precision, dev):
     for b in d.bins:
         assert (S._k_major_lanes(b) > 1) == (split == "split")
         _equal_storing_and_adding(b, precision, kernel, plain, x, dev)
+
+
+# matrix -> generator: k-major bins of 33 or more groups, whose rows run one
+# lane each, so the dd upload compacts them (band64's shape cut to 40 groups,
+# and the demo's SELL dd tier)
+KM_LIST = {"band64": lambda: banded(40_000, 64, 64, seed=11),
+           "demo": lambda: banded(50_000, 24, 500, seed=0)}
+
+
+@pytest.mark.parametrize("matrix", sorted(KM_LIST))
+def test_compacted_k_major_dd_kernel_bit_for_bit(matrix, dev):
+    """The compacted k-major dd kernel against its plain version, storing
+    and dd-adding, and against the padded layout's result
+    (``k_major_padded_plain_dd``: every slot, pads included, in k order),
+    bit for bit."""
+    csr = CSRMatrix.from_coo(KM_LIST[matrix]())
+    sell = SellMatrix.from_csr(csr, layout="k-major")
+    d = D.device_put_sell_dd(sell, device=dev)
+    x = _x_for(csr, "dd", dev)
+    assert d.bins
+    for h, b in zip(sell.bins, d.bins):
+        assert S._k_major_lanes(b) == 1 and b.row_table is not None
+        assert b.ja.numel() < np.size(h.ja)  # pad slots were dropped
+        stored = _equal_storing_and_adding(b, "dd", D.k_major_bin_dd,
+                                           D.k_major_bin_plain_dd, x, dev)
+        for got, exp in zip(stored, D.k_major_padded_plain_dd(h, *x)):
+            assert torch.equal(got, exp)
+
+
+def test_compacted_k_major_dd_panels(dev):
+    """Column panels of compacted k-major dd bins: every bin dd-adds onto
+    one y pair, equal to the plain assembly and to each bin's padded
+    layout bit for bit."""
+    csr = CSRMatrix.from_coo(random_general(40_000, 40_000, 1.5e-3, seed=3))
+    psell = PanelSellMatrix.from_csr(csr, max_panel_cols=20_480,
+                                     layout="k-major")
+    dps = D.device_put_sell_dd(psell, device=dev)
+    bins = [b for p in dps.panels for b in p.bins]
+    assert len(dps.panels) == 2 and bins
+    assert all(b.row_table is not None for b in bins)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        csr.ncols)).to(dev)
+    xh = x.float()
+    xl = (x - xh.double()).float()
+    before = (D.k_major_bin_dd.launches, D.k_major_bin_dd.accumulating)
+    got = D.panel_sell_spmv_dd(dps, xh, xl)
+    torch.cuda.synchronize()
+    assert (D.k_major_bin_dd.launches - before[0],
+            D.k_major_bin_dd.accumulating - before[1]) == (len(bins),) * 2
+    for g, w in zip(got, D.panel_sell_spmv_dd_plain(dps, xh, xl)):
+        assert torch.equal(g, w)
+    for p, (hp, dp) in enumerate(zip(psell.panels, dps.panels)):
+        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
+        tabs = (S.pack_x_table(xh[c0:c1], c1 - c0),
+                S.pack_x_table(xl[c0:c1], c1 - c0))
+        for h, b in zip(hp.bins, dp.bins):
+            y = [torch.zeros(dps.num_groups * 1024, device=dev)
+                 for _ in range(2)]
+            D.k_major_bin_dd(b, *tabs, *y)
+            rows = b.group_ids.long()
+            for t, exp in zip(y, D.k_major_padded_plain_dd(h, *tabs)):
+                assert torch.equal(t.view(-1, 8, 128)[rows], exp)
+
+
+def test_compacted_k_major_dd_bin_launches_the_list_entry(dev, monkeypatch):
+    """A dd SpMV over a compacted k-major bin launches
+    ``sell_k_major_dd_list`` once a bin, counted on the k-major dd wrapper,
+    and never the padded entry."""
+    csr = CSRMatrix.from_coo(banded(40_000, 64, 64, seed=11))
+    d = D.device_put_sell_dd(SellMatrix.from_csr(csr, layout="k-major"),
+                             device=dev)
+    xh, xl = D.device_put_x_dd(np.ones(csr.ncols), csr.ncols, device=dev)
+    lib = _build.load()
+    entry, called = lib.sell_k_major_dd_list, []
+
+    def listed(*args):
+        called.append(args)
+        return entry(*args)
+
+    def padded(*args):
+        raise AssertionError("the padded k-major dd entry was launched")
+
+    monkeypatch.setattr(lib, "sell_k_major_dd_list", listed)
+    monkeypatch.setattr(lib, "sell_k_major_dd", padded)
+    before = D.k_major_bin_dd.launches
+    y = combine_f64(*D.sell_spmv_dd(d, xh, xl))
+    torch.cuda.synchronize()
+    assert len(called) == len(d.bins) == D.k_major_bin_dd.launches - before
+    y_ref = csr.spmv(np.ones(csr.ncols))
+    assert np.abs(y.cpu().numpy() - y_ref).max() < 1e-12 * np.abs(
+        y_ref).max()
 
 
 # layout -> (matrix, SellMatrix.from_csr keywords, int16 sb planes)

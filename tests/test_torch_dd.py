@@ -162,6 +162,12 @@ def _by_row_sb(h, plane):
         0, 1, 3, 2).reshape(h.n_groups * 1024, h.k)
 
 
+def _by_row_km(h, plane):
+    """A host k-major plane as (rows, k): each row's k slots in k order."""
+    return np.asarray(plane).reshape(h.n_groups, h.k, 8, 128).transpose(
+        0, 2, 3, 1).reshape(h.n_groups * 1024, h.k)
+
+
 def _kept_rows(h, plane, keep, by_row=_by_row):
     """Each row's kept slots of a host wl (or sb) plane first, in order,
     then 0s."""
@@ -219,10 +225,10 @@ def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
     d = D.device_put_sell_dd(sell, device="cpu", sb_i16=i16)
     assert len(d.bins) == len(jd.bins) == len(sell.bins)
     for b, jb, h in zip(d.bins, jd.bins, sell.bins):
-        # the hi/lo planes are the JAX split of the same bin (wl and int32
-        # sb-list: its real slots, row by row; they and sg: as (hi, lo)
-        # pairs), and the index planes the JAX upload's (which may append
-        # padding groups)
+        # the hi/lo planes are the JAX split of the same bin (wl, int32
+        # sb-list and k-major of one lane a row: its real slots, row by row;
+        # wl, sb-list and sg: as (hi, lo) pairs), and the index planes the
+        # JAX upload's (which may append padding groups)
         hi, lo = jdd.split_f64(np.asarray(h.as_, np.float64))
         n = hi.shape[0]
         jhi, jlo = np.asarray(jb.as_hi)[:n], np.asarray(jb.as_lo)[:n]
@@ -233,14 +239,17 @@ def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
                     _wl_rows(b, b.as_pair[..., half]),
                     _kept_rows(h, want, (jhi != 0) | (jlo != 0)))
             continue
-        if b.layout == "sb-list" and not i16:
+        if (b.layout == "sb-list" and not i16) or D._km_compacts(b):
             # compacted: each row's real slots, values and columns in order
+            assert b.row_table is not None
             keep = (jhi != 0) | (jlo != 0)
-            for got, want in ((b.as_pair[..., 0], jhi),
-                              (b.as_pair[..., 1], jlo),
+            halves = ((b.as_pair[..., 0], b.as_pair[..., 1])
+                      if b.layout == "sb-list" else (b.as_hi, b.as_lo))
+            for got, want in ((halves[0], jhi), (halves[1], jlo),
                               (b.ja, np.asarray(jb.ja)[:n])):
                 assert np.array_equal(_sl_rows(b, got), _kept_rows(
-                    h, want, keep, _by_row_sb))
+                    h, want, keep, _by_row_sb if b.layout == "sb-list"
+                    else _by_row_km))
             continue
         got = (b.as_pair[..., 0], b.as_pair[..., 1]) if b.layout == "sg" \
             else (b.as_hi, b.as_lo)
