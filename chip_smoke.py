@@ -9,8 +9,9 @@ wl, 128x128 BSR), the solvers over those kernels (CG and PCG,
 iteration, iterative refinement), the sweep CLI with the measured
 autotuner, the K-bin ladder sweep, resume and profiling, and the
 multi-device layer (``parallel/``: ranks on ``torch.distributed`` device
-meshes, gloo ranks sharing the card and one NCCL rank per card), and the
-entry programs (``entry.entry()``, ``entry.dryrun_multichip(n)`` and the demo).
+meshes, gloo ranks sharing the card and one NCCL rank per card), the
+entry programs (``entry.entry()``, ``entry.dryrun_multichip(n)`` and the demo)
+and the flagship line (``bench/flagship.py``, bench.py's port).
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card:
 
@@ -86,6 +87,15 @@ panels (k-major and wl bins) through ``panel_sell_spmv`` and ``sell_spmm``
 road_scattered matrices and on power_law(200_000, 3), which must pick
 "sell", "split" and "pr" and whose ``matvec`` must launch the kernels of
 what it picked.
+
+Then the flagship phase (:func:`flagship_phase`): bench.py's line through
+``bench/flagship.py``'s three per-matrix functions at full size on the
+headline's, banded_adversarial's and road_scattered's COOs (no matrix is
+generated twice; x = 1), its record printed as ``python -m ...bench`` prints
+it and its ``valid`` true, each conversion's layouts wl, sb-major and
+sb-list. The SELL counters are set to 0 just before it and read just after:
+the wl kernel must launch in f32, bf16 and dd, sb-major in f32 and dd, and
+sb-list in f32; the phase's launches are added to the JSON summary's.
 
 Then the solver phase (:func:`solver_phase`): the solvers of ``solvers/`` at
 full size over the kernels, with the launch counters set to 0 just before it
@@ -1593,6 +1603,73 @@ def entry_programs_phase(dev, smi):
     return {(group[g], k): v for (g, k), v in totals.items() if g in group}
 
 
+# the flagship line's matrices and the main-path phase whose COO each takes
+FLAGSHIP_COOS = {"fem3d_cube": "headline",
+                 "banded_adversarial": "banded_adversarial",
+                 "road_scattered": "road_scattered"}
+# the kernels the flagship line must launch, (group, layout): "" f32, " bf16"
+# and " dd"
+FLAGSHIP_KERNELS = (("", "wl"), (" bf16", "wl"), (" dd", "wl"),
+                    ("", "sb-major"), (" dd", "sb-major"), ("", "sb-list"))
+
+
+def flagship_phase(dev, coos, generate_s):
+    """The flagship line (``bench/flagship.py``, ≙ bench.py) at full size:
+    its three per-matrix functions on the main path's COOs of ``coos``
+    (phase -> COO; no matrix is generated twice; ``generate_s``, phase ->
+    the seconds its generation took there), the record built and printed
+    as ``python -m ...bench`` prints it, its ``valid`` true. Each function
+    raises where its conversion gives other layouts than the line's (wl,
+    sb-major, sb-list). The SELL counters are set to 0 just before and read
+    just after: the wl kernel must launch in f32, bf16 and dd, sb-major in
+    f32 and dd and sb-list in f32. Returns the launches keyed (group,
+    layout) with group "" (f32 and bf16) or " dd"."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        flagship as F)
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+
+    t_phase = time.perf_counter()
+
+    def log(m):
+        print(f"[flagship] {m}", flush=True)
+
+    ws = {"": S._KERNEL, " dd": D._KERNEL_DD}
+    for w in (*S._KERNEL.values(), *D._KERNEL_DD.values()):
+        w.launches = 0
+        w.accumulating = 0
+    for w in S._KERNEL.values():
+        w.launches_bf16 = 0
+    runners = {"fem3d_cube": F.run_fem3d_cube,
+               "banded_adversarial": F.run_banded_adversarial,
+               "road_scattered": F.run_road_scattered}
+    results, gen = {}, {}
+    for name, phase in FLAGSHIP_COOS.items():
+        gen[name] = generate_s[phase]
+        results[name] = runners[name](coos[phase], dev, log)
+    got = {(g, k): w.launches for g in ws for k, w in ws[g].items()}
+    bf16 = {k: w.launches_bf16 for k, w in S._KERNEL.items()}
+    card, limit = F.card(dev, log)
+    rec = F.flagship_record(
+        results, device=card, power_limit_w=limit,
+        wall_s=time.perf_counter() - t_phase + sum(gen.values()),
+        generate_s=gen, log=log)
+    print(json.dumps(rec), flush=True)
+    if not rec["valid"]:
+        fail("flagship: the record is not valid")
+    count = {("", k): got["", k] - bf16[k] for k in bf16}
+    count |= {(" bf16", k): bf16[k] for k in bf16}
+    count |= {(" dd", k): got[" dd", k] for k in D._KERNEL_DD}
+    idle = [f"{k}{g}" for g, k in FLAGSHIP_KERNELS if count[g, k] <= 0]
+    if idle:
+        fail(f"flagship: the kernels {idle} were not launched")
+    launched = {f"{k}{g}": n for (g, k), n in count.items() if n}
+    log(f"launches {launched}; the line valid; wall {rec['wall_s']:.1f} s "
+        "(with the generation in the main path's phases); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
@@ -1911,9 +1988,13 @@ def main() -> int:
     spmm_runs = []  # (phase, the k-major SELL of its sell_spmm stage, csr)
     phase_csr = {}
     web = road = band64 = headline = None
+    flagship_coos, flagship_gen = {}, {}  # the flagship phase's, by phase
     for name, make, layouts, stages, *cfg_kw in phases:
         t0 = time.perf_counter()
         coo = make()
+        if name in FLAGSHIP_COOS.values():
+            flagship_coos[name] = coo
+            flagship_gen[name] = time.perf_counter() - t0
         x = np.random.default_rng(SEED).standard_normal(coo.ncols)
         before = (counts(), counts(dd_wrappers), counts(pr_wrappers),
                   counts(spmm_wrappers))
@@ -2050,6 +2131,7 @@ def main() -> int:
     panel = (csr, x)
     before = {lay: w.accumulating for lay, w in wrappers.items()}
     before_dd = {lay: w.accumulating for lay, w in dd_wrappers.items()}
+    n_panel = (sum(counts().values()), sum(counts(dd_wrappers).values()))
     for dtype, vals in ((torch.float32, csr.values),
                         (torch.bfloat16, quantize_bf16(csr.values))):
         y = S.panel_sell_spmv(S.device_put_sell(psell, dtype, device=dev),
@@ -2069,6 +2151,8 @@ def main() -> int:
     if sig or not dd_err < DD_TOL:
         fail(f"panels dd: {sig} significant diffs, norm-scaled error "
              f"{dd_err:.3e}")
+    n_panel = (sum(counts().values()) - n_panel[0],
+               sum(counts(dd_wrappers).values()) - n_panel[1])
     before_mm = {lay: spmm_wrappers[lay].accumulating for lay in got}
     Xp = np.random.default_rng(SEED).standard_normal((csr.ncols, 8),
                                                       dtype=np.float32)
@@ -2086,7 +2170,8 @@ def main() -> int:
     print(f"[panels] {csr.nrows} rows, {csr.nnz} nnz, "
           f"{len(psell.panels)} panels, bins "
           f"{[[(b.layout, b.k, b.n_groups) for b in p.bins] for p in psell.panels]}, "
-          f"dd norm-scaled error {dd_err:.3e}; "
+          f"dd norm-scaled error {dd_err:.3e}; SpMV launches f32 and bf16 "
+          f"{n_panel[0]}, dd {n_panel[1]}; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     launches, launches_dd = counts(), counts(dd_wrappers)
@@ -2153,6 +2238,15 @@ def main() -> int:
               f"{sorted(f'{g} {k}' for g, k in want)}, max_rel "
               f"{dm.max_rel_err:.2e}; {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+    # ---- the flagship line (bench.py) at full size on the main path's
+    # COOs; its launches are counted from a reset just before the phase ----
+    torch.cuda.empty_cache()
+    fl_launches = flagship_phase(dev, flagship_coos, flagship_gen)
+    del flagship_coos
+    for group, ls in (("", launches), (" dd", launches_dd)):
+        for key in ls:
+            ls[key] += fl_launches[group, key]
 
     # ---- the solvers at full size; their launches are counted from a reset
     # just before the phase and added to the main path's ----
@@ -2611,8 +2705,10 @@ def main() -> int:
                            *(torch.from_numpy(h).to(dev)
                              for h in split_f64(panel[1])),
                            device=dev, reps=PLAIN_DD_REPS) * 1e3
-    print(f"[panels] panel SpMV device time f32 {ms32:.4f} ms"
-          f"{lib_note('panels', *panel, torch.float32)}; dd {ms_dd:.4f} ms"
+    print(f"[panels] panel SpMV device time f32 {ms32:.4f} ms (bound "
+          f"{csr_bound_ms(panel[0], 4, 1):.6f})"
+          f"{lib_note('panels', *panel, torch.float32)}; dd {ms_dd:.4f} ms "
+          f"(bound {csr_bound_ms(panel[0], 8, 2):.6f})"
           f"{lib_note('panels', *panel, torch.float64)}", flush=True)
     dps = D.device_put_sell_dd(psell, device=dev)
     xh, xl = (torch.from_numpy(h).to(dev)

@@ -89,8 +89,11 @@ bracket calls that the host dispatches in between).
 Every stage records its norm-scaled error ``max|y - y_ref| / max|y_ref|``
 (SpMM: over the sampled columns), and every device stage in
 ``StageResult.extra["device_bytes"]`` the bytes of the tensors it ran on:
-its planes and tables, its x and its y. Any other failure of a stage
-raises.
+its planes and tables, its x and its y; ``extra["reps"]`` holds the
+calls a round of ``seconds`` timed (``iterations``, or fewer on the card
+under the launch cap). The SELL-kernel stages record the seconds of their
+upload, the device's work on it included, in
+``format_stats["upload_<stage>_s"]``. Any other failure of a stage raises.
 """
 
 from __future__ import annotations
@@ -502,11 +505,13 @@ def _timed(cfg: BenchConfig, device, fn, *args, launches: int = 1):
     statistic of the module doc; ``extra["device_bytes"]`` counts the
     tensors of ``args`` and of the result. ``launches`` (what one call
     queues) caps the device-time reps at ``MAX_QUEUED_LAUNCHES``."""
-    extra = {"device_bytes": device_bytes(args, fn(*args))}
+    extra = {"device_bytes": device_bytes(args, fn(*args)),
+             "reps": cfg.iterations}
     per_call = time_fn(fn, *args, device=device, reps=cfg.iterations,
                        skip=cfg.skip)
     if device.type == "cuda":
-        reps = max(1, min(cfg.iterations, MAX_QUEUED_LAUNCHES // launches))
+        reps = extra["reps"] = max(1, min(cfg.iterations,
+                                          MAX_QUEUED_LAUNCHES // launches))
         sec = min(device_time_fn(fn, *args, device=device, reps=reps,
                                  skip=max(cfg.skip, 1))
                   for _ in range(cfg.rounds))
@@ -578,6 +583,17 @@ def _kernel_ids(sell, seg_map, n_rows: int):
     return np.asarray(ids, np.int64)
 
 
+def _upload(res, stage, device, put, *args):
+    """``put(*args, device=device)``, its seconds until the device is done
+    recorded as ``format_stats["upload_<stage>_s"]``."""
+    t0 = time.perf_counter()
+    d = put(*args, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    res.format_stats[f"upload_{stage}_s"] = time.perf_counter() - t0
+    return d
+
+
 def _run_sell(res, stage, sell, ids, dtype, xt, ref, device, log, what="",
              assembly="auto", **extra):
     """Upload ``sell`` with ``dtype`` values, flush, run it once with the
@@ -585,7 +601,7 @@ def _run_sell(res, stage, sell, ids, dtype, xt, ref, device, log, what="",
     through ``ids`` (:func:`_kernel_ids`) and time the SpMV; the segment
     reduction is an epilogue kept out of the timed call, as the JAX harness
     keeps it."""
-    d = device_put_sell(sell, dtype, device=device)
+    d = _upload(res, stage, device, device_put_sell, sell, dtype)
     spmv = functools.partial(sell_spmv, assembly=assembly)
     flush_hbm(device)
     y = spmv(d, xt)
@@ -683,7 +699,7 @@ def _sell_stages(res, want, csr_k, seg_map, sell_kw, assembly, x_dt, y_ref,
         return
 
     res.sell_dd = sell
-    d = device_put_sell_dd(sell, device=device)
+    d = _upload(res, "sell_dd", device, device_put_sell_dd, sell)
     flush_hbm(device)
     y64 = combine_f64(*sell_spmv_dd(d, xh, xl)).cpu().numpy()
     if ids is not None:  # host-exact f64 segment reduction

@@ -36,8 +36,9 @@ versions add the slots in the kernels' order with the kernels' rounding
 (:func:`fma_f32`), so the card can hold them bit for bit. A wrapper given
 CUDA tensors launches its kernel, or raises; given CPU tensors it runs the
 plain version. Each wrapper counts its kernel launches in ``.launches``,
-and those made with ``accumulate=True`` (the bin's sums added onto y
-instead of stored) also in ``.accumulating``.
+those made with ``accumulate=True`` (the bin's sums added onto y
+instead of stored) also in ``.accumulating``, and those of its bf16 entry
+also in ``.launches_bf16``.
 
 :func:`sell_spmv` runs a :class:`DeviceSell`: the core bins store their
 rows, then every ``add_into`` bin (the sg far remainder) accumulates onto
@@ -1276,8 +1277,10 @@ def _bin(wrapper, b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
         return _write_plain(b, x_tab, y, accumulate)
     _check_launch(b, {"as_": b.as_}, {"x": x_tab}, {"y": y},
                   (torch.float32, torch.bfloat16))
-    _launch(wrapper, b, "bf16" if b.as_.dtype == torch.bfloat16 else "f32",
+    bf16 = b.as_.dtype == torch.bfloat16
+    _launch(wrapper, b, "bf16" if bf16 else "f32",
             (b.as_, x_tab, y, *_scratch(b, x_tab.device)), accumulate)
+    wrapper.launches_bf16 += bf16
 
 
 def k_major_bin(b: DeviceSellBin, x_tab: torch.Tensor, y: torch.Tensor,
@@ -1315,6 +1318,7 @@ _KERNEL = {"k-major": k_major_bin, "wl": wl_bin, "sb-major": sb_major_bin,
 for _w in _KERNEL.values():
     _w.launches = 0
     _w.accumulating = 0
+    _w.launches_bf16 = 0
 
 
 def _run_kernel(b: DeviceSellBin, x_tab, y, accumulate: bool):

@@ -1961,3 +1961,48 @@ def test_shard_sell_rows_on_one_card(dev):
     assert S.k_major_bin.launches + S.sb_major_bin.launches > before
     want = multidevice.shard_sell_rows(csr, [torch.device("cpu")] * 4).spmv(x)
     _close(y.cpu(), want)
+
+
+def test_flagship_functions_on_the_card(dev):
+    """The flagship line's per-matrix functions (bench/flagship.py) on
+    fem_3d(20, 20, 20, dof=3) on the card: the record valid, and each
+    stage's SELL, run through the kernels, equal to its plain version (f32
+    and bf16 at the f32 tolerance, dd within 1e-12*max|y|)."""
+    from sparsematrixvectormultiplication_tpu_torch.bench import (
+        flagship as F)
+    from sparsematrixvectormultiplication_tpu_torch.ops.sell_dd import (
+        device_put_x_dd)
+
+    coo = fem_3d(20, 20, 20, dof=3, seed=1)
+    runs = {"fem3d_cube": (F.run_fem3d_cube, {"k-major", "wl"}),
+            "banded_adversarial": (F.run_banded_adversarial,
+                                   {"k-major", "wl"}),
+            "road_scattered": (F.run_road_scattered, {"sb-list"})}
+    before = sum(w.launches for w in (*S._KERNEL.values(),
+                                      *D._KERNEL_DD.values()))
+    results = {name: fn(coo, dev, lambda m: None, layouts=lay, iterations=8)
+               for name, (fn, lay) in runs.items()}
+    assert sum(w.launches for w in (*S._KERNEL.values(),
+                                    *D._KERNEL_DD.values())) > before
+    rec = F.flagship_record(results, device=torch.cuda.get_device_name(dev),
+                            power_limit_w=None, wall_s=0.0,
+                            generate_s=dict.fromkeys(F.MATRICES, 0.0),
+                            log=lambda m: None)
+    assert rec["valid"] is True
+    x = np.ones(coo.ncols)
+    xt = S.device_put_x(x, coo.ncols, device=dev)
+    xh, xl = device_put_x_dd(x, coo.ncols, device=dev)
+    for name, res in results.items():
+        stages = F.MATRICES[name][2]
+        assert res.device == str(dev) and tuple(res.stages) == (
+            "serial_csr", *stages)
+        for dtype, stage in ((torch.float32, "sell"),
+                             (torch.bfloat16, "sell_bf16")):
+            if stage in stages:
+                d = S.device_put_sell(res.sell, dtype, device=dev)
+                _close(S.sell_spmv(d, xt), S.sell_spmv_plain(d, xt))
+        if "sell_dd" in stages:
+            d = D.device_put_sell_dd(res.sell, device=dev)
+            y = combine_f64(*D.sell_spmv_dd(d, xh, xl))
+            want = combine_f64(*D.sell_spmv_dd_plain(d, xh, xl))
+            assert (y - want).abs().max() <= 1e-12 * want.abs().max()

@@ -183,8 +183,8 @@ def test_port_imports_without_jax_or_nvcc():
         "assert not bad, bad\n"
         "assert _build.load.cache_info().currsize == 0\n"
         "for m in ('bench.bw_probe', 'bench.kernel_probe', 'bench.harness',\n"
-        "          'formats.hll', 'formats.reorder', 'ops.hll', 'ops.xla',\n"
-        "          'native.build'):\n"
+        "          'bench.flagship', 'bench.__main__', 'formats.hll',\n"
+        "          'formats.reorder', 'ops.hll', 'ops.xla', 'native.build'):\n"
         "    assert P.__name__ + '.' + m in sys.modules, m\n"
         "from sparsematrixvectormultiplication_tpu_torch.native import (\n"
         "    build as nb)\n"
