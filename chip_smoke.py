@@ -82,8 +82,10 @@ each stage and each stage timed as the best of 3 device-time rounds:
                       the ``pr_spmv_bf16`` kernel);
 
 and then a panel phase: fem_3d(10, 10, 10, dof=3) split into 1024-column
-panels (k-major and wl bins) through ``panel_sell_spmv`` and ``sell_spmm``
-(R=8), every bin accumulating; and ``auto_device_op`` on the mixed and
+panels (k-major and wl bins, their columns rebased onto the whole x)
+through ``panel_sell_spmv`` (the plan's joint launches into slices, then
+``panel_reduce``; f32, bf16 and dd) and ``sell_spmm`` (R=8, every bin
+accumulating); and ``auto_device_op`` on the mixed and
 road_scattered matrices and on power_law(200_000, 3), which must pick
 "sell", "split" and "pr" and whose ``matvec`` must launch the kernels of
 what it picked.
@@ -229,7 +231,16 @@ every slot, pads included) bit for bit, and each compacted sg bin's (f32,
 bf16) the padded tiles' sums (``sg_padded_plain``) within f32 rounding, the
 same products in another order; the smoke prints each such bin's padded (sg: its
 real tiles') and compacted slots and bytes, the headline's upload seconds,
-and scattered_uniform's dd SpMV bin by bin. A zero-rule phase then runs, for
+and scattered_uniform's dd SpMV bin by bin. Every SpMV runs its launch plan
+(``ops/sell.py``: the bins that share a kernel go out as one joint launch):
+each phase counts one SpMV's kernel launches, which must be the plan's, and
+prints them with ``sell_spmv_launches`` (the zero fills, x tables and pair
+table included), the plan's own tables and the upload's peak device bytes;
+each joint launch of more than one bin (and each panel launch, its group ids
+rebased to its slice) must equal its joint bin's plain version, bit for bit
+where the layout's kernel does, and prints its device time beside its bins'
+own; ``panel_reduce`` and ``panel_reduce_dd`` must equal their plain versions
+bit for bit on the panel phase's slices, and must launch on the main path. A zero-rule phase then runs, for
 each SELL layout (k-major, sb-major, sb-list with int32 and int16 planes, wl,
 sg in slots and rows mode) in f32 and dd, a matrix whose one entry of some
 column is stored as 0, with x infinite at that column, through the kernels:
@@ -381,6 +392,12 @@ DD_KERNELS = {
                  f"{TPU_DD}:208"),
     "sb-list": ("sell_sb_list_dd", f"{PKG}/csrc/sell_sb.cu", f"{TPU_DD}:274"),
     "sg": ("sell_sg_dd", f"{PKG}/csrc/sell_sg.cu", f"{TPU_DD}:490"),
+}
+# the column panels' join: no TPU kernel; it replaces the TPU package's
+# panel loops (every panel's bins adding onto one aliased y)
+REDUCE_KERNELS = {
+    "panel_reduce": f"{TPU}:1237",
+    "panel_reduce_dd": f"{TPU_DD}:739",
 }
 PR_KERNELS = {
     "pr": ("pr_spmv_f32", f"{PKG}/csrc/pr.cu",
@@ -1852,6 +1869,24 @@ def main() -> int:
     def counts(ws=wrappers):
         return {lay: w.launches for lay, w in ws.items()}
 
+    def plan_launches(tag, d, run, ws, total):
+        """Run one SpMV of ``d`` and count its kernel launches on the
+        wrappers ``ws``: they must be its launch plan's (a launch a joint
+        bin, and panel_reduce for panels); ``total`` is what
+        sell_spmv_launches counts, the zero fills, x tables and pair table
+        included. Returns the phase line's note."""
+        before = sum(w.launches for w in ws)
+        run()
+        torch.cuda.synchronize()
+        n = sum(w.launches for w in ws) - before
+        bins = (sum(len(p.bins) for p in d.panels) if hasattr(d, "panels")
+                else len(d.bins))
+        if n != d.plan.kernels or total < n:
+            fail(f"{tag}: {n} kernel launches a SpMV, the plan's "
+                 f"{d.plan.kernels}, sell_spmv_launches {total}")
+        return (f"launches per SpMV {total} (sell_spmv_launches; {n} kernel "
+                f"launches for {bins} bins, as the plan has them)")
+
     def check_pr(name, res):
         """The webbase_pr phase's PR product: 2 panels of 16,384 rows."""
         pr = res.pr
@@ -1984,6 +2019,7 @@ def main() -> int:
         w.launches = 0
         w.accumulating = 0
     PR.pr_problem.launches_bf16 = 0
+    S.panel_reduce.launches = D.panel_reduce_dd.launches = 0
     runs = []
     spmm_runs = []  # (phase, the k-major SELL of its sell_spmm stage, csr)
     phase_csr = {}
@@ -2129,13 +2165,16 @@ def main() -> int:
     x = np.random.default_rng(SEED).standard_normal(csr.ncols)
     x32 = x.astype(np.float32)
     panel = (csr, x)
-    before = {lay: w.accumulating for lay, w in wrappers.items()}
-    before_dd = {lay: w.accumulating for lay, w in dd_wrappers.items()}
-    n_panel = (sum(counts().values()), sum(counts(dd_wrappers).values()))
+    n_reduce = (S.panel_reduce.launches, D.panel_reduce_dd.launches)
+    panel_notes = []
     for dtype, vals in ((torch.float32, csr.values),
                         (torch.bfloat16, quantize_bf16(csr.values))):
-        y = S.panel_sell_spmv(S.device_put_sell(psell, dtype, device=dev),
-                              torch.from_numpy(x32).to(dev))
+        dps = S.device_put_sell(psell, dtype, device=dev)
+        xd = torch.from_numpy(x32).to(dev)
+        panel_notes.append(f"{str(dtype)[6:]} " + plan_launches(
+            f"panels {dtype}", dps, lambda: S.panel_sell_spmv(dps, xd),
+            (*wrappers.values(), S.panel_reduce), S.sell_spmv_launches(dps)))
+        y = S.panel_sell_spmv(dps, xd)
         ref = type(csr)(csr.nrows, csr.ncols, csr.row_ptr, csr.col_idx,
                         vals).spmv(x32.astype(np.float64))
         sig = difference_metrics(ref, y.cpu().numpy().astype(
@@ -2143,16 +2182,21 @@ def main() -> int:
         if sig:
             fail(f"panels {dtype}: {sig} significant diffs vs the oracle")
     xh, xl = (torch.from_numpy(h).to(dev) for h in split_f64(x))
-    y = combine_f64(*D.panel_sell_spmv_dd(D.device_put_sell_dd(
-        psell, device=dev), xh, xl)).cpu().numpy()
+    dps = D.device_put_sell_dd(psell, device=dev)
+    panel_notes.append("dd " + plan_launches(
+        "panels dd", dps, lambda: D.panel_sell_spmv_dd(dps, xh, xl),
+        (*dd_wrappers.values(), D.panel_reduce_dd),
+        D.sell_spmv_dd_launches(dps)))
+    y = combine_f64(*D.panel_sell_spmv_dd(dps, xh, xl)).cpu().numpy()
     ref = csr.spmv(x)
     sig = difference_metrics(ref, y).significant_diffs
     dd_err = float(np.abs(y - ref).max() / np.abs(ref).max())
     if sig or not dd_err < DD_TOL:
         fail(f"panels dd: {sig} significant diffs, norm-scaled error "
              f"{dd_err:.3e}")
-    n_panel = (sum(counts().values()) - n_panel[0],
-               sum(counts(dd_wrappers).values()) - n_panel[1])
+    if (S.panel_reduce.launches, D.panel_reduce_dd.launches) <= n_reduce:
+        fail("panels: panel_reduce or panel_reduce_dd was not launched")
+    del dps
     before_mm = {lay: spmm_wrappers[lay].accumulating for lay in got}
     Xp = np.random.default_rng(SEED).standard_normal((csr.ncols, 8),
                                                       dtype=np.float32)
@@ -2161,20 +2205,17 @@ def main() -> int:
     check_spmm("panels sell_spmm", csr, Xp,
                Y.cpu().numpy().astype(np.float64))
     for lay in got:
-        if wrappers[lay].accumulating <= before[lay]:
-            fail(f"panels: the {lay} kernel did not accumulate")
-        if dd_wrappers[lay].accumulating <= before_dd[lay]:
-            fail(f"panels: the {lay} dd kernel did not accumulate")
         if spmm_wrappers[lay].accumulating <= before_mm[lay]:
             fail(f"panels: the {lay} SpMM kernel did not accumulate")
     print(f"[panels] {csr.nrows} rows, {csr.nnz} nnz, "
           f"{len(psell.panels)} panels, bins "
           f"{[[(b.layout, b.k, b.n_groups) for b in p.bins] for p in psell.panels]}, "
-          f"dd norm-scaled error {dd_err:.3e}; SpMV launches f32 and bf16 "
-          f"{n_panel[0]}, dd {n_panel[1]}; "
+          f"dd norm-scaled error {dd_err:.3e}; {'; '.join(panel_notes)}; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     launches, launches_dd = counts(), counts(dd_wrappers)
+    launches_reduce = {"panel_reduce": S.panel_reduce.launches,
+                       "panel_reduce_dd": D.panel_reduce_dd.launches}
     launches_pr = counts(pr_wrappers)
     launches_pr["pr_bf16"] = PR.pr_problem.launches_bf16
     launches_pr["pr"] -= launches_pr["pr_bf16"]
@@ -2189,7 +2230,7 @@ def main() -> int:
         print(f"main-path{tag} launches {ls}, accumulating "
               f"{ {lay: w.accumulating for lay, w in ws.items()} }",
               flush=True)
-    for kind, n in launches_pr.items():
+    for kind, n in (*launches_reduce.items(), *launches_pr.items()):
         if n == 0:
             fail(f"the {kind} kernel was never launched on the main path")
     print(f"main-path PR launches {launches_pr}", flush=True)
@@ -2564,16 +2605,69 @@ def main() -> int:
               f"{padded / max(kept, 1):.3f}x fewer slots; kernel equals the "
               f"padded result {same}", flush=True)
 
+    def check_joint(tag, j, xs, dd, members_ms=None):
+        """A joint launch of a plan (of more than one bin) storing into y
+        against its joint bin's plain version: bit for bit where the
+        layout's kernel equals its plain version (:data:`SEQ_LAYOUTS`),
+        else at the phase's tolerance; printed with its device time beside
+        its members' launches' own (``members_ms``)."""
+        b = j.bin
+        rows = b.group_ids.long()
+        ys = [torch.full(((int(rows.max()) + 1) * 1024,), float("nan"),
+                         device=dev) for _ in xs]
+        if dd:
+            kernel, kw = dd_wrappers[b.layout], (
+                {"x_pair": D.pack_x_pair(*xs)} if D._pairs(b) else {})
+            want = dd_plains[b.layout](b, *xs)
+            exact = b.layout in SEQ_LAYOUTS_DD
+        else:
+            kernel, kw = wrappers[b.layout], {}
+            want = (plains[b.layout](b, *xs),)
+            exact = b.layout in SEQ_LAYOUTS
+        kernel(b, *xs, *ys, **kw)
+        got = [y.view(-1, 8, 128)[rows] for y in ys]
+        if exact:
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        elif dd:
+            ok = bool((combine_f64(*got) - combine_f64(*want)).abs().max()
+                      <= DD_TOL * combine_f64(*want).abs().max())
+        else:
+            ok = torch.allclose(got[0], want[0], rtol=RTOL, atol=ATOL_REL
+                                * float(want[0].abs().max()))
+        if not ok:
+            fail(f"{tag}: the joint {b.layout} launch differs from its "
+                 "plain version")
+        ms = device_time_fn(lambda: kernel(b, *xs, *ys, **kw),
+                            device=dev) * 1e3
+        alone = ("" if members_ms is None else
+                 f", its bins' launches alone {members_ms:.4f} ms together")
+        print(f"{tag} {b.layout}{' dd' if dd else ''} joint launch of "
+              f"{len(j.members)} bins of {[m.n_groups for m in j.members]} "
+              f"groups{' add_into' if j.accumulate else ''}: device kernel "
+              f"{ms:.4f} ms{alone}; equals its plain version "
+              f"{'bit for bit' if exact else 'within tolerance'}",
+              flush=True)
+        return ms
+
+    def upload_peak(put):
+        """``put()`` and the device bytes it held at its peak beyond what
+        was allocated before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        d = put()
+        torch.cuda.synchronize()
+        return d, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated(dev) - base
+
     for name, sell, _, x, csr in runs:
         uploads = [(dt, False) for dt in (torch.float32, torch.bfloat16)]
         if name in SB_I16_PHASES:
             uploads += [(dt, True) for dt in (torch.float32, torch.bfloat16)]
         for dtype, i16 in uploads:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            d = S.device_put_sell(sell, dtype, device=dev, sb_i16=i16)
-            torch.cuda.synchronize()
-            up_s = time.perf_counter() - t0
+            d, up_s, peak = upload_peak(lambda: S.device_put_sell(
+                sell, dtype, device=dev, sb_i16=i16))
             if i16 and not any(b.ja.dtype == torch.int16 for b in d.bins):
                 fail(f"{name}: sb_i16 packed no bin")
             xt = S.device_put_x(x, sell.ncols, device=dev)
@@ -2584,6 +2678,10 @@ def main() -> int:
                 fail(f"{name} {dtype} i16={i16}: kernels disagree with the "
                      f"plain versions, max|k-p| = "
                      f"{(y_k - y_p).abs().max().item()}")
+            note = plan_launches(f"{name} {dtype} i16={i16}", d,
+                                 lambda: S.sell_spmv(d, xt),
+                                 tuple(wrappers.values()),
+                                 S.sell_spmv_launches(d))
             sec_k = time_fn(S.sell_spmv, d, xt, device=dev)
             sec_p = time_fn(S.sell_spmv_plain, d, xt, device=dev)
             dev_k = device_time_fn(S.sell_spmv, d, xt, device=dev)
@@ -2604,15 +2702,22 @@ def main() -> int:
                   f"device bytes {nb} ({nb / dev_k / 1e12:.3f} TB/s), "
                   f"read {nread} ({nread / dev_k / 1e12:.3f} TB/s); matrix "
                   f"bound {need:.4f} ms; max|k-p| "
-                  f"{(y_k - y_p).abs().max().item():.3e}; upload "
-                  f"{up_s:.3f} s{lib}", flush=True)
+                  f"{(y_k - y_p).abs().max().item():.3e}; {note}; plan "
+                  f"tables {S.plan_bytes(d)} B; upload {up_s:.3f} s, peak "
+                  f"{peak} B{lib}", flush=True)
             y0 = torch.randn(d.num_groups * 1024, device=dev)
+            bin_ms = {}
             for i, b in enumerate(d.bins):
-                check_bin(f"{tag} bin {i}", b, xt, y0,
-                          name if dtype == torch.float32 and not i16 else None)
+                bin_ms[id(b)] = check_bin(
+                    f"{tag} bin {i}", b, xt, y0,
+                    name if dtype == torch.float32 and not i16 else None)
                 if compacted(b):
                     padded_check(f"{tag} bin {i}", sell.bins[i], b, (xt,),
                                  False)
+            for i, j in enumerate(d.plan.launches):
+                if len(j.members) > 1:
+                    check_joint(f"{tag} launch {i}", j, (xt,), False,
+                                sum(bin_ms[id(m)] for m in j.members))
             del d, xt, y_k, y_p, y0
             torch.cuda.empty_cache()
 
@@ -2620,11 +2725,8 @@ def main() -> int:
         if sell is None:
             continue
         for i16 in (False, True) if name in SB_I16_PHASES else (False,):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            d = D.device_put_sell_dd(sell, device=dev, sb_i16=i16)
-            torch.cuda.synchronize()
-            up_s = time.perf_counter() - t0
+            d, up_s, peak = upload_peak(lambda: D.device_put_sell_dd(
+                sell, device=dev, sb_i16=i16))
             if i16 and not any(b.ja.dtype == torch.int16 for b in d.bins):
                 fail(f"{name}: sb_i16 packed no dd bin")
             if name == "band64_250k" and any(b.row_table is None
@@ -2637,6 +2739,10 @@ def main() -> int:
             if not e <= DD_TOL * y_p.abs().max().item():
                 fail(f"{name} dd i16={i16}: kernels disagree with the plain "
                      f"versions, max|k-p| = {e}")
+            note = plan_launches(f"{name} dd i16={i16}", d,
+                                 lambda: D.sell_spmv_dd(d, xh, xl),
+                                 tuple(dd_wrappers.values()),
+                                 D.sell_spmv_dd_launches(d))
             sec_k = time_fn(D.sell_spmv_dd, d, xh, xl, device=dev)
             sec_p = time_fn(D.sell_spmv_dd_plain, d, xh, xl, device=dev)
             dev_k = device_time_fn(D.sell_spmv_dd, d, xh, xl, device=dev)
@@ -2654,48 +2760,102 @@ def main() -> int:
                   f"{calculate_flops(sell.nnz, dev_k) / 1e9:.3f} GFLOPS; "
                   f"device bytes {nb} ({nb / dev_k / 1e12:.3f} TB/s), "
                   f"read {nread} ({nread / dev_k / 1e12:.3f} TB/s); matrix "
-                  f"bound {need:.4f} ms; max|k-p| {e:.3e}; upload "
-                  f"{up_s:.3f} s{lib}", flush=True)
+                  f"bound {need:.4f} ms; max|k-p| {e:.3e}; {note}; plan "
+                  f"tables {S.plan_bytes(d)} B; upload {up_s:.3f} s, peak "
+                  f"{peak} B{lib}", flush=True)
             y0h = torch.randn(d.num_groups * 1024, device=dev)
             y0l = y0h * 2.0**-30
             per_bin = []  # (bin, its kernel's device ms alone)
+            bin_ms = {}
             for i, b in enumerate(d.bins):
                 ms = check_bin_dd(f"{tag} bin {i}", b, xh, xl, y0h, y0l,
                                   None if i16 else name)
+                bin_ms[id(b)] = ms
                 per_bin.append((f"{b.layout} k={b.k} g={b.n_groups}"
                                 f"{' add_into' if b.add_into else ''}", ms))
                 if compacted(b):
                     padded_check(f"{tag} bin {i}", sell.bins[i], b,
                                  (xh, xl), True)
-            launched0 = sum(w.launches for w in dd_wrappers.values())
-            D.sell_spmv_dd(d, xh, xl)
-            launched = sum(w.launches for w in dd_wrappers.values()) - launched0
+            per_launch = []
+            for i, j in enumerate(d.plan.launches):
+                per_launch.append(check_joint(
+                    f"{tag} launch {i}", j, (xh, xl), True,
+                    sum(bin_ms[id(m)] for m in j.members))
+                    if len(j.members) > 1 else bin_ms[id(j.members[0])])
             print(f"{tag} SpMV bin by bin (kernel device ms, each alone): "
                   f"{'; '.join(f'{what} {ms:.4f}' for what, ms in per_bin)}"
-                  f"; sum {sum(ms for _, ms in per_bin):.4f} ms against the "
-                  f"SpMV's {dev_k * 1e3:.4f} ms; {launched} wrapper launches "
-                  "a SpMV", flush=True)
+                  f"; sum {sum(ms for _, ms in per_bin):.4f} ms; launch by "
+                  f"launch {'; '.join(f'{ms:.4f}' for ms in per_launch)}, "
+                  f"sum {sum(per_launch):.4f} ms; against the SpMV's "
+                  f"{dev_k * 1e3:.4f} ms", flush=True)
             del d, xh, xl, y_k, y_p, y0h, y0l
             torch.cuda.empty_cache()
 
+    def reduce_check(tag, dps, xs, dd):
+        """panel_reduce (dd: panel_reduce_dd) on the slices the plan's
+        joint launches write for one SpMV of ``dps``, against its plain
+        version bit for bit; returns its device ms, the plain version's and
+        its bound (the covered slices' rows read once, y written once)."""
+        plan = dps.plan
+        tabs = [S.panel_x_table(dps, x) for x in xs]
+        n = dps.num_groups * 1024
+        parts = [torch.empty(plan.slices * n, device=dev) for _ in xs]
+        write = D._kernel_writer() if dd else S._run_kernel
+        for j in plan.launches:
+            write(j.bin, *tabs, *parts, False)
+        ys = [torch.empty(n, device=dev) for _ in xs]
+        if dd:
+            def kernel():
+                D.panel_reduce_dd(*parts, plan.cover, *ys)
+
+            def plain():
+                return D.panel_reduce_plain_dd(*parts, plan.cover)
+        else:
+            def kernel():
+                S.panel_reduce(parts[0], plan.cover, ys[0])
+
+            def plain():
+                return (S.panel_reduce_plain(parts[0], plan.cover),)
+        kernel()
+        if not all(torch.equal(y, w) for y, w in zip(ys, plain())):
+            fail(f"{tag}: panel_reduce differs from its plain version")
+        ms = device_time_fn(kernel, device=dev) * 1e3
+        ms_p = device_time_fn(plain, device=dev, reps=PLAIN_DD_REPS) * 1e3
+        rows = int(plan.cover.sum()) * 1024
+        bound = (len(xs) * 4 * (rows + n) + plan.cover.numel()) \
+            / HBM_BYTES_PER_S * 1e3
+        print(f"{tag} panel_reduce{'_dd' if dd else ''}: {plan.slices} "
+              f"slices of {dps.num_groups} groups, {rows} rows covered: "
+              f"device kernel {ms:.4f} ms, plain {ms_p:.4f} ms; bound "
+              f"{bound:.6f} ms; equals its plain version bit for bit",
+              flush=True)
+        return ms, ms_p, bound
+
+    reduce_rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         dps = S.device_put_sell(psell, dtype, device=dev)
         xd = torch.from_numpy(x32).to(dev)
         y_k = S.panel_sell_spmv(dps, xd)
         y_p = S.panel_sell_spmv_plain(dps, xd)
-        if not torch.allclose(y_k, y_p, rtol=RTOL,
-                              atol=ATOL_REL * float(y_p.abs().max())):
-            fail(f"panels {dtype}: kernels disagree with the plain versions")
+        if not torch.equal(y_k, y_p):
+            fail(f"panels {dtype}: kernels differ from the plain versions")
+        xt = S.panel_x_table(dps, xd)  # every panel's rebased bins read it
+        y0 = torch.randn(dps.num_groups * 1024, device=dev)
+        bin_ms = {}
         for p, dsell in enumerate(dps.panels):
-            c0, c1 = dps.bounds[p], dps.bounds[p + 1]
-            xt = S.pack_x_table(xd[c0:c1], c1 - c0)
-            y0 = torch.randn(dps.num_groups * 1024, device=dev)
             for i, b in enumerate(dsell.bins):
-                check_bin(f"[panels] {str(dtype)[6:]} panel {p} bin {i}", b,
-                          xt, y0, None)
+                bin_ms[id(b)] = check_bin(
+                    f"[panels] {str(dtype)[6:]} panel {p} bin {i}", b, xt,
+                    y0, None)
+        for i, j in enumerate(dps.plan.launches):
+            check_joint(f"[panels] {str(dtype)[6:]} launch {i}", j, (xt,),
+                        False, sum(bin_ms[id(m)] for m in j.members))
+        if dtype == torch.float32:
+            reduce_rows["panel_reduce"] = reduce_check(
+                "[panels] f32", dps, (xd,), False)
 
     # the whole panel SpMV beside cuSPARSE on the panel phase's matrix; a
-    # call queues a few launches per panel, so few reps behind the spin
+    # call queues the plan's few launches, the plain one many: few reps
     ms32 = device_time_fn(S.panel_sell_spmv,
                           S.device_put_sell(psell, device=dev),
                           torch.from_numpy(panel[1]).float().to(dev),
@@ -2713,18 +2873,22 @@ def main() -> int:
     dps = D.device_put_sell_dd(psell, device=dev)
     xh, xl = (torch.from_numpy(h).to(dev)
               for h in split_f64(x32.astype(np.float64)))
-    y_k = combine_f64(*D.panel_sell_spmv_dd(dps, xh, xl))
-    y_p = combine_f64(*D.panel_sell_spmv_dd_plain(dps, xh, xl))
-    if not (y_k - y_p).abs().max().item() <= DD_TOL * y_p.abs().max().item():
-        fail("panels dd: kernels disagree with the plain versions")
+    y_k = D.panel_sell_spmv_dd(dps, xh, xl)
+    y_p = D.panel_sell_spmv_dd_plain(dps, xh, xl)
+    if not all(torch.equal(k, p) for k, p in zip(y_k, y_p)):
+        fail("panels dd: kernels differ from the plain versions")
+    tabs = (S.panel_x_table(dps, xh), S.panel_x_table(dps, xl))
+    y0h = torch.randn(dps.num_groups * 1024, device=dev)
+    bin_ms = {}
     for p, dsell in enumerate(dps.panels):
-        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
-        tabs = (S.pack_x_table(xh[c0:c1], c1 - c0),
-                S.pack_x_table(xl[c0:c1], c1 - c0))
-        y0h = torch.randn(dps.num_groups * 1024, device=dev)
         for i, b in enumerate(dsell.bins):
-            check_bin_dd(f"[panels] dd panel {p} bin {i}", b, *tabs, y0h,
-                         y0h * 2.0**-30, None)
+            bin_ms[id(b)] = check_bin_dd(f"[panels] dd panel {p} bin {i}", b,
+                                         *tabs, y0h, y0h * 2.0**-30, None)
+    for i, j in enumerate(dps.plan.launches):
+        check_joint(f"[panels] dd launch {i}", j, tabs, True,
+                    sum(bin_ms[id(m)] for m in j.members))
+    reduce_rows["panel_reduce_dd"] = reduce_check("[panels] dd", dps,
+                                                  (xh, xl), True)
 
     # ---- the PR kernels on every webbase_pr panel, and the whole SpMV ----
     def pr_bound_ms(p, vals, tables):
@@ -3092,10 +3256,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dps = S.device_put_sell(psell, device=dev)
     Xd = torch.from_numpy(Xp).to(dev)
+    xt = SM._pack_rows(Xd, dps.x_rows)  # the panels' rebased columns
+    y0 = rhs_copy(torch.randn(dps.num_groups * 1024, 8, device=dev))
     for p, dsell in enumerate(dps.panels):
-        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
-        xt = SM.pack_x_multi(Xd[c0:c1], c1 - c0)
-        y0 = rhs_copy(torch.randn(dps.num_groups * 1024, 8, device=dev))
         for i, b in enumerate(dsell.bins):
             check_spmm_bin(f"[panels] spmm panel {p} bin {i}", b, xt, y0,
                            None)
@@ -3402,6 +3565,16 @@ def main() -> int:
                 "plain_ms": ms_p, "bound_ms": bound, "bound_by": "bytes",
                 "library_ms": library[phase, lib_dtype][0],
                 "plane_bytes": planes})
+    for kname, replaces in REDUCE_KERNELS.items():
+        ms_k, ms_p, bound = reduce_rows[kname]
+        print(f"{kname}: device times at the panel phase's fem_3d(10, 10, "
+              f"10) in 1024-column panels")
+        summary.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/panel_reduce.cu", "replaces": replaces,
+            "launches": launches_reduce[kname], "max_abs_err": 0.0,
+            "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None})
     for kind, (kname, source, replaces) in PR_KERNELS.items():
         ms_k, ms_p, err, bound = pr_stats[kind]
         lib_key = {"pr": ("webbase_pr", torch.float32),

@@ -76,8 +76,10 @@ times of ``iterations`` calls back to back (``utils.timing.
 device_time_fn``; ≙ the JAX ``time_device_fn_slope``, chained calls with no
 host in between), fewer where they would queue more than
 ``utils.timing.MAX_QUEUED_LAUNCHES`` (400) launches behind its spin: a
-SELL with more than 19 bins (``ops.sell.sell_spmv_launches``; "sum": more
-than 6), ``sell_dd`` with more than 17 (``sell_spmv_dd_launches``); ``per_call_s`` is the median of ``iterations`` calls each
+SELL whose call queues more than 20 (``ops.sell.sell_spmv_launches``: its
+launch plan's joint launches and a zero fill where the core bins leave a
+group unwritten; "sum": more than 6 bins), ``sell_dd`` likewise
+(``sell_spmv_dd_launches``); ``per_call_s`` is the median of ``iterations`` calls each
 bracketed by CUDA events, host dispatch included. On the CPU ``seconds`` is
 the best of ``rounds`` host medians. The flush removes what one stage left
 in the cache for the next; it does not make the timed reps cold (they run
@@ -510,8 +512,8 @@ def _timed(cfg: BenchConfig, device, fn, *args, launches: int = 1):
     per_call = time_fn(fn, *args, device=device, reps=cfg.iterations,
                        skip=cfg.skip)
     if device.type == "cuda":
-        reps = extra["reps"] = max(1, min(cfg.iterations,
-                                          MAX_QUEUED_LAUNCHES // launches))
+        reps = extra["reps"] = max(1, min(
+            cfg.iterations, MAX_QUEUED_LAUNCHES // max(launches, 1)))
         sec = min(device_time_fn(fn, *args, device=device, reps=reps,
                                  skip=max(cfg.skip, 1))
                   for _ in range(cfg.rounds))

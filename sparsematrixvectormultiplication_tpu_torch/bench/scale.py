@@ -130,7 +130,7 @@ def run_ladder_sweep(
         if device.type == "cuda":
             reps = max(1, min(iterations,
                               MAX_QUEUED_LAUNCHES
-                              // sell_spmv_launches(dsell)))
+                              // max(sell_spmv_launches(dsell), 1)))
             return min(device_time_fn(sell_spmv, dsell, xt, device=device,
                                       reps=reps) for _ in range(rounds))
         return min(time_fn(sell_spmv, dsell, xt, device=device,

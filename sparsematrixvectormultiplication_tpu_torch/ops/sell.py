@@ -40,11 +40,20 @@ those made with ``accumulate=True`` (the bin's sums added onto y
 instead of stored) also in ``.accumulating``, and those of its bf16 entry
 also in ``.launches_bf16``.
 
-:func:`sell_spmv` runs a :class:`DeviceSell`: the core bins store their
-rows, then every ``add_into`` bin (the sg far remainder) accumulates onto
-them, on the same stream — the JAX "auto" assembly. :func:`panel_sell_spmv`
-runs a :class:`DevicePanelSell` (column panels): one y, one padded x table
-per panel, every bin accumulating.
+:func:`sell_spmv` runs a :class:`DeviceSell` by its launch plan
+(:class:`LaunchPlan`, built at upload): the bins that share a kernel and
+every scalar of its launch go out as one launch of a joint bin, whose index
+and value planes are one allocation of which each member's planes are views,
+its members' blocks in order of their groups, fewest first. The core joint
+launches store their rows, then the ``add_into`` ones (the sg far remainder)
+accumulate onto them, on the same stream — the JAX "auto" assembly. y is
+zero-filled only where the core bins do not write every group.
+:func:`panel_sell_spmv` runs a :class:`DevicePanelSell` (column panels)
+whose bins' columns were rebased onto the whole x at upload: x is packed
+once, the panels' bins join by the same rule, each panel's core bins write
+one slice of a scratch y and each ``add_into`` bin one of its own, and
+:func:`panel_reduce` (``csrc/panel_reduce.cu``) adds the slices into y in
+the order of the panel-by-panel accumulation.
 """
 
 from __future__ import annotations
@@ -65,7 +74,8 @@ __all__ = [
     "wl_bin", "sb_major_bin", "sb_list_bin", "sg_bin", "k_major_bin_plain",
     "wl_bin_plain", "sb_major_bin_plain", "sb_list_bin_plain", "sg_bin_plain",
     "sell_spmv", "sell_spmv_plain", "sell_spmv_launches", "panel_sell_spmv",
-    "panel_sell_spmv_plain",
+    "panel_sell_spmv_plain", "Joint", "LaunchPlan", "PanelPlan",
+    "panel_x_table", "panel_reduce", "panel_reduce_plain", "plan_bytes",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -141,6 +151,11 @@ class DeviceBinIndex:
     # compacted sb-list, f32/bf16 sg and dd k-major of one lane a row:
     # (n_groups*1024,) int32
     row_table: torch.Tensor | None = None
+    # a joint bin (:class:`Joint`): its members' k-major lanes a row and
+    # padded sg chunks a group (0: the functions of the bin's own shape,
+    # :func:`_k_major_lanes` and :func:`_sg_chunks`)
+    lanes: int = 0
+    chunks: int = 0
 
     @property
     def nw(self) -> int:
@@ -178,12 +193,16 @@ class DeviceSell:
     # rows in SELL-C-sigma order (the host SELL's ``row_perm``): y comes back
     # permuted, as the harness's sell_sigma stage expects
     sigma_sorted: bool = False
+    plan: "LaunchPlan | None" = None  # built at upload (device_put_sell)
 
 
 @dataclass
 class DevicePanelSell:
     """Column panels on a device: panel p covers columns
-    ``[bounds[p], bounds[p+1])`` and holds its own :class:`DeviceSell`."""
+    ``[bounds[p], bounds[p+1])`` and holds its own :class:`DeviceSell`,
+    whose bins' columns are rebased onto the whole x (:func:`_rebase`):
+    every panel reads one x table of ``x_rows`` entries
+    (:func:`panel_x_table`)."""
 
     nrows: int
     ncols: int
@@ -192,6 +211,8 @@ class DevicePanelSell:
     bounds: tuple
     panels: list
     sigma_sorted: bool = False
+    x_rows: int = 0
+    plan: "PanelPlan | None" = None  # built at upload
 
 
 def _pack_sb_i16(ja_h: np.ndarray, sl_h: np.ndarray, ng: int, K: int,
@@ -508,7 +529,37 @@ def _on(device: torch.device, put):
         if isinstance(getattr(b, f.name), torch.Tensor)})
 
 
-def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
+def _rebase(index: dict, c0: int) -> dict:
+    """Bin index fields of a column panel starting at column ``c0`` (a
+    multiple of 128) rebased onto the whole x, in new tensors (a CPU upload
+    shares the host bin's arrays): absolute int32 columns gain ``c0``,
+    slab ids (wl slab lists, sb chunk tables, sg window bases) ``c0 /
+    128``, a k-major bin's x windows ``c0``. A pad slot's read moves with
+    its panel's spare slab, still inside the whole table
+    (:func:`_panel_x_rows`), and the stored-zero rule keeps its x out."""
+    if c0 == 0:
+        return index
+    if c0 % LANES:
+        raise ValueError(f"panel start {c0} is not a multiple of {LANES}")
+    ja, table = index["ja"], index["slab_list"]
+    tiles = index["layout"] == "sg" and index.get("row_table") is None
+    if tiles:  # padded sg: (window base, passes) or window base a tile
+        stride = 2 if index["span"] == 0 else 1
+        table = table + torch.tensor([c0 // LANES, 0][:stride],
+                                     dtype=table.dtype, device=table.device
+                                     ).repeat(table.numel() // stride)
+    elif index["layout"] != "k-major":  # slab ids (empty when compacted)
+        table = table + c0 // LANES
+    if ja.dtype == torch.int32 and not tiles:  # absolute columns
+        ja = ja + c0
+    index = {**index, "ja": ja, "slab_list": table}
+    if index.get("x_window") is not None:
+        index["x_window"] = index["x_window"] + torch.tensor(
+            [c0, 0], dtype=torch.int32, device=table.device)
+    return index
+
+
+def _put_bin(b, dtype, device, sb_i16: bool, col0: int = 0) -> DeviceSellBin:
     def put(dev):
         index = _put_bin_index(b, dev, sb_i16)
         vals = _values(b.as_, dtype, dev)
@@ -519,8 +570,18 @@ def _put_bin(b, dtype, device, sb_i16: bool) -> DeviceSellBin:
         elif b.layout == "sg":
             index, (vals,) = _compact_sg(index, [vals])
         window = _x_window(index) if b.layout == "k-major" else {}
-        return DeviceSellBin(**index, **window, as_=vals)
+        return DeviceSellBin(**_rebase({**index, **window}, col0), as_=vals)
     return _on(device, put)
+
+
+def _panel_x_rows(bounds: tuple, ncols: int) -> int:
+    """Entries of the whole x table that rebased column panels read: the
+    flat table's, or more where a panel's spare slab, rebased, lies past
+    it (a panel whose start is not a multiple of 1024 columns)."""
+    slabs = max([slab_table_rows(ncols)] + [
+        c0 // LANES + slab_table_rows(c1 - c0)
+        for c0, c1 in zip(bounds[:-1], bounds[1:])])
+    return slabs * LANES
 
 
 def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
@@ -528,40 +589,64 @@ def device_put_sell(sell, dtype=torch.float32, *, device, sb_i16=False):
 
     ``sell`` is this package's :class:`~..formats.sell.SellMatrix` or
     :class:`~..formats.sell.PanelSellMatrix` (returns a
-    :class:`DevicePanelSell`), or the JAX package's host counterparts: only
-    bin attributes are read. wl bins are compacted on the device
-    (:func:`_compact_wl`), and so are sb-list bins with int32 planes
-    (:func:`_compact_sl`) and sg bins (:func:`_compact_sg`): their pad
-    slots, and any stored zero, are dropped, which the stored-zero rule
-    makes the same function. ``sb_i16=True`` stores sb-major and sb-list
-    index planes as int16 (as the JAX package's ``SPMV_SB_I16=1`` does) for
-    bins whose span fits 8 bits; those sb-list bins stay padded, and other
-    bins keep int32 columns. k-major bins carry the SpMM kernel's window table
-    (:func:`_x_window`)."""
+    :class:`DevicePanelSell`, its bins' columns rebased onto the whole x),
+    or the JAX package's host counterparts: only bin attributes are read.
+    wl bins are compacted on the device (:func:`_compact_wl`), and so are
+    sb-list bins with int32 planes (:func:`_compact_sl`) and sg bins
+    (:func:`_compact_sg`): their pad slots, and any stored zero, are
+    dropped, which the stored-zero rule makes the same function.
+    ``sb_i16=True`` stores sb-major and sb-list index planes as int16 (as
+    the JAX package's ``SPMV_SB_I16=1`` does) for bins whose span fits 8
+    bits; those sb-list bins stay padded, and other bins keep int32
+    columns. k-major bins carry the SpMM kernel's window table
+    (:func:`_x_window`). The launch plan (:func:`_flat_plan`,
+    :func:`_panel_plan`) is built last: each joint bin's planes are
+    allocated once and its members' copied in, plane by plane, each
+    member's own plane freed as it becomes a view."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"value dtype {dtype} not supported "
                          "(torch.float32 or torch.bfloat16)")
+    return _put(sell, device, lambda b, dev, c0: _put_bin(b, dtype, dev,
+                                                         sb_i16, c0),
+                DeviceSell, DevicePanelSell)
+
+
+def _put(sell, device, put_bin, flat, panelled):
+    """Upload ``sell`` with ``put_bin(host bin, device, col0)`` into a
+    ``flat`` (:class:`DeviceSell`-like) or ``panelled`` object, and build
+    its launch plan."""
+    device = torch.device(device)
     sigma = getattr(sell, "row_perm", None) is not None
     if hasattr(sell, "panels"):
-        return DevicePanelSell(
-            int(sell.nrows), int(sell.ncols), int(sell.nnz),
-            int(sell.num_groups), tuple(int(c) for c in sell.bounds),
-            [device_put_sell(p, dtype, device=device, sb_i16=sb_i16)
-             for p in sell.panels], sigma)
-    device = torch.device(device)
-    return DeviceSell(int(sell.nrows), int(sell.ncols), int(sell.nnz),
-                      int(sell.num_groups),
-                      [_put_bin(b, dtype, device, sb_i16) for b in sell.bins],
-                      sigma)
+        bounds = tuple(int(c) for c in sell.bounds)
+        panels = [flat(int(p.nrows), int(p.ncols), int(p.nnz),
+                       int(p.num_groups),
+                       [put_bin(b, device, bounds[i]) for b in p.bins])
+                  for i, p in enumerate(sell.panels)]
+        d = panelled(int(sell.nrows), int(sell.ncols), int(sell.nnz),
+                     int(sell.num_groups), bounds, panels, sigma,
+                     x_rows=_panel_x_rows(bounds, int(sell.ncols)))
+        if device.type != "meta":
+            d.plan = _panel_plan(d)
+        return d
+    d = flat(int(sell.nrows), int(sell.ncols), int(sell.nnz),
+             int(sell.num_groups), [put_bin(b, device, 0) for b in sell.bins],
+             sigma)
+    if device.type != "meta":
+        d.plan = _flat_plan(d.bins)
+    return d
+
+
+def _x_table(x: torch.Tensor, n: int) -> torch.Tensor:
+    tab = torch.zeros(n, dtype=torch.float32, device=x.device)
+    tab[: x.shape[0]] = x
+    return tab
 
 
 def pack_x_table(x: torch.Tensor, ncols: int) -> torch.Tensor:
     """x as f32, zero-padded to ``slab_table_rows(ncols)*128`` entries: pad
     slots gather from the spare all-zero slab past the last column."""
-    n = slab_table_rows(ncols) * LANES
-    tab = torch.zeros(n, dtype=torch.float32, device=x.device)
-    tab[: x.shape[0]] = x
-    return tab
+    return _x_table(x, slab_table_rows(ncols) * LANES)
 
 
 def device_put_x(x, ncols: int, *, device) -> torch.Tensor:
@@ -802,7 +887,9 @@ _KM_MIN_SLOTS = 4
 def _k_major_lanes(b: DeviceBinIndex) -> int:
     """Lanes a row of k-major bin ``b`` (a power of two): a function of the
     bin's shape only, so that the plain version sums in the kernel's
-    order."""
+    order; a joint bin's are its members' (:class:`Joint`)."""
+    if getattr(b, "lanes", 0):
+        return b.lanes
     blocks = b.n_groups * SUBLANES
     if blocks == 0 or blocks >= _KM_SPLIT_BELOW:
         return 1
@@ -978,7 +1065,9 @@ _SG_MIN_CHUNK = 16
 def _sg_chunks(b: DeviceBinIndex) -> int:
     """Chunks of tiles per group of padded sg bin ``b``: a function of the
     bin's shape only, so that the plain version sums in the kernel's
-    order."""
+    order; a joint bin's are its members' (:class:`Joint`)."""
+    if getattr(b, "chunks", 0):
+        return b.chunks
     if b.n_groups == 0 or b.n_groups >= _SG_SPLIT_BELOW:
         return 1
     return max(1, min(-(-_SG_SPLIT_BLOCKS // b.n_groups),
@@ -1336,29 +1425,298 @@ def _check_x_table(dsell, x_tab: torch.Tensor):
             f"{tuple(x_tab.shape)}")
 
 
+# ---------------------------------------------------------------------------
+# the launch plan: bins that share a kernel go out as one launch
+# ---------------------------------------------------------------------------
+
+# a bin's value planes: f32/bf16 as_; dd as_hi and as_lo, or as_pair
+_VALUE_FIELDS = ("as_", "as_hi", "as_lo", "as_pair")
+# the tensors a joint bin's members share as views of its storage, in this
+# order of allocation (group ids only where they are not rebased)
+_SHARED = ("ja", *_VALUE_FIELDS, "row_len", "row_table", "slab_list",
+           "slab_count", "group_ids")
+
+
+@dataclass
+class Joint:
+    """One launch of a plan: ``bin`` runs the groups of ``members`` (bins
+    that share a launch key, :func:`_launch_key`), in that order, fewest
+    groups first, so that the small bins' blocks start in the first wave.
+    Its index and value planes and per-group tables are one allocation of
+    which each member's are views; its own tables are ``plane_off``
+    rebased, a wl bin's slab lists padded to the widest ``nw`` (no 2-byte
+    code reads past its own; per-block offsets instead ran the bf16 wl
+    kernel 33% slower on the headline on an H100), the group ids of panel
+    slices rebased. Each row's arithmetic is its
+    member's, so the launch equals the members' launches bit for bit.
+    ``accumulate``: the launch adds onto y (``add_into`` bins)."""
+
+    bin: DeviceBinIndex
+    members: tuple
+    accumulate: bool = False
+
+
+@dataclass
+class LaunchPlan:
+    """:func:`sell_spmv`'s "auto" launches: the core joint launches, which
+    store their rows, then the ``add_into`` ones, in order; the core bins
+    write ``covered`` groups (y takes no zero fill when that is all of
+    them). ``bins``: the bins it was built from."""
+
+    launches: list
+    covered: int
+    bins: tuple
+
+    @property
+    def kernels(self) -> int:
+        return len(self.launches)
+
+
+@dataclass
+class PanelPlan:
+    """:func:`panel_sell_spmv`'s launches: the joint launches, each storing
+    its members' rows into their slices of a scratch y of ``slices *
+    num_groups`` groups (a panel's core bins share one slice, each
+    ``add_into`` bin has one of its own, panel by panel), then
+    :func:`panel_reduce` over ``cover`` ``(slices, num_groups)`` uint8, 1
+    where a bin writes the group."""
+
+    launches: list
+    slices: int
+    cover: torch.Tensor
+    bins: tuple
+
+    @property
+    def kernels(self) -> int:
+        return len(self.launches) + 1
+
+
+def _launch_key(b: DeviceBinIndex) -> tuple:
+    """What a bin's launch shares with the bins it may join: the C entry
+    :data:`_CALL` picks, the index and value types, and every scalar the
+    launch passes beyond its group count, but for wl's ``nw`` (a joint's
+    slab lists are padded to the widest) and sb-major's span (neither of
+    its decodes reads it)."""
+    stem, suffix, _, after = _CALL[b.layout](b)
+    scalars = () if b.layout == "wl" else after[1:]
+    if b.layout == "sb-major":
+        scalars = scalars[:2]
+    values = tuple((f, getattr(b, f).dtype) for f in _VALUE_FIELDS
+                   if getattr(b, f, None) is not None)
+    return stem, suffix, b.ja.dtype, values, scalars
+
+
+def _share(members: list, name: str) -> torch.Tensor:
+    """One allocation holding every member's ``name`` tensor, along its
+    first axis in member order; each member's becomes a view of its slice.
+    The members' own are moved to the host first and freed on the device,
+    so that no plane is held twice there."""
+    parts = [getattr(m, name).cpu() for m in members]
+    device = getattr(members[0], name).device
+    for m in members:
+        setattr(m, name, None)
+    out = torch.empty((sum(p.shape[0] for p in parts), *parts[0].shape[1:]),
+                      dtype=parts[0].dtype, device=device)
+    at = 0
+    for m, p in zip(members, parts):
+        out[at:at + p.shape[0]].copy_(p)
+        setattr(m, name, out[at:at + p.shape[0]])
+        at += p.shape[0]
+    return out
+
+
+def _join(members: list, group_ids: list | None = None) -> DeviceBinIndex:
+    """The joint bin of ``members`` (one launch key, in block order). With
+    ``group_ids`` (a tensor a member) the joint's group ids are those,
+    rebased, else the members' shared; a lone member whose ids are not
+    rebased is its own joint bin."""
+    first = members[0]
+    if len(members) == 1:
+        if group_ids is None:
+            return first
+        return dataclasses.replace(first, add_into=False,
+                                   group_ids=group_ids[0].to(torch.int32))
+    fields = {f.name: getattr(first, f.name)
+              for f in dataclasses.fields(first)}
+    if first.plane_off is not None:  # rebased on each member's plane rows
+        rows = torch.tensor([0] + [m.ja.shape[0] for m in members],
+                            device=first.ja.device).cumsum(0)
+        fields["plane_off"] = torch.cat(
+            [m.plane_off[:-1] + int(r) for m, r in zip(members, rows)]
+            + [rows[-1:]]).to(torch.int32)
+    if first.layout == "wl":  # padded to the widest window count
+        nw = max(m.nw for m in members)
+        fields["chunk_k"] = nw
+        fields["slab_list"] = torch.cat([torch.nn.functional.pad(
+            m.slab_list.view(-1, m.nw * 8), (0, (nw - m.nw) * 8)).view(-1)
+            for m in members])
+    for name in _SHARED:
+        if name == "group_ids" and group_ids is not None:
+            fields[name] = torch.cat(group_ids).to(torch.int32)
+        elif name == "slab_list" and first.layout == "wl":
+            continue
+        elif fields.get(name) is not None:
+            fields[name] = None  # let _share free the first member's
+            fields[name] = _share(members, name)
+    if first.layout == "k-major":
+        fields["lanes"] = _k_major_lanes(first)
+        if "x_window" in fields:  # the SpMM kernel's: the members keep theirs
+            fields.update(x_window=None, window_rows=0)
+    if first.layout == "sg" and first.row_table is None:
+        fields["chunks"] = _sg_chunks(first)
+    fields.update(n_groups=sum(m.n_groups for m in members),
+                  k=max(m.k for m in members),
+                  add_into=first.add_into and group_ids is None)
+    return type(first)(**fields)
+
+
+def _check_layouts(bins):
+    for b in bins:
+        if b.layout not in _KERNEL:
+            raise ValueError(f"unknown SELL bin layout {b.layout!r}")
+
+
+def _disjoint(run: list, b: DeviceBinIndex) -> bool:
+    held = torch.cat([m.group_ids for m in run])
+    return not bool(torch.isin(b.group_ids, held).any())
+
+
+def _flat_plan(bins: list) -> LaunchPlan:
+    """The plan of one SELL's bins: the core bins that share a launch key
+    join (their groups are disjoint: each group is one core bin's); an
+    ``add_into`` bin joins the launch before it where it shares its key and
+    none of its groups, so that every row's sums are added in bin order."""
+    core = [b for b in bins if not b.add_into]
+    keyed = {}
+    for b in core:
+        keyed.setdefault(_launch_key(b), []).append(b)
+    launches = []
+    for members in keyed.values():
+        members = sorted(members, key=lambda m: m.n_groups)
+        launches.append(Joint(_join(members), tuple(members)))
+    runs = []
+    for b in (b for b in bins if b.add_into):
+        if runs and _launch_key(b) == _launch_key(runs[-1][0]) \
+                and _disjoint(runs[-1], b):
+            runs[-1].append(b)
+        else:
+            runs.append([b])
+    for run in runs:
+        run = sorted(run, key=lambda m: m.n_groups)
+        launches.append(Joint(_join(run), tuple(run), True))
+    ids = torch.cat([b.group_ids for b in core]) if core else \
+        torch.zeros(0, dtype=torch.int32)
+    covered = int(torch.unique(ids).numel())
+    if covered != ids.numel():
+        raise ValueError("two core bins write the same group: each group "
+                         "belongs to one core bin")
+    return LaunchPlan(launches, covered, tuple(bins))
+
+
+def _panel_plan(dps) -> PanelPlan:
+    """The plan of column panels: slice s of the scratch y takes panel p's
+    core bins, or one of its ``add_into`` bins, panel by panel and in each
+    panel the core slice first, so that :func:`panel_reduce` adds the
+    slices in the order of the panel-by-panel accumulation. Every bin
+    stores into its slice (group ids rebased to ``s*num_groups + g``), so
+    the bins of all panels that share a launch key join."""
+    ng = dps.num_groups
+    entries, slices = [], 0  # (bin, slice)
+    for dsell in dps.panels:
+        core = [b for b in dsell.bins if not b.add_into]
+        adds = [b for b in dsell.bins if b.add_into]
+        entries += [(b, slices) for b in core]
+        slices += bool(core)
+        entries += [(b, slices + i) for i, b in enumerate(adds)]
+        slices += len(adds)
+    device = entries[0][0].ja.device if entries else torch.device("cpu")
+    cover = torch.zeros(slices, ng, dtype=torch.uint8, device=device)
+    keyed = {}
+    for b, sl in entries:
+        cover[sl, b.group_ids.long()] = 1
+        keyed.setdefault(_launch_key(b), []).append((b, sl))
+    launches = []
+    for pairs in keyed.values():
+        pairs = sorted(pairs, key=lambda e: e[0].n_groups)
+        members = [b for b, _ in pairs]
+        launches.append(Joint(_join(members, [b.group_ids + sl * ng
+                                               for b, sl in pairs]),
+                              tuple(members)))
+    return PanelPlan(launches, slices, cover, tuple(b for b, _ in entries))
+
+
+def _bins_of(d) -> list:
+    return [b for p in d.panels for b in p.bins] if hasattr(d, "panels") \
+        else list(d.bins)
+
+
+def _plan_of(d):
+    """``d``'s launch plan: the one built at upload, or, where ``d``'s bins
+    were replaced since, one built now. Every bin's layout is checked."""
+    bins = _bins_of(d)
+    _check_layouts(bins)
+    plan = d.plan
+    if plan is None or {id(b) for b in plan.bins} != {id(b) for b in bins}:
+        plan = d.plan = (_panel_plan(d) if hasattr(d, "panels")
+                         else _flat_plan(bins))
+    return plan
+
+
+def plan_bytes(d) -> int:
+    """Device bytes of ``d``'s launch plan beyond its bins' own tensors:
+    the joint bins' tables (rebased ``plane_off``, padded wl slab lists,
+    rebased group ids) and a panel plan's cover table."""
+    plan = _plan_of(d)
+
+    def storages(b):
+        return {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in vars(b).values() if isinstance(t, torch.Tensor)}
+
+    owned = {}
+    for b in plan.bins:
+        owned |= storages(b)
+    extra = {}
+    for j in plan.launches:
+        extra |= {k: v for k, v in storages(j.bin).items()
+                  if k not in owned}
+    cover = getattr(plan, "cover", None)
+    return sum(extra.values()) + (cover.numel() if cover is not None else 0)
+
+
 def _assemble(dsell, xs: tuple, write) -> tuple:
-    """One y per x table: the core bins store their own groups' rows, then
-    every ``add_into`` bin adds onto them, on one stream; returns each
-    ``y[:nrows]``. ``write(b, *xs, *ys, accumulate)`` runs one bin."""
+    """One y per x table by ``dsell``'s launch plan: the core joint launches
+    store their groups' rows, then the ``add_into`` ones add onto them, on
+    one stream; returns each ``y[:nrows]``. y is zero-filled only where the
+    core bins do not write every group. ``write(b, *xs, *ys, accumulate)``
+    runs one (joint) bin."""
     for x_tab in xs:
         _check_x_table(dsell, x_tab)
-    ys = tuple(torch.zeros(dsell.num_groups * GROUP_ROWS, dtype=torch.float32,
-                           device=xs[0].device) for _ in xs)
-    for accumulate in (False, True):
-        for b in dsell.bins:
-            if b.add_into == accumulate:
-                write(b, *xs, *ys, accumulate)
+    plan = _plan_of(dsell)
+    new = torch.empty if plan.covered == dsell.num_groups else torch.zeros
+    ys = tuple(new(dsell.num_groups * GROUP_ROWS, dtype=torch.float32,
+                   device=xs[0].device) for _ in xs)
+    for j in plan.launches:
+        write(j.bin, *xs, *ys, j.accumulate)
     return tuple(y[: dsell.nrows] for y in ys)
 
 
 ASSEMBLIES = ("auto", "sum", "chain")
 
 
-def sell_spmv_launches(dsell: DeviceSell, assembly: str = "auto") -> int:
-    """The CUDA launches one :func:`sell_spmv` call queues: a zero fill of
-    y and a kernel per bin; "sum" (more than one bin) adds a zero fill and
-    an add per bin."""
-    n = len(dsell.bins)
+def sell_spmv_launches(d, assembly: str = "auto") -> int:
+    """The CUDA launches one :func:`sell_spmv` call queues: "auto", the
+    plan's joint launches and, where the core bins do not write every
+    group, a zero fill of y; "chain", a zero fill and a kernel per bin;
+    "sum" (more than one bin), a zero fill and a zero fill, a kernel and an
+    add per bin. Column panels (:func:`panel_sell_spmv`): the x table's
+    zero fill and copy, the plan's joint launches and
+    :func:`panel_reduce`."""
+    if isinstance(d, DevicePanelSell):
+        return 2 + _plan_of(d).kernels
+    if assembly == "auto":
+        plan = _plan_of(d)
+        return plan.kernels + (plan.covered != d.num_groups)
+    n = len(d.bins)
     return 1 + (3 * n if assembly == "sum" and n > 1 else n)
 
 
@@ -1428,17 +1786,91 @@ def sell_spmv_plain(dsell: DeviceSell, x_tab: torch.Tensor,
     return _spmv(dsell, x_tab, _write_plain, assembly)
 
 
-def _assemble_panels(dps, xs: tuple, write) -> tuple:
-    """One y per unpadded x vector; each panel packs its own x tables for
-    its columns and every bin adds onto the same rows."""
-    ys = tuple(torch.zeros(dps.num_groups * GROUP_ROWS, dtype=torch.float32,
-                           device=xs[0].device) for _ in xs)
-    for p, dsell in enumerate(dps.panels):
-        c0, c1 = dps.bounds[p], dps.bounds[p + 1]
-        tabs = tuple(pack_x_table(x[c0:c1], c1 - c0) for x in xs)
-        for b in dsell.bins:
-            write(b, *tabs, *ys, True)
+def panel_x_table(dps, x: torch.Tensor) -> torch.Tensor:
+    """The one x table of column panels: the unpadded f32 x, zero-padded to
+    ``dps.x_rows`` entries, which every panel's rebased bins read."""
+    return _x_table(x, dps.x_rows)
+
+
+def _assemble_panels(dps, xs: tuple, write, reduce) -> tuple:
+    """One y per unpadded x vector by ``dps``'s launch plan: x packed once,
+    every joint launch storing its members' rows into their slices of a
+    scratch y, then ``reduce(*parts, cover, *ys)`` adding the slices into
+    y (:func:`panel_reduce`); returns each ``y[:nrows]``."""
+    plan = _plan_of(dps)
+    tabs = tuple(panel_x_table(dps, x) for x in xs)
+    n = dps.num_groups * GROUP_ROWS
+    parts = tuple(torch.empty(plan.slices * n, dtype=torch.float32,
+                              device=xs[0].device) for _ in xs)
+    for j in plan.launches:
+        write(j.bin, *tabs, *parts, False)
+    ys = tuple(torch.empty(n, dtype=torch.float32, device=xs[0].device)
+               for _ in xs)
+    reduce(*parts, plan.cover, *ys)
     return tuple(y[: dps.nrows] for y in ys)
+
+
+def panel_reduce_plain(parts: torch.Tensor,
+                       cover: torch.Tensor) -> torch.Tensor:
+    """y of column panels from their slices ``parts`` (``slices *
+    num_groups * 1024``): each row's covered slices (``cover[s, g]``) added
+    in slice order onto +0, ``acc = acc + part``, the order and operands of
+    the kernels' accumulating store (``sell_common.cuh``), so a zero sum's
+    sign is that of the accumulation too."""
+    slices, ng = cover.shape
+    parts = parts.view(slices, ng, GROUP_ROWS)
+    acc = torch.zeros(ng, GROUP_ROWS, dtype=torch.float32,
+                      device=parts.device)
+    for s in range(slices):
+        acc = torch.where(cover[s].bool()[:, None], acc + parts[s], acc)
+    return acc.view(-1)
+
+
+def _check_reduce(parts: tuple, cover: torch.Tensor, ys: tuple):
+    """Check a :func:`panel_reduce` launch: every tensor on one CUDA device
+    and contiguous, f32 slices of ``slices * num_groups * 1024`` entries, a
+    uint8 cover table and f32 y of ``num_groups * 1024``."""
+    device = ys[0].device
+    if device.type != "cuda":
+        raise RuntimeError(f"panel_reduce runs on CUDA or CPU tensors, not "
+                           f"{device}")
+    slices, ng = cover.shape
+    for name, t, n in [("parts", p, slices * ng * GROUP_ROWS) for p in parts] \
+            + [("y", y, ng * GROUP_ROWS) for y in ys]:
+        if t.device != device or not t.is_contiguous() \
+                or t.dtype != torch.float32 or t.numel() != n:
+            raise ValueError(f"{name} must be a contiguous f32 tensor of {n} "
+                             f"entries on {device}")
+    if cover.device != device or cover.dtype != torch.uint8 \
+            or not cover.is_contiguous():
+        raise ValueError(f"cover must be a contiguous uint8 table on {device}")
+
+
+def panel_reduce(parts: torch.Tensor, cover: torch.Tensor, y: torch.Tensor):
+    """y (``num_groups * 1024``) of column panels from their slices: the
+    CUDA kernel ``panel_reduce_f32`` (``csrc/panel_reduce.cu``) on CUDA
+    tensors, :func:`panel_reduce_plain` on CPU ones; counts its launches in
+    ``.launches``."""
+    if y.device.type == "cpu":
+        y.copy_(panel_reduce_plain(parts, cover))
+        return
+    _check_reduce((parts,), cover, (y,))
+    _launch_reduce(panel_reduce, "panel_reduce_f32", (parts,), cover, (y,))
+
+
+panel_reduce.launches = 0
+
+
+def _launch_reduce(wrapper, name: str, parts: tuple, cover: torch.Tensor,
+                   ys: tuple):
+    device = ys[0].device
+    with torch.cuda.device(device):
+        err = getattr(_build.load(), name)(
+            *(t.data_ptr() for t in (*parts, cover, *ys)), cover.shape[1],
+            cover.shape[0], torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    wrapper.launches += 1
 
 
 def _check_panel_x(dps, x: torch.Tensor):
@@ -1452,17 +1884,23 @@ def _panel_spmv(dps: DevicePanelSell, x: torch.Tensor, write) -> torch.Tensor:
         raise TypeError(f"panel_sell_spmv takes a DevicePanelSell, got "
                         f"{type(dps).__name__}")
     _check_panel_x(dps, x)
-    return _assemble_panels(dps, (x,), write)[0]
+    return _assemble_panels(dps, (x,), *write)[0]
 
 
 def panel_sell_spmv(dps: DevicePanelSell, x: torch.Tensor) -> torch.Tensor:
     """``y = A @ x`` over column panels (≙ the JAX ``_panel_spmv``): x is the
-    unpadded f32 vector on the device; each panel packs its own x table for
-    its columns and every bin accumulates onto one y."""
-    return _panel_spmv(dps, x, _run_kernel)
+    unpadded f32 vector on the device, packed once into the table every
+    panel's rebased bins read; the plan's joint launches write each panel's
+    partial rows into their slices and :func:`panel_reduce` adds them into
+    y in the order of a panel-by-panel accumulation."""
+    return _panel_spmv(dps, x, (_run_kernel, panel_reduce))
+
+
+def _reduce_plain(parts, cover, y):
+    y.copy_(panel_reduce_plain(parts, cover))
 
 
 def panel_sell_spmv_plain(dps: DevicePanelSell,
                           x: torch.Tensor) -> torch.Tensor:
     """:func:`panel_sell_spmv` through the plain versions."""
-    return _panel_spmv(dps, x, _write_plain)
+    return _panel_spmv(dps, x, (_write_plain, _reduce_plain))

@@ -39,6 +39,11 @@ given CUDA tensors launches its kernel, or raises; given CPU tensors it runs
 the plain version. Each wrapper counts its launches in ``.launches``, and
 those with ``accumulate=True`` (``y = dd_add_dd(y, bin sums)``) also in
 ``.accumulating``.
+
+:func:`sell_spmv_dd` and :func:`panel_sell_spmv_dd` run the launch plan of
+:mod:`.sell` (bins that share a kernel in one launch; column panels on one
+x table, their slices joined by :func:`panel_reduce_dd`,
+``csrc/panel_reduce.cu``, with ``dd_add_dd(acc, slice)`` in slice order).
 """
 
 from __future__ import annotations
@@ -50,12 +55,14 @@ import torch
 
 from ..formats.sell import GROUP_ROWS, LANES, SUBLANES
 from .doubledouble import combine_f64, dd_add_dd, dd_mul_dd, split_f64
-from .sell import (DeviceBinIndex, _assemble, _assemble_panels,
-                   _check_launch, _check_panel_x, _compact_km, _compact_sl,
-                   _compact_wl, _k_major_lanes, _lane_join, _lane_split,
-                   _launch, _list_steps, _on, _put_bin_index, _sb_padded,
-                   _scratch, _sg_chunks, _sg_slots, _sg_sums, _sl_compacts,
-                   _SLOTS, _unsort, _wl_padded, _wl_steps, pack_x_table)
+from .sell import (DeviceBinIndex, _assemble,
+                   _assemble_panels, _check_launch, _check_panel_x,
+                   _check_reduce, _compact_km, _compact_sl, _compact_wl,
+                   _k_major_lanes, _lane_join, _lane_split, _launch,
+                   _launch_reduce, _list_steps, _on, _plan_of, _put,
+                   _put_bin_index, _rebase, _sb_padded, _scratch, _sg_chunks,
+                   _sg_slots, _sg_sums, _sl_compacts, _SLOTS, _unsort,
+                   _wl_padded, _wl_steps, pack_x_table)
 
 __all__ = [
     "DeviceSellBinDD", "DeviceSellDD", "DevicePanelSellDD",
@@ -66,7 +73,7 @@ __all__ = [
     "sell_spmv_dd_launches",
     "panel_sell_spmv_dd", "panel_sell_spmv_dd_plain", "sell_spmv_dd_f64",
     "pack_x_pair", "wl_padded_plain_dd", "sb_list_padded_plain_dd",
-    "k_major_padded_plain_dd",
+    "k_major_padded_plain_dd", "panel_reduce_dd", "panel_reduce_plain_dd",
 ]
 
 
@@ -105,12 +112,16 @@ class DeviceSellDD:
     nnz: int
     num_groups: int
     bins: list
+    sigma_sorted: bool = False
+    plan: object = None  # the LaunchPlan of ops/sell.py, built at upload
 
 
 @dataclass
 class DevicePanelSellDD:
     """Column panels on a device: panel p covers columns
-    ``[bounds[p], bounds[p+1])`` and holds its own :class:`DeviceSellDD`."""
+    ``[bounds[p], bounds[p+1])`` and holds its own :class:`DeviceSellDD`,
+    its bins' columns rebased onto the whole x (the x table of
+    ``x_rows`` entries)."""
 
     nrows: int
     ncols: int
@@ -118,9 +129,12 @@ class DevicePanelSellDD:
     num_groups: int
     bounds: tuple
     panels: list
+    sigma_sorted: bool = False
+    x_rows: int = 0
+    plan: object = None  # the PanelPlan of ops/sell.py, built at upload
 
 
-def _put_bin_dd(b, device, sb_i16: bool) -> DeviceSellBinDD:
+def _put_bin_dd(b, device, sb_i16: bool, col0: int = 0) -> DeviceSellBinDD:
     def put(dev):
         index = _put_bin_index(b, dev, sb_i16)
         hi, lo = (torch.from_numpy(v).to(dev)
@@ -132,8 +146,10 @@ def _put_bin_dd(b, device, sb_i16: bool) -> DeviceSellBinDD:
         elif b.layout != "sg":
             if _km_compacts(b):
                 index, (hi, lo) = _compact_km(index, [hi, lo])
-            return DeviceSellBinDD(**index, as_hi=hi, as_lo=lo)
-        return DeviceSellBinDD(**index, as_pair=torch.stack([hi, lo], -1))
+            return DeviceSellBinDD(**_rebase(index, col0), as_hi=hi,
+                                   as_lo=lo)
+        return DeviceSellBinDD(**_rebase(index, col0),
+                               as_pair=torch.stack([hi, lo], -1))
     return _on(device, put)
 
 
@@ -149,17 +165,11 @@ def device_put_sell_dd(sell, *, device, sb_i16=False):
     halves of its value are zero), and so are k-major bins of one lane a
     row (:func:`_km_compacts`); sb planes int16 with ``sb_i16=True`` where
     the span fits; wl, sg and compacted sb-list values as one plane of (hi,
-    lo) pairs."""
-    if hasattr(sell, "panels"):
-        return DevicePanelSellDD(
-            int(sell.nrows), int(sell.ncols), int(sell.nnz),
-            int(sell.num_groups), tuple(int(c) for c in sell.bounds),
-            [device_put_sell_dd(p, device=device, sb_i16=sb_i16)
-             for p in sell.panels])
-    device = torch.device(device)
-    return DeviceSellDD(int(sell.nrows), int(sell.ncols), int(sell.nnz),
-                        int(sell.num_groups),
-                        [_put_bin_dd(b, device, sb_i16) for b in sell.bins])
+    lo) pairs. Column panels' columns are rebased onto the whole x, and the
+    launch plan is built as :func:`~.sell.device_put_sell` builds it."""
+    return _put(sell, device, lambda b, dev, c0: _put_bin_dd(b, dev, sb_i16,
+                                                            c0),
+                DeviceSellDD, DevicePanelSellDD)
 
 
 def device_put_x_dd(x, ncols: int, *, device):
@@ -519,11 +529,18 @@ def sell_spmv_dd(d: DeviceSellDD, xh_tab: torch.Tensor,
     return _spmv_dd(d, xh_tab, xl_tab, _kernel_writer())
 
 
-def sell_spmv_dd_launches(d: DeviceSellDD) -> int:
-    """The CUDA launches one :func:`sell_spmv_dd` call queues: the zero
-    fills of yh and yl, a kernel per bin and, with pair bins, the
-    :func:`pack_x_pair` table."""
-    return 2 + len(d.bins) + any(_pairs(b) for b in d.bins)
+def sell_spmv_dd_launches(d) -> int:
+    """The CUDA launches one :func:`sell_spmv_dd` call queues: the plan's
+    joint launches, the zero fills of yh and yl where the core bins do not
+    write every group and, with pair bins, the :func:`pack_x_pair` table.
+    Column panels (:func:`panel_sell_spmv_dd`): the two x tables' zero
+    fills and copies, the pair table, the joint launches and
+    :func:`panel_reduce_dd`."""
+    plan = _plan_of(d)
+    pairs = any(_pairs(j.bin) for j in plan.launches)
+    if isinstance(d, DevicePanelSellDD):
+        return 4 + pairs + plan.kernels
+    return 2 * (plan.covered != d.num_groups) + plan.kernels + pairs
 
 
 def sell_spmv_dd_plain(d: DeviceSellDD, xh_tab, xl_tab):
@@ -531,26 +548,66 @@ def sell_spmv_dd_plain(d: DeviceSellDD, xh_tab, xl_tab):
     return _spmv_dd(d, xh_tab, xl_tab, _write_plain_dd)
 
 
-def _panel_spmv_dd(dps: DevicePanelSellDD, xh, xl, write):
+def _panel_spmv_dd(dps: DevicePanelSellDD, xh, xl, write, reduce):
     if not isinstance(dps, DevicePanelSellDD):
         raise TypeError(f"panel_sell_spmv_dd takes a DevicePanelSellDD, got "
                         f"{type(dps).__name__}")
     for x in (xh, xl):
         _check_panel_x(dps, x)
-    return _assemble_panels(dps, (xh, xl), write)
+    return _assemble_panels(dps, (xh, xl), write, reduce)
+
+
+def panel_reduce_plain_dd(parts_hi: torch.Tensor, parts_lo: torch.Tensor,
+                          cover: torch.Tensor) -> tuple:
+    """dd twin of :func:`~.sell.panel_reduce_plain`: each row's covered
+    slices added in slice order onto (0, 0) by ``dd_add_dd(acc, part)``,
+    the accumulation first, as the kernels' accumulating store adds a sum
+    onto y; returns ``(yh, yl)``."""
+    slices, ng = cover.shape
+    ph, pl = (p.view(slices, ng, GROUP_ROWS) for p in (parts_hi, parts_lo))
+    h = torch.zeros(ng, GROUP_ROWS, dtype=torch.float32, device=ph.device)
+    l = torch.zeros_like(h)
+    for s in range(slices):
+        nh, nl = dd_add_dd(h, l, ph[s], pl[s])
+        take = cover[s].bool()[:, None]
+        h, l = torch.where(take, nh, h), torch.where(take, nl, l)
+    return h.view(-1), l.view(-1)
+
+
+def panel_reduce_dd(parts_hi, parts_lo, cover, y_hi, y_lo):
+    """The (hi, lo) y of column panels from their slices: the CUDA kernel
+    ``panel_reduce_dd`` (``csrc/panel_reduce.cu``) on CUDA tensors,
+    :func:`panel_reduce_plain_dd` on CPU ones; counts its launches in
+    ``.launches``."""
+    if y_hi.device.type == "cpu":
+        return _reduce_plain_dd(parts_hi, parts_lo, cover, y_hi, y_lo)
+    _check_reduce((parts_hi, parts_lo), cover, (y_hi, y_lo))
+    _launch_reduce(panel_reduce_dd, "panel_reduce_dd", (parts_hi, parts_lo),
+                   cover, (y_hi, y_lo))
+
+
+panel_reduce_dd.launches = 0
+
+
+def _reduce_plain_dd(parts_hi, parts_lo, cover, y_hi, y_lo):
+    for y, v in zip((y_hi, y_lo),
+                    panel_reduce_plain_dd(parts_hi, parts_lo, cover)):
+        y.copy_(v)
 
 
 def panel_sell_spmv_dd(dps: DevicePanelSellDD, xh: torch.Tensor,
                        xl: torch.Tensor):
     """``y = A @ x`` in dd over column panels: ``xh``/``xl`` are x's
-    unpadded f32 halves on the device; each panel packs its own x tables
-    and every bin dd-adds onto one y pair."""
-    return _panel_spmv_dd(dps, xh, xl, _kernel_writer())
+    unpadded f32 halves on the device, packed once (with one interleaved
+    pair table); the plan's joint launches write each panel's partial rows
+    into their slices and :func:`panel_reduce_dd` adds them into the y
+    pair in the order of a panel-by-panel accumulation."""
+    return _panel_spmv_dd(dps, xh, xl, _kernel_writer(), panel_reduce_dd)
 
 
 def panel_sell_spmv_dd_plain(dps: DevicePanelSellDD, xh, xl):
     """:func:`panel_sell_spmv_dd` through the plain versions."""
-    return _panel_spmv_dd(dps, xh, xl, _write_plain_dd)
+    return _panel_spmv_dd(dps, xh, xl, _write_plain_dd, _reduce_plain_dd)
 
 
 def sell_spmv_dd_f64(d, x64: torch.Tensor) -> torch.Tensor:

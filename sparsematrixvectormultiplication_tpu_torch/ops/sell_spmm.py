@@ -29,8 +29,8 @@ rounded up to 4 (the JAX package stacks R separate tables, ``(R, Rp,
 columns, so :func:`sell_spmm` hands a raw f32 X whose rows are whole
 float4s to a SELL of wl bins only as it is, packing nothing. It runs a
 :class:`DeviceSell` (core bins store, then ``add_into`` bins accumulate) or
-a :class:`DevicePanelSell` (each panel packs its own x table from the raw
-X; every bin accumulates).
+a :class:`DevicePanelSell` (the raw X packed once into the table of the
+panels' rebased columns, ``x_rows`` rows; every bin accumulates).
 
 The JAX function also refuses bins uploaded with resident-y padding, a TPU
 grid mode whose sentinel groups only its SpMV kernels skip. The port's
@@ -83,12 +83,16 @@ def pack_x_multi(X: torch.Tensor, ncols: int) -> torch.Tensor:
     n, r = X.shape
     if r > MAX_RHS:
         raise ValueError(f"R={r} > MAX_RHS={MAX_RHS}: tile the RHS block")
-    rows = slab_table_rows(ncols) * LANES
-    if n > rows:
-        raise ValueError(f"X has {n} rows, the table for {ncols} columns "
-                         f"{rows}")
-    tab = _rhs_buffer(rows, r, X.device)
-    tab[:n] = X
+    return _pack_rows(X, slab_table_rows(ncols) * LANES)
+
+
+def _pack_rows(X: torch.Tensor, rows: int) -> torch.Tensor:
+    """``X (N, R)`` in a zeroed ``(rows, R)`` table laid out as
+    :func:`pack_x_multi`'s."""
+    if X.shape[0] > rows:
+        raise ValueError(f"X has {X.shape[0]} rows, the table {rows}")
+    tab = _rhs_buffer(rows, X.shape[1], X.device)
+    tab[:X.shape[0]] = X
     return tab
 
 
@@ -311,16 +315,16 @@ def _x_table(dsell: DeviceSell, X: torch.Tensor) -> torch.Tensor:
 
 def _spmm(d, X: torch.Tensor, write) -> torch.Tensor:
     if isinstance(d, DevicePanelSell):
-        if X.ndim != 2 or X.shape[0] != d.ncols:
-            raise ValueError(f"panel SpMM needs the raw ({d.ncols}, R) X "
-                             f"(tables are packed per panel), got "
+        if X.ndim != 2 or X.shape[0] != d.ncols or X.shape[1] > MAX_RHS:
+            raise ValueError(f"panel SpMM needs the raw ({d.ncols}, R) X, "
+                             f"R <= {MAX_RHS} (the table of the panels' "
+                             f"rebased columns is packed here), got "
                              f"{tuple(X.shape)}")
         for p in d.panels:
             _check_layouts(p.bins)
         y = _rhs_buffer(d.num_groups * GROUP_ROWS, X.shape[1], X.device)
-        for p, dsell in enumerate(d.panels):
-            c0, c1 = d.bounds[p], d.bounds[p + 1]
-            tab = pack_x_multi(X[c0:c1], c1 - c0)
+        tab = _pack_rows(X, d.x_rows)
+        for dsell in d.panels:
             for b in dsell.bins:
                 # panels write the same groups: every bin adds
                 write(b, tab, y, True)

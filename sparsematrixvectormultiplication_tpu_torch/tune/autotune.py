@@ -132,7 +132,7 @@ def _device_seconds(dsell, xt, device, reps: int, assembly="auto") -> float:
     """Best of two ``device_time_fn`` rounds of one SpMV (reps capped by
     ``MAX_QUEUED_LAUNCHES`` over ``sell_spmv_launches``)."""
     reps = max(1, min(reps, MAX_QUEUED_LAUNCHES
-                      // sell_spmv_launches(dsell, assembly)))
+                      // max(sell_spmv_launches(dsell, assembly), 1)))
     return min(device_time_fn(sell_spmv, dsell, xt, assembly, device=device,
                               reps=reps) for _ in range(2))
 

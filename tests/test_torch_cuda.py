@@ -190,9 +190,12 @@ def test_panel_spmv_matches_plain(dtype, dev):
     dps = S.device_put_sell(PanelSellMatrix.from_csr(csr, max_panel_cols=1024),
                             dtype, device=dev)
     x = torch.randn(csr.ncols, device=dev)
-    before = S.wl_bin.accumulating
-    _close(S.panel_sell_spmv(dps, x), S.panel_sell_spmv_plain(dps, x))
-    assert S.wl_bin.accumulating > before
+    before = (S.wl_bin.launches, S.panel_reduce.launches)
+    # the joint k-major and wl launches and panel_reduce, bit for bit
+    assert torch.equal(S.panel_sell_spmv(dps, x),
+                       S.panel_sell_spmv_plain(dps, x))
+    assert S.wl_bin.launches > before[0]
+    assert S.panel_reduce.launches == before[1] + 1
 
 
 def test_run_matrix_on_cuda(dev):
@@ -306,10 +309,12 @@ def test_dd_panel_spmv_matches_plain(dev):
     x = torch.randn(csr.ncols, dtype=torch.float64, device=dev)
     xh = x.float()
     xl = (x - xh.double()).float()
-    before = D.wl_bin_dd.accumulating
-    _dd_close(D.panel_sell_spmv_dd(dps, xh, xl),
-              D.panel_sell_spmv_dd_plain(dps, xh, xl))
-    assert D.wl_bin_dd.accumulating > before
+    before = (D.wl_bin_dd.launches, D.panel_reduce_dd.launches)
+    for got, want in zip(D.panel_sell_spmv_dd(dps, xh, xl),
+                         D.panel_sell_spmv_dd_plain(dps, xh, xl)):
+        assert torch.equal(got, want)
+    assert D.wl_bin_dd.launches > before[0]
+    assert D.panel_reduce_dd.launches == before[1] + 1
     y = D.sell_spmv_dd_f64(dps, x).cpu().numpy()
     y_ref = csr.spmv(x.cpu().numpy())
     assert np.abs(y - y_ref).max() < 1e-12 * np.abs(y_ref).max()
@@ -546,9 +551,10 @@ def test_compacted_k_major_dd_kernel_bit_for_bit(matrix, dev):
 
 
 def test_compacted_k_major_dd_panels(dev):
-    """Column panels of compacted k-major dd bins: every bin dd-adds onto
-    one y pair, equal to the plain assembly and to each bin's padded
-    layout bit for bit."""
+    """Column panels of compacted k-major dd bins: the bins of both panels
+    go out as one joint launch into their slices, and the SpMV equals the
+    plain assembly, and each bin on the whole x table its padded layout on
+    its panel's own, bit for bit."""
     csr = CSRMatrix.from_coo(random_general(40_000, 40_000, 1.5e-3, seed=3))
     psell = PanelSellMatrix.from_csr(csr, max_panel_cols=20_480,
                                      layout="k-major")
@@ -563,10 +569,12 @@ def test_compacted_k_major_dd_panels(dev):
     before = (D.k_major_bin_dd.launches, D.k_major_bin_dd.accumulating)
     got = D.panel_sell_spmv_dd(dps, xh, xl)
     torch.cuda.synchronize()
+    assert len(dps.plan.launches) == 1 < len(bins)
     assert (D.k_major_bin_dd.launches - before[0],
-            D.k_major_bin_dd.accumulating - before[1]) == (len(bins),) * 2
+            D.k_major_bin_dd.accumulating - before[1]) == (1, 0)
     for g, w in zip(got, D.panel_sell_spmv_dd_plain(dps, xh, xl)):
         assert torch.equal(g, w)
+    whole = (S.panel_x_table(dps, xh), S.panel_x_table(dps, xl))
     for p, (hp, dp) in enumerate(zip(psell.panels, dps.panels)):
         c0, c1 = dps.bounds[p], dps.bounds[p + 1]
         tabs = (S.pack_x_table(xh[c0:c1], c1 - c0),
@@ -574,16 +582,16 @@ def test_compacted_k_major_dd_panels(dev):
         for h, b in zip(hp.bins, dp.bins):
             y = [torch.zeros(dps.num_groups * 1024, device=dev)
                  for _ in range(2)]
-            D.k_major_bin_dd(b, *tabs, *y)
+            D.k_major_bin_dd(b, *whole, *y)
             rows = b.group_ids.long()
             for t, exp in zip(y, D.k_major_padded_plain_dd(h, *tabs)):
                 assert torch.equal(t.view(-1, 8, 128)[rows], exp)
 
 
 def test_compacted_k_major_dd_bin_launches_the_list_entry(dev, monkeypatch):
-    """A dd SpMV over a compacted k-major bin launches
-    ``sell_k_major_dd_list`` once a bin, counted on the k-major dd wrapper,
-    and never the padded entry."""
+    """A dd SpMV over compacted k-major bins launches
+    ``sell_k_major_dd_list`` once a joint bin, counted on the k-major dd
+    wrapper, and never the padded entry."""
     csr = CSRMatrix.from_coo(banded(40_000, 64, 64, seed=11))
     d = D.device_put_sell_dd(SellMatrix.from_csr(csr, layout="k-major"),
                              device=dev)
@@ -603,7 +611,8 @@ def test_compacted_k_major_dd_bin_launches_the_list_entry(dev, monkeypatch):
     before = D.k_major_bin_dd.launches
     y = combine_f64(*D.sell_spmv_dd(d, xh, xl))
     torch.cuda.synchronize()
-    assert len(called) == len(d.bins) == D.k_major_bin_dd.launches - before
+    assert len(called) == len(d.plan.launches) \
+        == D.k_major_bin_dd.launches - before
     y_ref = csr.spmv(np.ones(csr.ncols))
     assert np.abs(y.cpu().numpy() - y_ref).max() < 1e-12 * np.abs(
         y_ref).max()
@@ -2006,3 +2015,158 @@ def test_flagship_functions_on_the_card(dev):
             y = combine_f64(*D.sell_spmv_dd(d, xh, xl))
             want = combine_f64(*D.sell_spmv_dd_plain(d, xh, xl))
             assert (y - want).abs().max() <= 1e-12 * want.abs().max()
+
+
+def _two_bands():
+    """Two bands of one K and spans 8 and 20 slabs: two sb-major bins that
+    join (tests/test_torch_joint.py's)."""
+    a = banded(3072, 24, 300, seed=1)
+    b = banded(5120, 24, 1500, seed=2)
+    return COOMatrix(8192, 8192, np.concatenate([a.row, b.row + 3072]),
+                     np.concatenate([a.col, b.col + 3072]),
+                     np.concatenate([a.val, b.val]))
+
+
+# case -> (matrix, SellMatrix.from_csr keywords): k-major + two wl bins,
+# two sb-major bins, seven compacted sb-list bins, sg + add_into k-major
+JOINT_CASES = {
+    "fem": (lambda: fem_3d(20, 20, 20, dof=3, seed=1), {}),
+    "banded": (_two_bands, {"layout": "sb-major", "merge_bins": False}),
+    "road": (lambda: road_network(20_000, seed=5),
+             {"layout": "sb-list", "merge_bins": False}),
+    "uniform": (lambda: random_general(30_000, 30_000, 2.5e-4, seed=3), {}),
+}
+EXACT = ("k-major", "wl", "sb-list", "sg")  # kernels equal to their plain
+
+
+def _counted(ws):
+    return sum(w.launches for w in ws.values())
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "dd"])
+@pytest.mark.parametrize("case", sorted(JOINT_CASES))
+def test_joint_launches_match_plain(case, precision, dev):
+    """Each joint launch of the plan against its plain version (bit for bit
+    where the layout's kernel is, sb-major at the f32 and dd tolerances),
+    the SpMV against the plain plan, and the wrappers' launch counts of
+    one SpMV equal to the plan's launches and ``sell_spmv_launches``
+    without the zero fills and the pair table."""
+    make, kw = JOINT_CASES[case]
+    csr = CSRMatrix.from_coo(make())
+    sell = SellMatrix.from_csr(csr, **kw)
+    x = np.random.default_rng(6).standard_normal(csr.ncols)
+    dd = precision == "dd"
+    if dd:
+        d = D.device_put_sell_dd(sell, device=dev)
+        xs = D.device_put_x_dd(x, csr.ncols, device=dev)
+        kernels, plains, ws = DD_WRAPPERS, DD_WRAPPERS, D
+    else:
+        d = S.device_put_sell(sell, torch.bfloat16 if precision == "bf16"
+                              else torch.float32, device=dev)
+        xs = (S.device_put_x(x, csr.ncols, device=dev),)
+        kernels, plains, ws = WRAPPERS, WRAPPERS, S
+    assert len(d.plan.launches) < len(d.bins) or (case, dd) == ("uniform",
+                                                                 True)
+    for j in d.plan.launches:
+        kernel, plain = kernels[j.bin.layout][0], plains[j.bin.layout][1]
+        ys = [torch.full((d.num_groups * 1024,), float("nan"), device=dev)
+              for _ in xs]
+        kernel(j.bin, *xs, *ys)
+        rows = j.bin.group_ids.long()
+        got = [y.view(-1, 8, 128)[rows] for y in ys]
+        want = plain(j.bin, *xs)
+        want = want if dd else (want,)
+        if j.bin.layout in EXACT:
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        elif dd:
+            _dd_close(got, want)
+        else:
+            _close(got[0], want[0])
+    wrappers = {lay: w[0] for lay, w in kernels.items()}
+    before = _counted(wrappers)
+    y = ws.sell_spmv_dd(d, *xs) if dd else (ws.sell_spmv(d, *xs),)
+    torch.cuda.synchronize()
+    launched = _counted(wrappers) - before
+    pairs = dd and any(D._pairs(j.bin) for j in d.plan.launches)
+    count = D.sell_spmv_dd_launches(d) if dd else S.sell_spmv_launches(d)
+    assert launched == len(d.plan.launches) == count - pairs
+    want = D.sell_spmv_dd_plain(d, *xs) if dd else (S.sell_spmv_plain(d,
+                                                                       *xs),)
+    if all(j.bin.layout in EXACT for j in d.plan.launches):
+        assert all(torch.equal(g, w) for g, w in zip(y, want))
+    elif dd:
+        _dd_close(y, want)
+    else:
+        _close(y[0], want[0])
+
+
+@pytest.mark.parametrize("dd", [False, True], ids=["f32", "dd"])
+def test_panel_reduce_matches_plain(dd, dev):
+    """panel_reduce on slices with NaN where no bin writes, -0 sums and a
+    group no slice covers: bit for bit its plain version."""
+    rng = np.random.default_rng(12)
+    slices, ng = 5, 7
+    cover = torch.from_numpy(rng.integers(0, 2, (slices, ng))
+                             .astype(np.uint8)).to(dev)
+    cover[:, 3] = 0
+    parts = [torch.from_numpy(rng.standard_normal(slices * ng * 1024)
+                              .astype(np.float32)).to(dev)
+             for _ in range(1 + dd)]
+    if dd:
+        parts[1] *= 2.0**-30
+    for p in parts:
+        v = p.view(slices, ng, 1024)
+        v[~cover.bool()] = float("nan")
+        v[:, :, :8] = -0.0
+    ys = [torch.full((ng * 1024,), float("nan"), device=dev)
+          for _ in parts]
+    if dd:
+        before = D.panel_reduce_dd.launches
+        D.panel_reduce_dd(*parts, cover, *ys)
+        want = D.panel_reduce_plain_dd(*parts, cover)
+        assert D.panel_reduce_dd.launches == before + 1
+    else:
+        before = S.panel_reduce.launches
+        S.panel_reduce(parts[0], cover, ys[0])
+        want = (S.panel_reduce_plain(parts[0], cover),)
+        assert S.panel_reduce.launches == before + 1
+    torch.cuda.synchronize()
+    for y, w in zip(ys, want):
+        assert torch.equal(y, w)
+        assert torch.equal(y.view(ng, 1024)[3], torch.zeros(1024,
+                                                             device=dev))
+        assert not torch.signbit(y.view(ng, 1024)[:, :8]).any()
+
+
+@pytest.mark.parametrize("dd", [False, True], ids=["f32", "dd"])
+def test_panel_spmv_launches_follow_the_plan(dd, dev):
+    """fem_3d(10, 10, 10) in 1024-column panels: the joint launches and one
+    panel_reduce a call, as ``sell_spmv_launches`` counts them, and the
+    result bit for bit the plain plan's."""
+    csr = CSRMatrix.from_coo(fem_3d(10, 10, 10, dof=3, seed=0))
+    psell = PanelSellMatrix.from_csr(csr, max_panel_cols=1024)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        csr.ncols)).to(dev)
+    if dd:
+        dps = D.device_put_sell_dd(psell, device=dev)
+        xs, wrappers, reduce = (x.float(), (x - x.float().double()).float()), \
+            {lay: w[0] for lay, w in DD_WRAPPERS.items()}, D.panel_reduce_dd
+        run, plain = D.panel_sell_spmv_dd, D.panel_sell_spmv_dd_plain
+    else:
+        dps = S.device_put_sell(psell, device=dev)
+        xs, wrappers, reduce = (x.float(),), \
+            {lay: w[0] for lay, w in WRAPPERS.items()}, S.panel_reduce
+        run = lambda d, v: (S.panel_sell_spmv(d, v),)  # noqa: E731
+        plain = lambda d, v: (S.panel_sell_spmv_plain(d, v),)  # noqa: E731
+    n_bins = sum(len(p.bins) for p in dps.panels)
+    assert len(dps.plan.launches) < n_bins
+    before = (_counted(wrappers), reduce.launches)
+    got = run(dps, *xs)
+    torch.cuda.synchronize()
+    assert (_counted(wrappers) - before[0], reduce.launches - before[1]) \
+        == (len(dps.plan.launches), 1)
+    count = D.sell_spmv_dd_launches(dps) if dd else S.sell_spmv_launches(dps)
+    # the x tables' fills and copies and, in dd, the pair table
+    assert count == dps.plan.kernels + (5 if dd else 2)
+    for g, w in zip(got, plain(dps, *xs)):
+        assert torch.equal(g, w)

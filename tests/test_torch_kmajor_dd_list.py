@@ -95,8 +95,9 @@ def test_spmv_matches_pallas_interpret(one_lane):
         interpret=True)))[: sell.nrows]
     d = D.device_put_sell_dd(sell, device="cpu")
     assert all(b.row_table is not None for b in d.bins)
-    # the zero fills of y and a launch a bin: no interleaved x table
-    assert D.sell_spmv_dd_launches(d) == 2 + len(d.bins)
+    # a launch a joint bin, no zero fill of y (the bins write every group)
+    # and no interleaved x table
+    assert D.sell_spmv_dd_launches(d) == len(d.plan.launches) == 1
     y = combine_f64(*D.sell_spmv_dd(
         d, *D.device_put_x_dd(x, sell.ncols, device="cpu"))).numpy()
     assert np.abs(y - y_jax).max() <= JAX_REL * np.abs(y_jax).max()

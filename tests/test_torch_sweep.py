@@ -176,8 +176,13 @@ def test_spmv_launch_counts():
                           device="cpu")
     n = len(d.bins)
     assert n > 1
+    # "auto" runs the launch plan: a launch per joint bin, and a zero fill
+    # only where the core bins leave a group unwritten
+    plan = d.plan
     assert [S.sell_spmv_launches(d, a) for a in S.ASSEMBLIES] == [
-        1 + n, 1 + 3 * n, 1 + n]
+        len(plan.launches) + (plan.covered != d.num_groups), 1 + 3 * n,
+        1 + n]
+    assert S.sell_spmv_launches(d, "auto") < 1 + n
     d.bins = d.bins[:1]
     assert S.sell_spmv_launches(d, "sum") == 2
 
