@@ -45,7 +45,10 @@ each stage and each stage timed as the best of 3 device-time rounds:
                       also ``serial_hll``, ``csr``, ``ell``, ``hll`` and
                       ``sell_sigma``; then ``sell_spmm`` on its own wl SELL
                       at R=8 and R=16 on the raw X, which the wl SpMM kernel
-                      reads in place (every bin must be wl);
+                      reads in place (every bin must be wl), and the fp64
+                      entry ``sell_spmv_dd_f64`` on its dd SELL (the x
+                      split and y join kernels around the wl dd launch),
+                      bit for bit the halves' path;
 * banded_adversarial: banded(250_000, 60, 2500), bench.py's: sb-major; also
                       the five stages above, ``sell_spmm`` (R=16 on a SELL
                       forced to k-major) and ``bsr_spmm``, which must be
@@ -199,6 +202,11 @@ significant difference, refinement within 1e-11, the SELL f32 time beside
 the card's name). The launches of ``entry()`` and of the ranks are added to
 the JSON summary's.
 
+Then the split-join phase (:func:`split_join_phase`): the dd entry's x split
+and y join kernels (``dd_prepare_x``, ``dd_join_y``) at fem3d_cube's 648,000
+columns, bit for bit their plain versions, the PyTorch composition they
+replaced, with each one's device and host times.
+
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
 sampled columns); the dd stages also a norm-scaled error ``max|y - y_ref| /
@@ -208,7 +216,8 @@ band64_250k f32 and dd, webbase_pr only f32. The kernels' launch counters
 are reset before the phases and read after them and the panel phase, before
 ``auto_device_op``;
 every kernel and every dd kernel, the k-major kernel of
-both precisions in accumulate mode, the PR kernel with bf16 values, every
+both precisions in accumulate mode, the dd entry's x split and y join, the
+PR kernel with bf16 values, every
 SpMM kernel (both BSR routes among them) and both SELL SpMM kernels in
 accumulate mode must have been launched. The probe kernels' counters are
 reset before the bandwidth phase and read after it. Each phase prints its
@@ -399,6 +408,14 @@ REDUCE_KERNELS = {
     "panel_reduce": f"{TPU}:1237",
     "panel_reduce_dd": f"{TPU_DD}:739",
 }
+# the dd entry's x split and y join: no TPU kernel; they replace the XLA
+# split and join of the TPU package's fp64 entry, 9 and 3 PyTorch launches
+# of the port's
+SPLIT_JOIN_KERNELS = {
+    "dd_prepare_x": f"{TPU_DD}:786 (x split)",
+    "dd_join_y": f"{TPU_DD}:786 (y join)",
+}
+FEM3D_COLS = 648_000  # fem3d_cube's fem_3d(60, 60, 60, dof=3): rows, cols
 PR_KERNELS = {
     "pr": ("pr_spmv_f32", f"{PKG}/csrc/pr.cu",
            "sparsematrixvectormultiplication_tpu/ops/pallas_pr.py:150"),
@@ -1630,6 +1647,93 @@ FLAGSHIP_KERNELS = (("", "wl"), (" bf16", "wl"), (" dd", "wl"),
                     ("", "sb-major"), (" dd", "sb-major"), ("", "sb-list"))
 
 
+def split_join_phase(dev):
+    """The dd entry's x split and y join kernels at fem3d_cube's shape
+    (648,000 columns and rows; x with signed zeros, subnormals, values
+    past f32's range, infinities and NaN): ``dd_prepare_x`` in the pair
+    table alone (fem3d_cube's plan) and with the two padded halves, and
+    ``dd_join_y``, each bit for bit its plain version (NaN payloads
+    aside), which is the PyTorch composition it replaced. Prints each
+    one's device time, its bound (bytes), the composition's device time and
+    each one's host time a call; returns ``{kernel: (ms, plain_ms,
+    bound_ms)}``, the prepare row in fem3d_cube's mode."""
+    from sparsematrixvectormultiplication_tpu_torch.formats.sell import (
+        slab_table_rows)
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+    from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
+        device_time_fn)
+
+    t_phase = time.perf_counter()
+    n = FEM3D_COLS
+    rows = slab_table_rows(n) * 128
+    rng = np.random.default_rng(SEED)
+    special = np.array([0.0, -0.0, 5e-324, -1e-310, 1e-45, 3.5e38, -1e300,
+                        np.inf, -np.inf, np.nan, 1 / 3])
+    x = rng.standard_normal(n)
+    x[: special.size] = special
+    x = torch.from_numpy(x).to(dev)
+    yh, yl = (torch.from_numpy(v).to(dev) for v in (
+        rng.standard_normal(n).astype(np.float32),
+        (rng.standard_normal(n) * 2.0**-30).astype(np.float32)))
+
+    def same(got, want, what):
+        nan = torch.isnan(want)
+        ints = torch.int32 if got.element_size() == 4 else torch.int64
+        if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                got.view(ints)[~nan], want.view(ints)[~nan])):
+            fail(f"split_join: {what} differs from its plain version")
+
+    def host_us(fn, *args, calls=50, **kw):
+        """Host microseconds a call, ``calls`` calls queued (the plain
+        versions' 9 launches a call stay within the launch queue)."""
+        fn(*args, **kw)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args, **kw)
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        return 1e6 * t / calls
+
+    rows_out = {}
+    for what, pair, halves in (("pair table", True, False),
+                               ("pair table and halves", True, True)):
+        got = D.dd_prepare_x(x, rows, pair=pair, halves=halves)
+        want = D.dd_prepare_x_plain(x, rows, pair, halves)
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                fail(f"split_join: dd_prepare_x ({what}) wrote other tables")
+            if g is not None:
+                same(g.contiguous(), w.contiguous(), f"dd_prepare_x ({what})")
+        ms = device_time_fn(lambda: D.dd_prepare_x(
+            x, rows, pair=pair, halves=halves), device=dev) * 1e3
+        ms_p = device_time_fn(D.dd_prepare_x_plain, x, rows, pair, halves,
+                              device=dev) * 1e3
+        bound = (8 * n + 8 * rows * (pair + halves)) / HBM_BYTES_PER_S * 1e3
+        print(f"[split_join] dd_prepare_x, {what}, {n} columns into "
+              f"{rows} rows: device {ms:.4f} ms, bound {bound:.6f} ms; the "
+              f"PyTorch composition it replaces (its plain version) "
+              f"{ms_p:.4f} ms; host a call "
+              f"{host_us(D.dd_prepare_x, x, rows, pair=pair, halves=halves):.1f}"
+              f" us against "
+              f"{host_us(D.dd_prepare_x_plain, x, rows, pair, halves):.1f} "
+              f"us; equal bit for bit", flush=True)
+        if (pair, halves) == (True, False):
+            rows_out["dd_prepare_x"] = (ms, ms_p, bound)
+    same(D.dd_join_y(yh, yl), D.dd_join_y_plain(yh, yl), "dd_join_y")
+    ms = device_time_fn(D.dd_join_y, yh, yl, device=dev) * 1e3
+    ms_p = device_time_fn(D.dd_join_y_plain, yh, yl, device=dev) * 1e3
+    bound = 16 * n / HBM_BYTES_PER_S * 1e3
+    print(f"[split_join] dd_join_y, {n} rows: device {ms:.4f} ms, bound "
+          f"{bound:.6f} ms; the PyTorch composition it replaces (its plain "
+          f"version, combine_f64) {ms_p:.4f} ms; host a call "
+          f"{host_us(D.dd_join_y, yh, yl):.1f} us against "
+          f"{host_us(D.dd_join_y_plain, yh, yl):.1f} us; equal bit for bit; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    rows_out["dd_join_y"] = (ms, ms_p, bound)
+    return rows_out
+
+
 def flagship_phase(dev, coos, generate_s):
     """The flagship line (``bench/flagship.py``, ≙ bench.py) at full size:
     its three per-matrix functions on the main path's COOs of ``coos``
@@ -1947,6 +2051,33 @@ def main() -> int:
                   f"0, max_rel {dm.max_rel_err:.2e}", flush=True)
         return d
 
+    def headline_dd_entry(res, x):
+        """The fp64 entry ``sell_spmv_dd_f64`` on the headline's dd SELL
+        (fem3d_cube's shape, pair bins alone): the x split and y join
+        kernels around the plan's launch, bit for bit the halves' path
+        (``device_put_x_dd``, ``sell_spmv_dd``, ``combine_f64``) and within
+        DD_TOL of the oracle; its device time a call beside that path's."""
+        d = D.device_put_sell_dd(res.sell_dd, device=dev)
+        if res.sell_dd.row_perm is not None or not all(
+                D._pairs(j.bin) for j in D._plan_of(d).launches):
+            fail("headline: the dd SELL is not pair bins in the matrix's "
+                 "row order")
+        x64 = torch.from_numpy(x).to(dev)
+        xh, xl = D.device_put_x_dd(x, res.ncols, device=dev)
+        y = D.sell_spmv_dd_f64(d, x64)
+        if not torch.equal(y.view(torch.int64), combine_f64(
+                *D.sell_spmv_dd(d, xh, xl)).view(torch.int64)):
+            fail("headline: sell_spmv_dd_f64 differs from the halves' path")
+        ref = res.csr.spmv(x)
+        err = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
+        if not err < DD_TOL:
+            fail(f"headline sell_spmv_dd_f64: norm-scaled error {err:.3e}")
+        ms = device_time_fn(D.sell_spmv_dd_f64, d, x64, device=dev) * 1e3
+        ms_h = device_time_fn(D.sell_spmv_dd, d, xh, xl, device=dev) * 1e3
+        return (f"; sell_spmv_dd_f64 {ms:.4f} ms a call (sell_spmv_dd on "
+                f"split halves {ms_h:.4f} ms), bit for bit the halves' "
+                f"path, norm-scaled error {err:.3e}")
+
     def bsr_inputs(csr, dtype, rhs):
         """X (N, rhs) f32 from the seed, its padded table in ``dtype``, and
         the CSR and X of the oracle (bf16: the bf16-rounded operands)."""
@@ -2020,6 +2151,7 @@ def main() -> int:
         w.accumulating = 0
     PR.pr_problem.launches_bf16 = 0
     S.panel_reduce.launches = D.panel_reduce_dd.launches = 0
+    D.dd_prepare_x.launches = D.dd_join_y.launches = 0
     runs = []
     spmm_runs = []  # (phase, the k-major SELL of its sell_spmm stage, csr)
     phase_csr = {}
@@ -2085,6 +2217,7 @@ def main() -> int:
             extra += device_validated(name, res, ran)
         if name == "headline":
             headline = (headline_spmm(res), res.csr)
+            extra += headline_dd_entry(res, x)
         if name == "webbase_pr":
             extra += webbase_bf16(name, coo, x)
         if name == "band64_250k":
@@ -2216,6 +2349,8 @@ def main() -> int:
     launches, launches_dd = counts(), counts(dd_wrappers)
     launches_reduce = {"panel_reduce": S.panel_reduce.launches,
                        "panel_reduce_dd": D.panel_reduce_dd.launches}
+    launches_split_join = {k: getattr(D, k).launches
+                           for k in SPLIT_JOIN_KERNELS}
     launches_pr = counts(pr_wrappers)
     launches_pr["pr_bf16"] = PR.pr_problem.launches_bf16
     launches_pr["pr"] -= launches_pr["pr_bf16"]
@@ -2230,7 +2365,8 @@ def main() -> int:
         print(f"main-path{tag} launches {ls}, accumulating "
               f"{ {lay: w.accumulating for lay, w in ws.items()} }",
               flush=True)
-    for kind, n in (*launches_reduce.items(), *launches_pr.items()):
+    for kind, n in (*launches_reduce.items(), *launches_split_join.items(),
+                    *launches_pr.items()):
         if n == 0:
             fail(f"the {kind} kernel was never launched on the main path")
     print(f"main-path PR launches {launches_pr}", flush=True)
@@ -2328,6 +2464,9 @@ def main() -> int:
                       (" PR", launches_pr)):
         for key in ls:
             ls[key] += ep_launches.get((group, key), 0)
+
+    # ---- the dd entry's x split and y join at fem3d_cube's shape ----
+    split_join_rows = split_join_phase(dev)
 
     # ---- cuSPARSE's CSR SpMV on each phase's matrix: the yardstick ----
     library = {}
@@ -3573,6 +3712,16 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"{PKG}/csrc/panel_reduce.cu", "replaces": replaces,
             "launches": launches_reduce[kname], "max_abs_err": 0.0,
+            "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None})
+    for kname, replaces in SPLIT_JOIN_KERNELS.items():
+        ms_k, ms_p, bound = split_join_rows[kname]
+        print(f"{kname}: device times at fem3d_cube's {FEM3D_COLS} columns "
+              f"(split_join phase)")
+        summary.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/dd_split_join.cu", "replaces": replaces,
+            "launches": launches_split_join[kname], "max_abs_err": 0.0,
             "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None})
     for kind, (kname, source, replaces) in PR_KERNELS.items():

@@ -27,7 +27,7 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _HEADERS = ("sell_common.cuh", "dd.cuh")
 _SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu",
             "pr.cu", "sell_spmm.cu", "bsr.cu", "bw_probe.cu",
-            "kernel_probe.cu", "panel_reduce.cu")
+            "kernel_probe.cu", "panel_reduce.cu", "dd_split_join.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -74,6 +74,10 @@ _ENTRIES = {
     # stream; dd: parts_hi, parts_lo, cover, y_hi, y_lo, ...
     "panel_reduce_f32": (_P, _P, _P, _I64, _I32, _P),
     "panel_reduce_dd": (*(_P,) * 5, _I64, _I32, _P),
+    # the dd SpMV's x split and y join: x, ncols, rows, pair, hi, lo, stream;
+    # hi, lo, y, n, stream
+    "dd_prepare_x": (_P, _I64, _I64, _P, _P, _P, _P),
+    "dd_join_y": (_P, _P, _P, _I64, _P),
     # bins, n_bins, dst_col, dst_val, x, y, n_groups, stream; dd: dst_val
     # holds (hi, lo) pairs, then x_hi, x_lo, y_hi, y_lo
     **{f"pr_spmv_{v}": (_P, _I32, _P, _P, _P, _P, _I64, _P)

@@ -1462,11 +1462,14 @@ class LaunchPlan:
     """:func:`sell_spmv`'s "auto" launches: the core joint launches, which
     store their rows, then the ``add_into`` ones, in order; the core bins
     write ``covered`` groups (y takes no zero fill when that is all of
-    them). ``bins``: the bins it was built from."""
+    them). ``bins``: the bins it was built from. ``dd_x``: which x tables
+    the dd launches gather from, ``(pair, halves)``, worked out once a plan
+    by :func:`.sell_dd._x_reads`."""
 
     launches: list
     covered: int
     bins: tuple
+    dd_x: tuple | None = None
 
     @property
     def kernels(self) -> int:
@@ -1684,15 +1687,16 @@ def plan_bytes(d) -> int:
     return sum(extra.values()) + (cover.numel() if cover is not None else 0)
 
 
-def _assemble(dsell, xs: tuple, write) -> tuple:
-    """One y per x table by ``dsell``'s launch plan: the core joint launches
-    store their groups' rows, then the ``add_into`` ones add onto them, on
-    one stream; returns each ``y[:nrows]``. y is zero-filled only where the
+def _assemble(dsell, xs: tuple, write, plan=None) -> tuple:
+    """One y per x table by ``dsell``'s launch plan (``plan``, where the
+    caller holds it from :func:`_plan_of`): the core joint launches store
+    their groups' rows, then the ``add_into`` ones add onto them, on one
+    stream; returns each ``y[:nrows]``. y is zero-filled only where the
     core bins do not write every group. ``write(b, *xs, *ys, accumulate)``
     runs one (joint) bin."""
     for x_tab in xs:
         _check_x_table(dsell, x_tab)
-    plan = _plan_of(dsell)
+    plan = _plan_of(dsell) if plan is None else plan
     new = torch.empty if plan.covered == dsell.num_groups else torch.zeros
     ys = tuple(new(dsell.num_groups * GROUP_ROWS, dtype=torch.float32,
                    device=xs[0].device) for _ in xs)

@@ -27,7 +27,11 @@ keep separate hi and lo value planes; wl, sg and compacted sb-list bins
 keep one plane of interleaved (hi, lo) pairs (``as_pair``, one 8-byte load
 a slot), and their kernels gather x from one interleaved table
 (:func:`pack_x_pair`) that :func:`sell_spmv_dd` builds once per call from
-the two halves. Whether a k-major bin is compacted is a function of its
+the two halves. :func:`sell_spmv_dd_f64` takes fp64 x and returns fp64 y:
+on the card one kernel, :func:`dd_prepare_x` (``csrc/dd_split_join.cu``),
+writes the tables its bins read (the pair table, the halves, or both) from
+x in one pass, and another, :func:`dd_join_y`, joins the y pair. Whether a
+k-major bin is compacted is a function of its
 shape (:func:`_km_compacts`), so the upload, the checks and the plain
 version agree on it. Each kernel has a wrapper (``*_bin_dd``) and a plain
 PyTorch version (``*_bin_plain_dd``) returning the ``(hi, lo)`` row sums
@@ -53,8 +57,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..formats.sell import GROUP_ROWS, LANES, SUBLANES
+from ..formats.sell import GROUP_ROWS, LANES, SUBLANES, slab_table_rows
 from ..utils.profiling import annotate
+from . import _build
 from .doubledouble import combine_f64, dd_add_dd, dd_mul_dd, split_f64
 from .sell import (DeviceBinIndex, _assemble,
                    _assemble_panels, _check_launch, _check_panel_x,
@@ -63,7 +68,7 @@ from .sell import (DeviceBinIndex, _assemble,
                    _launch_reduce, _list_steps, _on, _plan_of, _put,
                    _put_bin_index, _rebase, _sb_padded, _scratch, _sg_chunks,
                    _sg_slots, _sg_sums, _sl_compacts, _SLOTS, _unsort,
-                   _wl_padded, _wl_steps, pack_x_table)
+                   _wl_padded, _wl_steps, _x_table, pack_x_table)
 
 __all__ = [
     "DeviceSellBinDD", "DeviceSellDD", "DevicePanelSellDD",
@@ -75,6 +80,7 @@ __all__ = [
     "panel_sell_spmv_dd", "panel_sell_spmv_dd_plain", "sell_spmv_dd_f64",
     "pack_x_pair", "wl_padded_plain_dd", "sb_list_padded_plain_dd",
     "k_major_padded_plain_dd", "panel_reduce_dd", "panel_reduce_plain_dd",
+    "dd_prepare_x", "dd_prepare_x_plain", "dd_join_y", "dd_join_y_plain",
 ]
 
 
@@ -185,6 +191,83 @@ def pack_x_pair(xh_tab: torch.Tensor, xl_tab: torch.Tensor) -> torch.Tensor:
     tensor: one elementwise kernel, where ``torch.stack`` on the last axis
     runs a slower strided copy."""
     return torch.view_as_real(torch.complex(xh_tab, xl_tab))
+
+
+# ---------------------------------------------------------------------------
+# fp64 x in, fp64 y out: the x split and tables, the y join
+# ---------------------------------------------------------------------------
+
+
+def dd_prepare_x_plain(x64: torch.Tensor, rows: int, pair: bool = True,
+                       halves: bool = True) -> tuple:
+    """fp64 ``x64`` split into f32 halves, ``hi = x.float()`` and ``lo = (x
+    - hi.double()).float()``, zero-padded to ``rows`` entries; returns
+    ``(x_pair, x_hi, x_lo)``: the :func:`pack_x_pair` table where ``pair``,
+    the two padded tables where ``halves``, None for each not asked for."""
+    xh = x64.float()
+    xl = (x64 - xh.double()).float()
+    th, tl = _x_table(xh, rows), _x_table(xl, rows)
+    return (pack_x_pair(th, tl) if pair else None,
+            *((th, tl) if halves else (None, None)))
+
+
+def dd_prepare_x(x64: torch.Tensor, rows: int, *, pair: bool = True,
+                 halves: bool = True) -> tuple:
+    """:func:`dd_prepare_x_plain` as one CUDA kernel (``dd_prepare_x``,
+    ``csrc/dd_split_join.cu``) on a CUDA ``x64``, bit for bit, the outputs
+    views of one allocation; the plain version on a CPU one. Counts its
+    launches in ``.launches``."""
+    if x64.device.type == "cpu":
+        return dd_prepare_x_plain(x64, rows, pair, halves)
+    if x64.dtype != torch.float64 or x64.dim() != 1 \
+            or not x64.is_contiguous() or x64.numel() > rows:
+        raise ValueError(f"x must be a contiguous fp64 vector of at most "
+                         f"{rows} entries, got {x64.dtype} "
+                         f"{tuple(x64.shape)}")
+    buf = torch.empty(rows * 2 * (pair + halves), dtype=torch.float32,
+                      device=x64.device)
+    x_pair = buf[: 2 * rows].view(rows, 2) if pair else None
+    xh, xl = buf[-2 * rows:].view(2, rows) if halves else (None, None)
+    with torch.cuda.device(x64.device):
+        err = _build.load().dd_prepare_x(
+            x64.data_ptr(), x64.numel(), rows,
+            *(None if t is None else t.data_ptr() for t in (x_pair, xh, xl)),
+            torch.cuda.current_stream(x64.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dd_prepare_x launch failed: cudaError {err}")
+    dd_prepare_x.launches += 1
+    return x_pair, xh, xl
+
+
+def dd_join_y_plain(yh: torch.Tensor, yl: torch.Tensor) -> torch.Tensor:
+    """The y pair in fp64: :func:`~.doubledouble.combine_f64`."""
+    return combine_f64(yh, yl)
+
+
+def dd_join_y(yh: torch.Tensor, yl: torch.Tensor) -> torch.Tensor:
+    """:func:`dd_join_y_plain` as one CUDA kernel (``dd_join_y``,
+    ``csrc/dd_split_join.cu``) on CUDA halves, bit for bit; the plain
+    version on CPU ones. Counts its launches in ``.launches``."""
+    if yh.device.type == "cpu":
+        return dd_join_y_plain(yh, yl)
+    if any(t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous()
+           or t.device != yh.device for t in (yh, yl)) \
+            or yl.numel() != yh.numel():
+        raise ValueError("yh and yl must be contiguous f32 vectors of one "
+                         "length on one device")
+    y = torch.empty(yh.numel(), dtype=torch.float64, device=yh.device)
+    with torch.cuda.device(yh.device):
+        err = _build.load().dd_join_y(
+            yh.data_ptr(), yl.data_ptr(), y.data_ptr(), yh.numel(),
+            torch.cuda.current_stream(yh.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dd_join_y launch failed: cudaError {err}")
+    dd_join_y.launches += 1
+    return y
+
+
+dd_prepare_x.launches = 0
+dd_join_y.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -490,21 +573,22 @@ for _w in _KERNEL_DD.values():
     _w.accumulating = 0
 
 
-def _kernel_writer():
+def _kernel_writer(x_pair=None):
     """The kernels' bin writer for one SpMV: the pair bins (:func:`_pairs`)
-    of one pair of x tables share one :func:`pack_x_pair` table, built at
-    the first such bin on the card."""
+    gather x from ``x_pair`` where it is given (:func:`dd_prepare_x`), else
+    those of one pair of x tables share one :func:`pack_x_pair` table,
+    built at the first such bin on the card."""
     tables = {}
 
     def write(b: DeviceSellBinDD, xh, xl, yh, yl, accumulate: bool):
         if not _pairs(b):
             return _KERNEL_DD[b.layout](b, xh, xl, yh, yl, accumulate)
         held = tables.get("x", ())
-        if xh.device.type != "cpu" and not (held and held[0] is xh
-                                            and held[1] is xl):
+        if x_pair is None and xh.device.type != "cpu" and not (
+                held and held[0] is xh and held[1] is xl):
             tables["x"], tables["pair"] = (xh, xl), pack_x_pair(xh, xl)
         _KERNEL_DD[b.layout](b, xh, xl, yh, yl, accumulate,
-                             x_pair=tables.get("pair"))
+                             x_pair=tables.get("pair", x_pair))
     return write
 
 
@@ -611,22 +695,59 @@ def panel_sell_spmv_dd_plain(dps: DevicePanelSellDD, xh, xl):
     return _panel_spmv_dd(dps, xh, xl, _write_plain_dd, _reduce_plain_dd)
 
 
+def _x_reads(plan) -> tuple:
+    """``(pair, halves)``: whether ``plan``'s launches gather x from the
+    interleaved pair table (a pair bin, :func:`_pairs`) and from the two
+    halves (any other bin); worked out at a plan's first dd call and kept
+    on it (``LaunchPlan.dd_x``)."""
+    if plan.dd_x is None:
+        pairs = [_pairs(j.bin) for j in plan.launches]
+        plan.dd_x = (any(pairs), not all(pairs))
+    return plan.dd_x
+
+
+def _check_x64(d, x64: torch.Tensor):
+    if not isinstance(d, (DeviceSellDD, DevicePanelSellDD)):
+        raise TypeError(f"sell_spmv_dd_f64 takes a DeviceSellDD or a "
+                        f"DevicePanelSellDD, got {type(d).__name__}")
+    if x64.dtype != torch.float64 or tuple(x64.shape) != (d.ncols,) \
+            or not x64.is_contiguous():
+        raise ValueError(f"x must be a contiguous fp64 vector of {d.ncols} "
+                         f"entries, got {x64.dtype} {tuple(x64.shape)}")
+
+
+def _split_x(d, x64: torch.Tensor, plan) -> tuple:
+    """x64 as ``d`` reads it, by :func:`dd_prepare_x` in one pass: column
+    panels (``plan`` None) the unpadded halves :func:`panel_sell_spmv_dd`
+    packs; a flat SELL of launch plan ``plan`` the padded tables its bins
+    gather from (:func:`_x_reads`). Returns ``(x_pair, xh, xl)``; with pair
+    bins alone, xh and xl are the pair table's columns, which no kernel
+    reads."""
+    if plan is None:
+        return dd_prepare_x(x64, d.ncols, pair=False)
+    pair, halves = _x_reads(plan)
+    x_pair, xh, xl = dd_prepare_x(x64, slab_table_rows(d.ncols) * LANES,
+                                  pair=pair, halves=halves)
+    if xh is None:
+        xh, xl = x_pair.unbind(1)
+    return x_pair, xh, xl
+
+
 def sell_spmv_dd_f64(d, x64: torch.Tensor) -> torch.Tensor:
-    """fp64 in, fp64 out: x64 (on the device) is split into f32 halves, run
-    through :func:`sell_spmv_dd` (or :func:`panel_sell_spmv_dd` for column
-    panels) and the y pair combined in fp64."""
+    """fp64 in, fp64 out: x64 (``d.ncols`` entries, contiguous, on the
+    device) is split into the f32 x tables of ``d``'s bins
+    (:func:`dd_prepare_x`), run through :func:`sell_spmv_dd` (or
+    :func:`panel_sell_spmv_dd` for column panels) and the y pair joined in
+    fp64 (:func:`dd_join_y`): on the card, one kernel before the plan's
+    launches and one after."""
     with annotate("ops.sell_spmv_dd_f64"):
+        _check_x64(d, x64)
+        panels = isinstance(d, DevicePanelSellDD)
+        plan = None if panels else _plan_of(d)
         with annotate("ops.dd.split_x"):
-            xh = x64.float()
-            xl = (x64 - xh.double()).float()
-        if isinstance(d, DevicePanelSellDD):
-            with annotate("ops.dd.assemble"):
-                yh, yl = panel_sell_spmv_dd(d, xh, xl)
-        else:
-            with annotate("ops.dd.x_tables"):
-                xh, xl = (pack_x_table(xh, d.ncols),
-                          pack_x_table(xl, d.ncols))
-            with annotate("ops.dd.assemble"):
-                yh, yl = sell_spmv_dd(d, xh, xl)
+            x_pair, xh, xl = _split_x(d, x64, plan)
+        with annotate("ops.dd.assemble"):
+            yh, yl = (panel_sell_spmv_dd(d, xh, xl) if panels else _assemble(
+                d, (xh, xl), _kernel_writer(x_pair), plan))
         with annotate("ops.dd.join_y"):
-            return combine_f64(yh, yl)
+            return dd_join_y(yh, yl)

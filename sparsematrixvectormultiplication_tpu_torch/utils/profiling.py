@@ -36,8 +36,8 @@ device activity.
 Spans and counters of the port (names carry the layer):
 
 * ``ops.sell_spmv``, ``ops.sell_spmm``;
-  ``ops.sell_spmv_dd_f64`` with ``ops.dd.split_x``, ``ops.dd.x_tables``,
-  ``ops.dd.assemble``, ``ops.dd.join_y``: each call, tracing on;
+  ``ops.sell_spmv_dd_f64`` with ``ops.dd.split_x`` (x split into its
+  tables), ``ops.dd.assemble``, ``ops.dd.join_y``: each call, tracing on;
 * ``solvers.cg`` with ``solvers.cg.matvec``, ``solvers.cg.update`` and
   ``solvers.cg.stop_test``, and the counter ``solvers.cg.host_reads``:
   each solve and iteration, tracing on;

@@ -28,7 +28,10 @@ CG over the dd kernels within 1e-10*max|x| of CG over the fp64 CSR
 container, in as many iterations. The multi-device layer: 4 gloo ranks
 sharing the card launch the kernels of every sharded path and equal 4 CPU
 ranks' plain versions at the f32 tolerance; one NCCL rank per card and
-``shard_sell_rows`` on ``[cuda:0] * 4`` within it of the oracle.
+``shard_sell_rows`` on ``[cuda:0] * 4`` within it of the oracle. The dd
+entry's x split and y join kernels (``dd_prepare_x``, ``dd_join_y``) bit
+for bit against their plain versions (NaN payloads aside), and
+``sell_spmv_dd_f64`` bit for bit against the PyTorch ops they replaced.
 """
 
 import dataclasses
@@ -2170,3 +2173,155 @@ def test_panel_spmv_launches_follow_the_plan(dd, dev):
     assert count == dps.plan.kernels + (5 if dd else 2)
     for g, w in zip(got, plain(dps, *xs)):
         assert torch.equal(g, w)
+
+
+# ---- the dd entry's x split and y join (csrc/dd_split_join.cu) ----
+
+F32_MAX = float(np.finfo(np.float32).max)
+# signed zeros, subnormals of both widths, values that round to f32's
+# largest and past it, infinities, NaN, halves that do not fit one f32
+DD_SPECIAL = np.array([0.0, -0.0, 5e-324, -1e-310, 1e-45, -3e-39, F32_MAX,
+                       F32_MAX * (1 + 2.0**-26), 3.5e38, -1e300, np.inf,
+                       -np.inf, np.nan, 1 / 3, -2 / 3, 1 + 2.0**-30])
+FEM3D_COLS = 648_000  # fem3d_cube's fem_3d(60, 60, 60, dof=3)
+
+
+def _same_bits(got, want):
+    """Bit for bit, NaN payloads aside: a NaN must be one in both."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    ints = torch.int32 if got.element_size() == 4 else torch.int64
+    assert torch.equal(got.contiguous().view(ints)[~nan],
+                       want.contiguous().view(ints)[~nan])
+
+
+def _special_x(n, dev, seed=3):
+    x = np.random.default_rng(seed).standard_normal(n)
+    x[: min(n, DD_SPECIAL.size)] = DD_SPECIAL[:n]
+    return torch.from_numpy(x).to(dev)
+
+
+@pytest.mark.parametrize("ncols", [1000, FEM3D_COLS])
+@pytest.mark.parametrize("outputs", [
+    "pairs", "halves", "pairs+halves", "unpadded"])
+def test_dd_prepare_x_matches_plain(outputs, ncols, dev):
+    """dd_prepare_x against dd_prepare_x_plain (the PyTorch ops it
+    replaces) bit for bit, for what each plan kind asks of it (pair bins
+    alone, other bins alone, both; column panels' unpadded halves), on x
+    with the special values, into a block torch.empty hands back full of
+    NaN: every pad slot must come back +0."""
+    pair, halves = {"pairs": (True, False), "halves": (False, True),
+                    "pairs+halves": (True, True),
+                    "unpadded": (False, True)}[outputs]
+    rows = ncols if outputs == "unpadded" \
+        else S.slab_table_rows(ncols) * 128
+    x = _special_x(ncols, dev)
+    torch.cuda.empty_cache()  # so the next block of this size is dirty's
+    dirty = torch.full((rows * 2 * (pair + halves),), float("nan"),
+                       device=dev)
+    held = dirty.data_ptr()
+    del dirty
+    before = D.dd_prepare_x.launches
+    got = D.dd_prepare_x(x, rows, pair=pair, halves=halves)
+    torch.cuda.synchronize()
+    assert D.dd_prepare_x.launches == before + 1
+    assert next(t for t in got if t is not None).data_ptr() == held
+    want = D.dd_prepare_x_plain(x, rows, pair, halves)
+    for g, w, asked in zip(got, want, (pair, halves, halves)):
+        assert (g is None) == (w is None) == (not asked)
+        if g is not None:
+            _same_bits(g, w)
+            pad = g[ncols:]
+            assert not pad.view(torch.int32).any()  # +0, not -0 or NaN
+
+
+@pytest.mark.parametrize("n", [1, 1000, FEM3D_COLS])
+def test_dd_join_y_matches_plain(n, dev):
+    rng = np.random.default_rng(7)
+    with np.errstate(over="ignore"):
+        yh = np.concatenate([DD_SPECIAL, rng.standard_normal(n)])[:n]
+        yl = np.concatenate([-DD_SPECIAL[::-1], rng.standard_normal(n)
+                             * 2.0**-30])[:n]
+        yh, yl = (torch.from_numpy(v.astype(np.float32)).to(dev)
+                  for v in (yh, yl))
+    before = D.dd_join_y.launches
+    got = D.dd_join_y(yh, yl)
+    torch.cuda.synchronize()
+    assert D.dd_join_y.launches == before + 1
+    _same_bits(got, D.dd_join_y_plain(yh, yl))
+    with pytest.raises(ValueError, match="contiguous f32"):
+        D.dd_join_y(yh.double(), yl)
+
+
+# plan kind -> host SELL: pair bins alone, k-major alone, both, panels
+F64_PLANS = {
+    "pairs": lambda: SellMatrix.from_csr(CSRMatrix.from_coo(
+        fem_3d(20, 20, 20, dof=3, seed=1)), layout="wl"),
+    "k-major": lambda: SellMatrix.from_csr(CSRMatrix.from_coo(
+        banded(5 * 1024, 24, 512, seed=0)), layout="k-major"),
+    "mixed": lambda: SellMatrix.from_csr(CSRMatrix.from_coo(
+        fem_3d(20, 20, 20, dof=3, seed=1))),
+    "panels": lambda: PanelSellMatrix.from_csr(CSRMatrix.from_coo(
+        fem_3d(10, 10, 10, dof=3, seed=0)), max_panel_cols=1024),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(F64_PLANS))
+def test_sell_spmv_dd_f64_equals_the_torch_composition(plan, dev):
+    """sell_spmv_dd_f64 (the split and join kernels around the plan's
+    launches) returns, bit for bit, the y of the PyTorch ops it replaced:
+    ``x.float()``, ``(x - hi.double()).float()``, ``pack_x_table`` of each
+    half (flat) and ``combine_f64`` of ``sell_spmv_dd`` /
+    ``panel_sell_spmv_dd``; each call launches the two kernels once."""
+    d = D.device_put_sell_dd(F64_PLANS[plan](), device=dev)
+    pairs = {D._pairs(j.bin) for j in D._plan_of(d).launches}
+    assert pairs == {"pairs": {True}, "k-major": {False}}.get(
+        plan, {True, False})
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        d.ncols)).to(dev)
+    xh = x.float()
+    xl = (x - xh.double()).float()
+    if plan == "panels":
+        want = combine_f64(*D.panel_sell_spmv_dd(d, xh, xl))
+    else:
+        want = combine_f64(*D.sell_spmv_dd(d, S.pack_x_table(xh, d.ncols),
+                                           S.pack_x_table(xl, d.ncols)))
+    before = (D.dd_prepare_x.launches, D.dd_join_y.launches)
+    got = D.sell_spmv_dd_f64(d, x)
+    torch.cuda.synchronize()
+    assert (D.dd_prepare_x.launches, D.dd_join_y.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float64 and torch.equal(got, want)
+
+
+def test_sell_spmv_dd_f64_pairs_launch_three_kernels(dev, tmp_path):
+    """A plan of pair bins alone that covers every group (fem3d_cube's
+    kind): one call is dd_prepare_x, the plan's one joint launch and
+    dd_join_y, by the wrappers' counts and by the profiler's device
+    events: no other kernel, copy or fill."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    d = D.device_put_sell_dd(F64_PLANS["pairs"](), device=dev)
+    assert d.plan.kernels == 1 and d.plan.covered == d.num_groups
+    x = torch.randn(d.ncols, dtype=torch.float64, device=dev)
+    D.sell_spmv_dd_f64(d, x)
+    torch.cuda.synchronize()
+    ws = {**{k: w[0] for k, w in DD_WRAPPERS.items()},
+          "prepare": D.dd_prepare_x, "join": D.dd_join_y}
+    before = _counted(ws)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        D.sell_spmv_dd_f64(d, x)
+        torch.cuda.synchronize()
+    assert _counted(ws) - before == 3
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())
+    device = [e["name"] for e in events.get("traceEvents", events)
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert device, "the profiler recorded no device activity"
+    assert len(device) == 3, device
+    assert sum("prepare_x" in n for n in device) == 1
+    assert sum("join_y" in n for n in device) == 1

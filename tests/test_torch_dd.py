@@ -16,6 +16,8 @@ minutes: banded(2048, 12, 200) for k-major and the sb layouts, fem_3d(8, 8,
 8) for wl.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -266,6 +268,9 @@ def test_dd_layout_matches_pallas_interpret(case, monkeypatch):
     assert np.abs(y - y_jax).max() <= JAX_REL * np.abs(y_jax).max()
     assert _norm_err(y, csr.spmv(x)) < ORACLE_REL
     assert torch.equal(yh, D.sell_spmv_dd_plain(d, th, tl)[0])
+    # the fp64 entry, x split into the tables this plan's bins read
+    assert np.array_equal(D.sell_spmv_dd_f64(d, torch.from_numpy(x)).numpy(),
+                          y)
 
 
 def test_dd_panels_match_pallas_interpret():
@@ -285,6 +290,8 @@ def test_dd_panels_match_pallas_interpret():
         dps, torch.from_numpy(xh), torch.from_numpy(xl))).numpy()
     assert np.abs(y - y_jax).max() <= JAX_REL * np.abs(y_jax).max()
     assert _norm_err(y, csr.spmv(x)) < ORACLE_REL
+    assert np.array_equal(
+        D.sell_spmv_dd_f64(dps, torch.from_numpy(x)).numpy(), y)
 
 
 # ---- the port's own: oracle, f32, slot-packed sg, f64 entry point ----
@@ -377,6 +384,148 @@ def test_dd_wrappers_on_cpu_count_nothing_and_check_inputs():
         D.sell_spmv_dd(d, th.double(), tl)
     with pytest.raises(ValueError, match="f32 vector of 2048"):
         D.panel_sell_spmv_dd(dps, torch.ones(2048), torch.ones(7))
+
+
+# ---- the fp64 entry's x split and y join ----
+
+F32_MAX = float(np.finfo(np.float32).max)
+# signed zeros, subnormals of both widths, values that round to f32's
+# largest and past it, infinities, and halves that do not fit one f32
+SPECIAL = np.array([0.0, -0.0, 5e-324, -1e-310, 1e-45, -3e-39, F32_MAX,
+                    F32_MAX * (1 + 2.0**-26), 3.5e38, -1e300, np.inf,
+                    -np.inf, 1 / 3, -2 / 3, 1 + 2.0**-30])
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int64)
+
+
+def _x64(n: int, seed: int = 3) -> torch.Tensor:
+    x = _x(n, seed)
+    x[: min(n, SPECIAL.size)] = SPECIAL[:n]
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("ncols", [1, 300, 1000])
+def test_prepare_x_plain_is_the_split_it_replaces(ncols):
+    """dd_prepare_x_plain (and dd_prepare_x on CPU tensors) gives the bits
+    of the ops it replaces, ``x.float()``, ``(x - hi.double()).float()``,
+    ``pack_x_table`` of each half and ``pack_x_pair``, for each choice of
+    outputs, pad slots +0; the halves are the JAX package's split."""
+    x = _x64(ncols)
+    rows = S.slab_table_rows(ncols) * 128
+    xh = x.float()
+    xl = (x - xh.double()).float()
+    th, tl = S.pack_x_table(xh, ncols), S.pack_x_table(xl, ncols)
+    want = (D.pack_x_pair(th, tl), th, tl)
+    with np.errstate(over="ignore", invalid="ignore"):  # inf halves
+        jh, jl = jdd.split_f64(x.numpy())
+    assert np.array_equal(_bits(th[:ncols]).numpy(), jh.view(np.int32))
+    assert np.array_equal(_bits(tl[:ncols]).numpy(), jl.view(np.int32))
+    assert not _bits(th[ncols:]).any() and not _bits(tl[ncols:]).any()
+    before = D.dd_prepare_x.launches
+    for pair in (True, False):
+        for halves in (True, False):
+            for got in (D.dd_prepare_x_plain(x, rows, pair, halves),
+                        D.dd_prepare_x(x, rows, pair=pair, halves=halves)):
+                for g, w, asked in zip(got, want, (pair, halves, halves)):
+                    assert (g is None) != asked
+                    assert g is None or torch.equal(_bits(g), _bits(w))
+    assert D.dd_prepare_x.launches == before
+
+
+def test_join_y_plain_is_combine_f64():
+    rng = np.random.default_rng(5)
+    with np.errstate(over="ignore"):
+        yh = torch.from_numpy(np.concatenate([
+            SPECIAL, rng.standard_normal(2000)]).astype(np.float32))
+        yl = torch.from_numpy((np.concatenate([
+            -SPECIAL[::-1], rng.standard_normal(2000)]) * 2.0**-30)
+            .astype(np.float32))
+    want = dd.combine_f64(yh, yl)
+    before = D.dd_join_y.launches
+    for got in (D.dd_join_y_plain(yh, yl), D.dd_join_y(yh, yl)):
+        assert got.dtype == torch.float64
+        assert torch.equal(_bits(got), _bits(want))
+    assert D.dd_join_y.launches == before
+
+
+# plan kind -> (CSR, its host SELL, what the split writes: pair table,
+# halves)
+SPLITS = {
+    "pairs": (lambda: syn.banded(2048, 12, 200, seed=1),
+              lambda c: SellMatrix.from_csr(c, layout="sb-list"),
+              (True, False)),
+    "k-major": (lambda: syn.banded(2048, 12, 200, seed=1),
+                lambda c: SellMatrix.from_csr(c, layout="k-major"),
+                (False, True)),
+    "mixed": (lambda: syn.fem_3d(8, 8, 8, dof=3, seed=0),
+              SellMatrix.from_csr, (True, True)),
+    "panels": (lambda: syn.random_general(3000, 5000, 0.002, seed=3),
+               lambda c: PanelSellMatrix.from_csr(c, max_panel_cols=2048),
+               (False, True)),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SPLITS))
+def test_f64_entry_splits_x_as_its_plan_reads(kind):
+    """sell_spmv_dd_f64 writes the x tables its plan's bins read (pair
+    bins: the pair table, whose columns stand in for the halves; other
+    bins: the padded halves; column panels: the unpadded halves) and
+    returns the plain assembly's y on the usual split, bit for bit, with
+    no launch counted on CPU tensors."""
+    coo, to_sell, (pair, halves) = SPLITS[kind]
+    csr = CSRMatrix.from_coo(coo())
+    d = D.device_put_sell_dd(to_sell(csr), device="cpu")
+    x = _x64(csr.ncols, seed=6)
+    x[: SPECIAL.size][~(np.abs(SPECIAL) < 1e30)] = 0.0  # a finite y
+    plan = None if kind == "panels" else D._plan_of(d)
+    x_pair, xh, xl = D._split_x(d, x, plan)
+    assert (x_pair is not None) == pair
+    if kind == "panels":
+        want = dd.combine_f64(*D.panel_sell_spmv_dd_plain(
+            d, *(torch.from_numpy(h) for h in dd.split_f64(x.numpy()))))
+        assert xh.shape == xl.shape == (csr.ncols,)
+    else:
+        want = dd.combine_f64(*D.sell_spmv_dd_plain(
+            d, *D.device_put_x_dd(x.numpy(), csr.ncols, device="cpu")))
+        assert xh.is_contiguous() == halves
+        if not halves:  # the pair table's columns
+            assert xh.data_ptr() == x_pair.data_ptr()
+    before = (D.dd_prepare_x.launches, D.dd_join_y.launches)
+    y = D.sell_spmv_dd_f64(d, x)
+    assert (D.dd_prepare_x.launches, D.dd_join_y.launches) == before
+    assert torch.equal(_bits(y), _bits(want))
+    assert _norm_err(y.numpy(), csr.spmv(x.numpy())) < ORACLE_REL
+    if plan is not None:  # the choice is kept on the plan it was read from
+        assert D._plan_of(d) is plan and plan.dd_x == (pair, halves)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_container(kind):
+    coo, to_sell, _ = SPLITS[kind]
+    return D.device_put_sell_dd(to_sell(CSRMatrix.from_coo(coo())),
+                                device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["mixed", "panels"])
+@pytest.mark.parametrize("bad", ["short", "long", "f32", "strided"])
+def test_f64_entry_refuses_another_x(kind, bad):
+    """sell_spmv_dd_f64 takes ``d.ncols`` contiguous fp64 entries, flat or
+    in column panels, on every device: a short x is refused, not padded
+    with zeros into a wrong y."""
+    d = _split_container(kind)
+    n = d.ncols
+    x = {"short": lambda: torch.ones(n - 1, dtype=torch.float64),
+         "long": lambda: torch.ones(n + 1, dtype=torch.float64),
+         "f32": lambda: torch.ones(n),
+         "strided": lambda: torch.ones(2 * n, dtype=torch.float64)[::2]}[
+             bad]()
+    with pytest.raises(ValueError, match=f"contiguous fp64 vector of {n} "):
+        D.sell_spmv_dd_f64(d, x)
+    y = D.sell_spmv_dd_f64(d, torch.ones(n, dtype=torch.float64))
+    assert y.shape == (d.nrows,)
 
 
 # ---- run_matrix's sell_dd stage ----

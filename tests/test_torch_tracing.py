@@ -26,8 +26,7 @@ from sparsematrixvectormultiplication_tpu_torch.utils import profiling
 CPU = torch.device("cpu")
 N = 3000
 PER_CALL = ("ops.sell_spmv", "ops.sell_spmm", "ops.sell_spmv_dd_f64",
-            "ops.dd.split_x",
-            "ops.dd.x_tables", "ops.dd.assemble", "ops.dd.join_y",
+            "ops.dd.split_x", "ops.dd.assemble", "ops.dd.join_y",
             "solvers.cg", "solvers.cg.matvec", "solvers.cg.update",
             "solvers.cg.stop_test")
 
@@ -103,8 +102,7 @@ ENTRIES = {
     "sell_spmv": (_sell_spmv, [("ops.sell_spmv", None)]),
     "sell_spmv_dd_f64": (_sell_spmv_dd_f64, [
         ("ops.sell_spmv_dd_f64", c) for c in
-        ("ops.dd.split_x", "ops.dd.x_tables", "ops.dd.assemble",
-         "ops.dd.join_y")]),
+        ("ops.dd.split_x", "ops.dd.assemble", "ops.dd.join_y")]),
     "sell_spmm": (_sell_spmm, [("ops.sell_spmm", None)]),
     "cg": (_cg, [("solvers.cg", "solvers.cg.matvec"),
                  ("solvers.cg", "solvers.cg.update"),
@@ -311,8 +309,7 @@ def test_spans_on_the_card(tmp_path):
         torch.cuda.synchronize(dev)
     events = _annotations(prof, tmp_path)
     root = next(e for e in events if e["name"] == "ops.sell_spmv_dd_f64")
-    for child in ("ops.dd.split_x", "ops.dd.x_tables", "ops.dd.assemble",
-                  "ops.dd.join_y"):
+    for child in ("ops.dd.split_x", "ops.dd.assemble", "ops.dd.join_y"):
         (e,) = [e for e in events if e["name"] == child]
         assert _inside(e, root)
     s = profiling.summary()
