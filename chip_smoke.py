@@ -207,6 +207,16 @@ and y join kernels (``dd_prepare_x``, ``dd_join_y``) at fem3d_cube's 648,000
 columns, bit for bit their plain versions, the PyTorch composition they
 replaced, with each one's device and host times.
 
+On the main path too, the row-map phase (:func:`row_map_phase`): GAP's kron
+graph at SCALE 16, converted by the exported ``SellMatrix``'s row-order
+rule (heavy rows split, rows sorted), through ``sell_spmv`` and
+``sell_spmv_dd_f64``, y in the caller's order by the gather kernels of
+``csrc/row_map.cu`` (``row_gather``, ``row_gather_dd``), each bit for bit
+its plain version and within rounding of the oracle; then the gather alone
+on kron at SCALE 20's row map (its degrees split and sorted by the rule),
+bit for bit its plain version, with its device time, bound and the plain
+version's time. Their launches count in the JSON summary.
+
 Every stage and every ``matvec`` must show no significant difference from
 the fp64 oracle (bf16: the oracle of the bf16-quantized matrix; SpMM: on 4
 sampled columns); the dd stages also a norm-scaled error ``max|y - y_ref| /
@@ -416,6 +426,15 @@ SPLIT_JOIN_KERNELS = {
     "dd_join_y": f"{TPU_DD}:786 (y join)",
 }
 FEM3D_COLS = 648_000  # fem3d_cube's fem_3d(60, 60, 60, dof=3): rows, cols
+# the gather of a split, sorted SELL's y into the caller's rows: no TPU
+# kernel; it replaces the host's unpermute and segment sum
+ROW_MAP_KERNELS = {
+    "row_gather": "sparsematrixvectormultiplication_tpu/formats/sell.py:218 "
+                  "(SellMatrix.unpermute, host)",
+    "row_gather_dd": "sparsematrixvectormultiplication_tpu/formats/sell.py:"
+                     "218 (SellMatrix.unpermute, host)",
+}
+ROW_MAP_SCALES = (16, 20)  # kron: through sell_spmv; the gather timed alone
 PR_KERNELS = {
     "pr": ("pr_spmv_f32", f"{PKG}/csrc/pr.cu",
            "sparsematrixvectormultiplication_tpu/ops/pallas_pr.py:150"),
@@ -1734,6 +1753,139 @@ def split_join_phase(dev):
     return rows_out
 
 
+def row_map_phase(dev):
+    """The gather of a split, sorted SELL's y into the caller's row order
+    (``csrc/row_map.cu``) on GAP's kron graph. At SCALE 16 the exported
+    ``SellMatrix`` converts it by its row-order rule (a row map kept), and
+    ``sell_spmv`` and ``sell_spmv_dd_f64`` run through it: each bit for bit
+    its plain version, y within rounding of the oracle, its rows with no
+    entry +0, one gather launch a call. At SCALE 20 the rule's row map of
+    the graph's degrees (rows over ``HEAVY_ROW_CAP`` split, strided, then
+    sorted by length, as the conversion does, which SCALE 16 checks against
+    the conversion's own map) drives ``row_gather`` and ``row_gather_dd``
+    alone: bit for bit their plain versions, their device times, bounds
+    (bytes) and the plain versions' times (wall time: they read the map's
+    longest row back to the host). Returns ``{kernel: (ms, plain_ms,
+    bound_ms)}``."""
+    from sparsematrixvectormultiplication_tpu_torch import (COOMatrix,
+                                                            CSRMatrix,
+                                                            SellMatrix)
+    from sparsematrixvectormultiplication_tpu_torch.formats import (
+        sell_order as SO)
+    from sparsematrixvectormultiplication_tpu_torch.models import (
+        kron_pagerank_reference as KR)
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
+    from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
+    from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
+        device_time_fn)
+    from sparsematrixvectormultiplication_tpu_torch.utils.validation import (
+        difference_metrics)
+
+    t_phase = time.perf_counter()
+
+    def kron_csr(scale):
+        n, row, col = KR.kron_graph(scale, 16, SEED, device=dev)
+        val, _ = KR.transition(n, row, col, dtype=torch.float32)
+        return CSRMatrix.from_coo(COOMatrix(
+            n, n, row.to(torch.int32).cpu().numpy(),
+            col.to(torch.int32).cpu().numpy(), val.cpu().numpy()))
+
+    def rule_map(csr):
+        segs, seg_map = csr.split_heavy_rows(SO.HEAVY_ROW_CAP, strided=True)
+        seg_nnz = segs.row_nnz()
+        perm = np.argsort(-seg_nnz, kind="stable")
+        return SO.row_map(seg_map, perm, seg_nnz, csr.nrows)
+
+    def same(got, want, what):
+        ints = torch.int32
+        if not torch.equal(got.contiguous().view(ints),
+                           want.contiguous().view(ints)):
+            fail(f"row_map: {what} differs from its plain version")
+
+    small, big = ROW_MAP_SCALES
+    csr = kron_csr(small)
+    ruled = SellMatrix.from_csr(csr)
+    if ruled.row_map is None:
+        fail(f"row_map: kron at SCALE {small} was not split and sorted")
+    if not all(np.array_equal(a, b)
+               for a, b in zip(rule_map(csr), ruled.row_map)):
+        fail("row_map: the rule's map of the degrees is not the "
+             "conversion's")
+    n = csr.nrows
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(n)).to(
+        dev)
+    d = S.device_put_sell(ruled, device=dev)
+    tab = S.pack_x_table(x.float(), n)
+    before = S.row_gather.launches
+    y = S.sell_spmv(d, tab)
+    torch.cuda.synchronize(dev)
+    if S.row_gather.launches != before + 1:
+        fail("row_map: sell_spmv did not gather its y once")
+    same(y, S.sell_spmv_plain(d, tab), "sell_spmv through the row map")
+    empty = torch.from_numpy(csr.row_nnz() == 0).to(dev)
+    if y[empty].view(torch.int32).any():
+        fail("row_map: a row with no entry is not +0")
+    want = csr.spmv(x.cpu().float().double().numpy())
+    sig = difference_metrics(want, y.cpu().double().numpy()).significant_diffs
+    dd = D.device_put_sell_dd(ruled, device=dev)
+    before = S.row_gather_dd.launches
+    y64 = D.sell_spmv_dd_f64(dd, x)
+    torch.cuda.synchronize(dev)
+    want64 = csr.spmv(x.cpu().numpy())
+    dd_err = float(np.abs(y64.cpu().numpy() - want64).max()
+                   / np.abs(want64).max())
+    if sig or not dd_err < DD_TOL or S.row_gather_dd.launches != before + 1:
+        fail(f"row_map: kron SCALE {small}: {sig} significant diffs, dd "
+             f"norm-scaled error {dd_err:.3e}, row_gather_dd launches "
+             f"{S.row_gather_dd.launches - before}")
+    print(f"[row_map] kron SCALE {small}: {n} rows, {csr.nnz} nnz, "
+          f"{int(ruled.row_map[1].size)} segments, bins "
+          f"{[(b.layout, int(b.k), int(b.n_groups)) for b in ruled.bins]}; "
+          f"sell_spmv bit for bit its plain version, dd norm-scaled error "
+          f"{dd_err:.3e}", flush=True)
+    del d, dd, ruled
+
+    csr = kron_csr(big)
+    ptr, pos = rule_map(csr)
+    rm = S.RowMap(*(torch.from_numpy(a).to(dev) for a in (ptr, pos)),
+                  int(pos.max()) + 1)
+    m, n = int(pos.size), csr.nrows
+    del csr
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    src = torch.randn(rm.src_rows, generator=g, device=dev)
+    lo = src * 2.0**-30
+    rows_out = {}
+    for kname, fn, plain, args, width in (
+            ("row_gather", S.row_gather, S.row_gather_plain, (src,), 4),
+            ("row_gather_dd", S.row_gather_dd, S.row_gather_dd_plain,
+             (src, lo), 8)):
+        got, want = fn(*args, rm), plain(*args, rm)
+        for g_, w in zip(*(o if isinstance(o, tuple) else (o,)
+                           for o in (got, want))):
+            same(g_, w, kname)
+        ms = device_time_fn(fn, *args, rm, device=dev) * 1e3
+        plain(*args, rm)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            plain(*args, rm)
+        torch.cuda.synchronize(dev)
+        ms_p = (time.perf_counter() - t0) / 3 * 1e3
+        # ptr and y a row, pos and src a segment (src once: a segment is
+        # one sorted row of the SpMV's y)
+        nbytes = 4 * (n + 1) + width * n + (4 + width) * m
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[row_map] {kname}, kron SCALE {big}: {n} rows, {m} "
+              f"segments, {nbytes} B: device {ms:.4f} ms, bound "
+              f"{bound:.6f} ms; plain version (wall) {ms_p:.4f} ms; equal "
+              f"bit for bit", flush=True)
+        rows_out[kname] = (ms, ms_p, bound)
+    print(f"[row_map] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows_out
+
+
 def flagship_phase(dev, coos, generate_s):
     """The flagship line (``bench/flagship.py``, ≙ bench.py) at full size:
     its three per-matrix functions on the main path's COOs of ``coos``
@@ -2152,6 +2304,7 @@ def main() -> int:
     PR.pr_problem.launches_bf16 = 0
     S.panel_reduce.launches = D.panel_reduce_dd.launches = 0
     D.dd_prepare_x.launches = D.dd_join_y.launches = 0
+    S.row_gather.launches = S.row_gather_dd.launches = 0
     runs = []
     spmm_runs = []  # (phase, the k-major SELL of its sell_spmm stage, csr)
     phase_csr = {}
@@ -2346,7 +2499,12 @@ def main() -> int:
           f"dd norm-scaled error {dd_err:.3e}; {'; '.join(panel_notes)}; "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the row map's gather: kron through the row-order rule, on the main path
+    torch.cuda.empty_cache()
+    row_map_rows = row_map_phase(dev)
+
     launches, launches_dd = counts(), counts(dd_wrappers)
+    launches_row_map = {k: getattr(S, k).launches for k in ROW_MAP_KERNELS}
     launches_reduce = {"panel_reduce": S.panel_reduce.launches,
                        "panel_reduce_dd": D.panel_reduce_dd.launches}
     launches_split_join = {k: getattr(D, k).launches
@@ -2366,7 +2524,7 @@ def main() -> int:
               f"{ {lay: w.accumulating for lay, w in ws.items()} }",
               flush=True)
     for kind, n in (*launches_reduce.items(), *launches_split_join.items(),
-                    *launches_pr.items()):
+                    *launches_row_map.items(), *launches_pr.items()):
         if n == 0:
             fail(f"the {kind} kernel was never launched on the main path")
     print(f"main-path PR launches {launches_pr}", flush=True)
@@ -3722,6 +3880,16 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": f"{PKG}/csrc/dd_split_join.cu", "replaces": replaces,
             "launches": launches_split_join[kname], "max_abs_err": 0.0,
+            "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None})
+    for kname, replaces in ROW_MAP_KERNELS.items():
+        ms_k, ms_p, bound = row_map_rows[kname]
+        print(f"{kname}: device times at kron SCALE {ROW_MAP_SCALES[1]}'s "
+              f"row map (row_map phase)")
+        summary.append({
+            "name": kname, "route": "cuda",
+            "source": f"{PKG}/csrc/row_map.cu", "replaces": replaces,
+            "launches": launches_row_map[kname], "max_abs_err": 0.0,
             "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None})
     for kind, (kname, source, replaces) in PR_KERNELS.items():

@@ -37,7 +37,10 @@ SELL, BSR SpMM, PR and the locality split, the row-, column- and
 entry programs: ``entry`` (``entry()``, one SELL SpMV step, and
 ``dryrun_multichip(n)``, one step of every sharded path on n ranks) and
 ``demo`` (every kernel tier on one matrix, validated), each runnable with
-``python -m``. It never imports JAX.
+``python -m``. ``SellMatrix`` as exported here converts a matrix whose row
+lengths are heavy-tailed (a power-law graph) as SELL-C-sigma by itself
+(``formats/sell_order.py``), and its device container still returns y in
+the caller's row order. It never imports JAX.
 """
 
 from .bench.harness import run_matrix
@@ -48,7 +51,8 @@ from .formats.coo import COOMatrix
 from .formats.csr import CSRMatrix
 from .formats.hll import DEFAULT_HACK_SIZE, HLLMatrix
 from .formats.pr import PanelPRMatrix, PRMatrix, pr_from_csr
-from .formats.sell import PanelSellMatrix, SellMatrix
+from .formats.sell import PanelSellMatrix
+from .formats.sell_order import SellMatrix
 from .formats.split import SplitMatrix
 from .io.mmio import (MMIOError, MMTypeCode, read_banner,
                       read_matrix_market, write_matrix_market)
@@ -77,7 +81,7 @@ from .parallel.spmd_pallas import (build_spmd_sell, sell_spmm_spmd,
                                    sell_spmv_spmd)
 from .parallel.spmd_pr import build_spmd_pr, pr_spmv_spmd
 from .parallel.spmd_split import build_spmd_split, split_spmv_spmd
-from .solvers import (bicgstab, cg, cg_multi, cg_sell,
+from .solvers import (GraphedPageRank, bicgstab, cg, cg_multi, cg_sell,
                       chebyshev_preconditioner, chebyshev_smooth,
                       gershgorin_bounds, gmres, iterative_refinement,
                       jacobi_preconditioner, lanczos, lanczos_bounds,
@@ -173,6 +177,7 @@ __all__ = [
     "gmres",
     "power_iteration",
     "pagerank",
+    "GraphedPageRank",
     "pagerank_operator",
     "iterative_refinement",
     "subspace_iteration",

@@ -68,6 +68,7 @@ import torch
 from ..formats.sell import CHUNK_K, GROUP_ROWS, LANES, SUBLANES, slab_table_rows
 from ..utils.profiling import annotate
 from . import _build
+from .doubledouble import dd_add_dd
 
 __all__ = [
     "DeviceBinIndex", "DeviceSellBin", "DeviceSell", "DevicePanelSell",
@@ -77,6 +78,8 @@ __all__ = [
     "sell_spmv", "sell_spmv_plain", "sell_spmv_launches", "panel_sell_spmv",
     "panel_sell_spmv_plain", "Joint", "LaunchPlan", "PanelPlan",
     "panel_x_table", "panel_reduce", "panel_reduce_plain", "plan_bytes",
+    "RowMap", "row_gather", "row_gather_plain", "row_gather_dd",
+    "row_gather_dd_plain",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -195,6 +198,34 @@ class DeviceSell:
     # permuted, as the harness's sell_sigma stage expects
     sigma_sorted: bool = False
     plan: "LaunchPlan | None" = None  # built at upload (device_put_sell)
+    # rows split and sorted by the port's row-order rule (the host SELL's
+    # ``row_map``, formats/sell_order.py): y comes back through it
+    # (:func:`row_gather`) in the caller's order, ``nrows`` the caller's rows
+    row_map: "RowMap | None" = None
+
+
+@dataclass
+class RowMap:
+    """Where each caller row's sums sit in a sorted SELL's y: row r is the
+    sum, in order, of ``y[pos[ptr[r]:ptr[r+1]]]`` (its segments), 0 where it
+    has none. int32 ``ptr`` (nrows + 1) and ``pos``, every ``pos`` below
+    ``src_rows``, the sorted y's entries."""
+
+    ptr: torch.Tensor
+    pos: torch.Tensor
+    src_rows: int = 0
+
+
+def _row_map(row_map, src_rows: int, device) -> RowMap:
+    """The host SELL's ``(ptr, pos)`` checked (ptr from 0, non-decreasing,
+    to ``pos.size``; every pos in ``[0, src_rows)``) and uploaded."""
+    ptr, pos = (np.asarray(a, np.int64) for a in row_map)
+    if ptr.size == 0 or ptr[0] != 0 or np.any(np.diff(ptr) < 0) \
+            or ptr[-1] != pos.size or (pos.size and (
+                pos.min() < 0 or pos.max() >= src_rows)):
+        raise ValueError("the row map's segments do not fit its SELL")
+    return RowMap(*(torch.from_numpy(a.astype(np.int32)).to(device)
+                    for a in (ptr, pos)), src_rows)
 
 
 @dataclass
@@ -617,7 +648,8 @@ def _put(sell, device, put_bin, flat, panelled):
     ``flat`` (:class:`DeviceSell`-like) or ``panelled`` object, and build
     its launch plan."""
     device = torch.device(device)
-    sigma = getattr(sell, "row_perm", None) is not None
+    row_map = getattr(sell, "row_map", None)
+    sigma = getattr(sell, "row_perm", None) is not None and row_map is None
     if hasattr(sell, "panels"):
         bounds = tuple(int(c) for c in sell.bounds)
         panels = [flat(int(p.nrows), int(p.ncols), int(p.nnz),
@@ -630,9 +662,12 @@ def _put(sell, device, put_bin, flat, panelled):
         if device.type != "meta":
             d.plan = _panel_plan(d)
         return d
-    d = flat(int(sell.nrows), int(sell.ncols), int(sell.nnz),
-             int(sell.num_groups), [put_bin(b, device, 0) for b in sell.bins],
-             sigma)
+    nrows = int(sell.nrows) if row_map is None else len(row_map[0]) - 1
+    d = flat(nrows, int(sell.ncols), int(sell.nnz), int(sell.num_groups),
+             [put_bin(b, device, 0) for b in sell.bins], sigma)
+    if row_map is not None:
+        d.row_map = _row_map(row_map, int(sell.num_groups) * GROUP_ROWS,
+                             device)
     if device.type != "meta":
         d.plan = _flat_plan(d.bins)
     return d
@@ -1687,13 +1722,14 @@ def plan_bytes(d) -> int:
     return sum(extra.values()) + (cover.numel() if cover is not None else 0)
 
 
-def _assemble(dsell, xs: tuple, write, plan=None) -> tuple:
+def _assemble(dsell, xs: tuple, write, plan=None, plain=False) -> tuple:
     """One y per x table by ``dsell``'s launch plan (``plan``, where the
     caller holds it from :func:`_plan_of`): the core joint launches store
     their groups' rows, then the ``add_into`` ones add onto them, on one
-    stream; returns each ``y[:nrows]``. y is zero-filled only where the
-    core bins do not write every group. ``write(b, *xs, *ys, accumulate)``
-    runs one (joint) bin."""
+    stream; returns each ``y[:nrows]``, or the ys through ``dsell.row_map``
+    where it has one (:func:`_in_caller_order`; ``plain``: by the plain
+    versions). y is zero-filled only where the core bins do not write every
+    group. ``write(b, *xs, *ys, accumulate)`` runs one (joint) bin."""
     for x_tab in xs:
         _check_x_table(dsell, x_tab)
     plan = _plan_of(dsell) if plan is None else plan
@@ -1702,7 +1738,108 @@ def _assemble(dsell, xs: tuple, write, plan=None) -> tuple:
                    device=xs[0].device) for _ in xs)
     for j in plan.launches:
         write(j.bin, *xs, *ys, j.accumulate)
-    return tuple(y[: dsell.nrows] for y in ys)
+    return _in_caller_order(dsell, ys, plain)
+
+
+def _in_caller_order(dsell, ys: tuple, plain=False) -> tuple:
+    """Each ``y[:nrows]``, or, for a container with a row map, the ys
+    gathered through it into the caller's row order: one f32 y by
+    :func:`row_gather`, a (hi, lo) pair by :func:`row_gather_dd` (``plain``:
+    their plain versions)."""
+    row_map = getattr(dsell, "row_map", None)
+    if row_map is None:
+        return tuple(y[: dsell.nrows] for y in ys)
+    if len(ys) == 1:
+        return ((row_gather_plain if plain else row_gather)(ys[0], row_map),)
+    return (row_gather_dd_plain if plain else row_gather_dd)(*ys, row_map)
+
+
+def _segments(row_map: RowMap):
+    """Per step k of the longest row's segments: the rows that have a k-th
+    segment and its sorted position."""
+    ptr, pos = row_map.ptr.long(), row_map.pos.long()
+    count = ptr[1:] - ptr[:-1]
+    for k in range(int(count.max()) if count.numel() else 0):
+        rows = (count > k).nonzero()[:, 0]
+        yield rows, pos[ptr[rows] + k]
+
+
+def row_gather_plain(src: torch.Tensor, row_map: RowMap) -> torch.Tensor:
+    """``y[r]``: ``src`` at row r's segments (``row_map``), added in order
+    in f32 from +0; +0 for a row with none."""
+    y = torch.zeros(row_map.ptr.numel() - 1, dtype=torch.float32,
+                    device=src.device)
+    for rows, at in _segments(row_map):
+        y[rows] = y[rows] + src[at]
+    return y
+
+
+def row_gather_dd_plain(src_hi: torch.Tensor, src_lo: torch.Tensor,
+                        row_map: RowMap) -> tuple:
+    """The (hi, lo) pair of :func:`row_gather_plain`: each row's segments
+    added in order onto (0, 0) by ``dd_add_dd(acc, segment)``."""
+    h = torch.zeros(row_map.ptr.numel() - 1, dtype=torch.float32,
+                    device=src_hi.device)
+    l = torch.zeros_like(h)
+    for rows, at in _segments(row_map):
+        h[rows], l[rows] = dd_add_dd(h[rows], l[rows], src_hi[at],
+                                     src_lo[at])
+    return h, l
+
+
+def _check_gather(srcs: tuple, row_map: RowMap):
+    dev = srcs[0].device
+    if any(t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous()
+           or t.device != dev or t.numel() < row_map.src_rows
+           for t in srcs) or any(
+            t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+            or t.device != dev for t in (row_map.ptr, row_map.pos)):
+        raise ValueError("row_gather takes contiguous f32 vectors of the "
+                         "row map's src_rows entries or more and a row map "
+                         "of contiguous int32 vectors on their device")
+
+
+def _launch_gather(name: str, srcs: tuple, row_map: RowMap, ys: tuple):
+    dev = srcs[0].device
+    with torch.cuda.device(dev):
+        err = getattr(_build.load(), name)(
+            *(t.data_ptr() for t in (*srcs, row_map.ptr, row_map.pos, *ys)),
+            ys[0].numel(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def row_gather(src: torch.Tensor, row_map: RowMap) -> torch.Tensor:
+    """:func:`row_gather_plain` as one CUDA kernel (``row_gather_f32``,
+    ``csrc/row_map.cu``) on CUDA tensors, bit for bit; the plain version on
+    CPU ones. Counts its launches in ``.launches``."""
+    if src.device.type == "cpu":
+        return row_gather_plain(src, row_map)
+    _check_gather((src,), row_map)
+    y = torch.empty(row_map.ptr.numel() - 1, dtype=torch.float32,
+                    device=src.device)
+    _launch_gather("row_gather_f32", (src,), row_map, (y,))
+    row_gather.launches += 1
+    return y
+
+
+def row_gather_dd(src_hi: torch.Tensor, src_lo: torch.Tensor,
+                  row_map: RowMap) -> tuple:
+    """:func:`row_gather_dd_plain` as one CUDA kernel (``row_gather_dd``,
+    ``csrc/row_map.cu``) on CUDA tensors, bit for bit; the plain version on
+    CPU ones. Counts its launches in ``.launches``."""
+    if src_hi.device.type == "cpu":
+        return row_gather_dd_plain(src_hi, src_lo, row_map)
+    _check_gather((src_hi, src_lo), row_map)
+    ys = tuple(torch.empty(row_map.ptr.numel() - 1, dtype=torch.float32,
+                           device=src_hi.device) for _ in range(2))
+    _launch_gather("row_gather_dd", (src_hi, src_lo), row_map, ys)
+    row_gather_dd.launches += 1
+    return ys
+
+
+row_gather.launches = 0
+row_gather_dd.launches = 0
 
 
 ASSEMBLIES = ("auto", "sum", "chain")
@@ -1713,20 +1850,21 @@ def sell_spmv_launches(d, assembly: str = "auto") -> int:
     plan's joint launches and, where the core bins do not write every
     group, a zero fill of y; "chain", a zero fill and a kernel per bin;
     "sum" (more than one bin), a zero fill and a zero fill, a kernel and an
-    add per bin. Column panels (:func:`panel_sell_spmv`): the x table's
-    zero fill and copy, the plan's joint launches and
-    :func:`panel_reduce`."""
+    add per bin; each, with a row map, one :func:`row_gather`. Column
+    panels (:func:`panel_sell_spmv`): the x table's zero fill and copy,
+    the plan's joint launches and :func:`panel_reduce`."""
     if isinstance(d, DevicePanelSell):
         return 2 + _plan_of(d).kernels
+    gather = d.row_map is not None
     if assembly == "auto":
         plan = _plan_of(d)
-        return plan.kernels + (plan.covered != d.num_groups)
+        return plan.kernels + (plan.covered != d.num_groups) + gather
     n = len(d.bins)
-    return 1 + (3 * n if assembly == "sum" and n > 1 else n)
+    return 1 + (3 * n if assembly == "sum" and n > 1 else n) + gather
 
 
 def _spmv(dsell: DeviceSell, x_tab: torch.Tensor, write,
-          assembly: str) -> torch.Tensor:
+          assembly: str, plain=False) -> torch.Tensor:
     if not isinstance(dsell, DeviceSell):
         raise TypeError(f"sell_spmv takes a DeviceSell, got "
                         f"{type(dsell).__name__} (column panels: "
@@ -1734,7 +1872,7 @@ def _spmv(dsell: DeviceSell, x_tab: torch.Tensor, write,
     if assembly not in ASSEMBLIES:
         raise ValueError(f"assembly {assembly!r}: one of {ASSEMBLIES}")
     if assembly == "auto":
-        return _assemble(dsell, (x_tab,), write)[0]
+        return _assemble(dsell, (x_tab,), write, plain=plain)[0]
     _check_x_table(dsell, x_tab)
 
     def zeros():
@@ -1761,7 +1899,7 @@ def _spmv(dsell: DeviceSell, x_tab: torch.Tensor, write,
                              "overwrite its sums")
         for b in dsell.bins:
             write(b, x_tab, y, b.add_into)
-    return y[: dsell.nrows]
+    return _in_caller_order(dsell, (y,), plain)[0]
 
 
 def sell_spmv(dsell: DeviceSell, x_tab: torch.Tensor,
@@ -1780,6 +1918,10 @@ def sell_spmv(dsell: DeviceSell, x_tab: torch.Tensor,
       onto it when it is ``add_into``; a core bin after an ``add_into`` bin
       raises ``ValueError`` (it would overwrite that bin's sums).
 
+    A container whose host SELL the port's row-order rule sorted
+    (``row_map``) returns y in the caller's row order (:func:`row_gather`,
+    one launch more), its rows with no entry 0.
+
     :func:`sell_spmv_launches` gives the launches one call queues."""
     with annotate("ops.sell_spmv"):
         return _spmv(dsell, x_tab, _run_kernel, assembly)
@@ -1789,7 +1931,7 @@ def sell_spmv_plain(dsell: DeviceSell, x_tab: torch.Tensor,
                     assembly: str = "auto") -> torch.Tensor:
     """:func:`sell_spmv` through the plain versions on any device — the
     reference the kernels are held against."""
-    return _spmv(dsell, x_tab, _write_plain, assembly)
+    return _spmv(dsell, x_tab, _write_plain, assembly, plain=True)
 
 
 def panel_x_table(dps, x: torch.Tensor) -> torch.Tensor:

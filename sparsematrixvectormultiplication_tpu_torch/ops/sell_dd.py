@@ -121,6 +121,9 @@ class DeviceSellDD:
     bins: list
     sigma_sorted: bool = False
     plan: object = None  # the LaunchPlan of ops/sell.py, built at upload
+    # the row map of ops/sell.py's DeviceSell: the (yh, yl) pair comes back
+    # through it in the caller's row order (``row_gather_dd``)
+    row_map: object = None
 
 
 @dataclass
@@ -592,12 +595,12 @@ def _kernel_writer(x_pair=None):
     return write
 
 
-def _spmv_dd(d: DeviceSellDD, xh, xl, write):
+def _spmv_dd(d: DeviceSellDD, xh, xl, write, plain=False):
     if not isinstance(d, DeviceSellDD):
         raise TypeError(f"sell_spmv_dd takes a DeviceSellDD, got "
                         f"{type(d).__name__} (column panels: "
                         "panel_sell_spmv_dd)")
-    return _assemble(d, (xh, xl), write)
+    return _assemble(d, (xh, xl), write, plain=plain)
 
 
 def sell_spmv_dd(d: DeviceSellDD, xh_tab: torch.Tensor,
@@ -625,12 +628,13 @@ def sell_spmv_dd_launches(d) -> int:
     pairs = any(_pairs(j.bin) for j in plan.launches)
     if isinstance(d, DevicePanelSellDD):
         return 4 + pairs + plan.kernels
-    return 2 * (plan.covered != d.num_groups) + plan.kernels + pairs
+    return 2 * (plan.covered != d.num_groups) + plan.kernels + pairs \
+        + (d.row_map is not None)
 
 
 def sell_spmv_dd_plain(d: DeviceSellDD, xh_tab, xl_tab):
     """:func:`sell_spmv_dd` through the plain versions on any device."""
-    return _spmv_dd(d, xh_tab, xl_tab, _write_plain_dd)
+    return _spmv_dd(d, xh_tab, xl_tab, _write_plain_dd, plain=True)
 
 
 def _panel_spmv_dd(dps: DevicePanelSellDD, xh, xl, write, reduce):

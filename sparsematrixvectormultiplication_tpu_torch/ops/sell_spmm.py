@@ -333,6 +333,12 @@ def _spmm(d, X: torch.Tensor, write) -> torch.Tensor:
     if not isinstance(d, DeviceSell):
         raise TypeError(f"sell_spmm takes a DeviceSell or DevicePanelSell, "
                         f"got {type(d).__name__}")
+    if d.row_map is not None:
+        raise NotImplementedError(
+            "sell_spmm writes Y in the SELL's row order, and this SELL's rows "
+            "were sorted by the row-order rule (formats/sell_order.py): "
+            "convert with sigma_sort=False, or sigma_sort=True for Y in "
+            "sorted order")
     _check_layouts(d.bins)
     x_tab = _x_table(d, X)
     y = _rhs_buffer(d.num_groups * GROUP_ROWS, x_tab.shape[1], x_tab.device)

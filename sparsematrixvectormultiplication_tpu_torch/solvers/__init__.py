@@ -17,12 +17,14 @@ from .chebyshev import (chebyshev_preconditioner, chebyshev_smooth,
                         gershgorin_bounds)
 from .gmres import gmres
 from .lanczos import lanczos, lanczos_bounds, lanczos_extremal
-from .power import pagerank, pagerank_operator, power_iteration
+from .power import (GraphedPageRank, pagerank, pagerank_operator,
+                    power_iteration)
 from .refine import iterative_refinement
 from .subspace import subspace_iteration
 
 __all__ = ["cg", "cg_multi", "cg_sell", "jacobi_preconditioner", "bicgstab",
-           "gmres", "power_iteration", "pagerank", "pagerank_operator",
+           "gmres", "power_iteration", "pagerank", "GraphedPageRank",
+           "pagerank_operator",
            "iterative_refinement", "subspace_iteration",
            "chebyshev_preconditioner", "chebyshev_smooth",
            "gershgorin_bounds",

@@ -39,11 +39,15 @@ Spans and counters of the port (names carry the layer):
   ``ops.sell_spmv_dd_f64`` with ``ops.dd.split_x`` (x split into its
   tables), ``ops.dd.assemble``, ``ops.dd.join_y``: each call, tracing on;
 * ``solvers.cg`` with ``solvers.cg.matvec``, ``solvers.cg.update`` and
-  ``solvers.cg.stop_test``, and the counter ``solvers.cg.host_reads``:
-  each solve and iteration, tracing on;
-* ``formats.sell.from_csr`` with ``formats.sell.slab_lists``,
-  ``.wl_profile``, ``.fill``, ``.distinct``, ``.emit`` and ``.wl_shed``:
-  each conversion, always.
+  ``solvers.cg.stop_test``, and the counter ``solvers.cg.host_reads``;
+  ``solvers.pagerank`` with ``.matvec``, ``.update`` and ``.stop_test``
+  (``GraphedPageRank``: ``.iteration``, a replay, and ``.stop_test``), and
+  the counter ``solvers.pagerank.host_reads``: each solve and iteration,
+  tracing on;
+* ``formats.sell.from_csr`` with ``formats.sell.row_order`` (the row-order
+  rule of the exported ``SellMatrix``), ``.slab_lists``, ``.wl_profile``,
+  ``.fill``, ``.distinct``, ``.emit`` and ``.wl_shed``: each conversion,
+  always.
 """
 
 # Ported from sparsematrixvectormultiplication_tpu/utils/profiling.py (the

@@ -2325,3 +2325,140 @@ def test_sell_spmv_dd_f64_pairs_launch_three_kernels(dev, tmp_path):
     assert len(device) == 3, device
     assert sum("prepare_x" in n for n in device) == 1
     assert sum("join_y" in n for n in device) == 1
+
+
+# ---- heavy-tailed rows: the row-order rule's row map (csrc/row_map.cu) ----
+
+def _row_map(n, dev, seed):
+    """A row map over n rows: a third with no segment, most with one, a few
+    with up to 300, their positions a permutation of the sorted y."""
+    g = torch.Generator().manual_seed(seed)
+    count = (torch.rand(n, generator=g) >= 1 / 3).to(torch.int64)
+    heavy = torch.randint(0, n, (max(1, n // 500),), generator=g)
+    count[heavy] = torch.randint(2, 300, (heavy.numel(),), generator=g)
+    ptr = torch.zeros(n + 1, dtype=torch.int64)
+    ptr[1:] = count.cumsum(0)
+    pos = torch.randperm(int(ptr[-1]), generator=g)
+    return S.RowMap(ptr.to(torch.int32).to(dev), pos.to(torch.int32).to(dev),
+                    int(ptr[-1]))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_row_gather_matches_plain(n, dev):
+    """row_gather and row_gather_dd against their plain versions bit for
+    bit: rows of no segment (+0, whatever src holds), of one, and of up to
+    300 added in order; src with signed zeros, and NaN past what the map
+    reads."""
+    rm = _row_map(n, dev, n)
+    m = int(rm.ptr[-1])
+    g = torch.Generator().manual_seed(n + 1)
+    src = torch.full((m + 300,), float("nan"))
+    src[:m] = torch.randn(m, generator=g)
+    src[: min(m, 7)] = -0.0
+    lo = src * 2.0**-30
+    src, lo = src.to(dev), lo.to(dev)
+    before = (S.row_gather.launches, S.row_gather_dd.launches)
+    got = S.row_gather(src, rm)
+    got_dd = S.row_gather_dd(src, lo, rm)
+    torch.cuda.synchronize()
+    assert (S.row_gather.launches, S.row_gather_dd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _same_bits(got, S.row_gather_plain(src, rm))
+    for g_, w in zip(got_dd, S.row_gather_dd_plain(src, lo, rm)):
+        _same_bits(g_, w)
+    empty = (rm.ptr[1:] == rm.ptr[:-1])
+    assert not got[empty].view(torch.int32).any()
+
+
+def _kron_csr(scale, seed=3):
+    from sparsematrixvectormultiplication_tpu_torch.models import (
+        kron_pagerank_reference as KR)
+
+    n, row, col = KR.kron_graph(scale, 16, seed)
+    val, dangling = KR.transition(n, row, col)
+    csr = CSRMatrix.from_coo(COOMatrix(
+        n, n, row.to(torch.int32).numpy(), col.to(torch.int32).numpy(),
+        val.numpy()))
+    return KR, (n, row, col, val, dangling), csr
+
+
+def test_kron_spmv_through_the_row_map(dev):
+    """GAP's kron graph (SCALE 15) converted by the row-order rule (heavy
+    rows split, rows sorted): the kernels' y in the caller's order equals
+    the plain versions' bit for bit, and the sorted container's y gathered
+    by segments; rows with no entry +0; one gather launch more than the
+    sorted container's. In double-double, the pair gathered by
+    row_gather_dd, within fp64 rounding of the oracle."""
+    import dataclasses as dc
+
+    _, (n, *_, dangling), csr = _kron_csr(15)
+    ruled = SellMatrix.from_csr(csr)
+    assert ruled.row_map is not None
+    d = S.device_put_sell(ruled, device=dev)
+    ds = S.device_put_sell(dc.replace(ruled, row_map=None), device=dev)
+    x = torch.randn(n, device=dev)
+    tab = S.pack_x_table(x, n)
+    before = S.row_gather.launches
+    y = S.sell_spmv(d, tab)
+    torch.cuda.synchronize()
+    assert S.row_gather.launches == before + 1
+    _same_bits(y, S.sell_spmv_plain(d, tab))
+    _same_bits(y, S.row_gather_plain(S.sell_spmv(ds, tab), d.row_map))
+    assert not y[dangling.to(dev)].view(torch.int32).any()
+    assert S.sell_spmv_launches(d) == S.sell_spmv_launches(ds) + 1
+    want = csr.spmv(x.cpu().double().numpy())
+    _close(y.cpu().double(), torch.from_numpy(want))
+    dd = D.device_put_sell_dd(ruled, device=dev)
+    y64 = D.sell_spmv_dd_f64(dd, x.double())
+    np.testing.assert_allclose(y64.cpu().numpy(), want, rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_kron_pagerank_on_the_card(dev):
+    """The port's PageRank through the kernels against the plain fp64
+    reference after as many iterations (L1 within 1e-5: f32 rounding
+    grows the gap some 1e-7 an iteration)."""
+    KR, (n, row, col, val, dangling), csr = _kron_csr(15)
+    d = S.device_put_sell(SellMatrix.from_csr(csr), device=dev)
+    tab = S.pack_x_table(torch.zeros(n, device=dev), n)
+
+    def matvec(v):
+        tab[:n].copy_(v)
+        return S.sell_spmv(d, tab)
+
+    p, iters, _ = SV.pagerank(matvec, dangling.float().to(dev), alpha=0.85,
+                              tol=1e-4, maxiter=20)
+    want, _, _ = KR.pagerank(n, row.to(dev), col.to(dev), val.to(dev),
+                             dangling.to(dev), tol=-1, maxiter=iters)
+    assert float((p.double() - want).abs().sum()) < 1e-5
+
+
+def test_graphed_kron_pagerank_on_the_card(dev):
+    """``GraphedPageRank`` captures one iteration (the kernels' matvec
+    through the row map, the update) and replays it: each solve equals
+    ``pagerank``'s on the same matvec bit for bit, iterations and move too,
+    solve after solve, capped or not; a replay launches nothing from the
+    host, so the wrappers' launch counts stay where the capture left
+    them."""
+    _, (n, *_, dangling), csr = _kron_csr(15)
+    d = S.device_put_sell(SellMatrix.from_csr(csr), device=dev)
+    tab = S.pack_x_table(torch.zeros(n, device=dev), n)
+
+    def matvec(v):
+        tab[:n].copy_(v)
+        return S.sell_spmv(d, tab)
+
+    mask = dangling.float().to(dev)
+    solver = SV.GraphedPageRank(matvec, mask, alpha=0.85)
+    assert solver.graph is not None
+    held = S.row_gather.launches
+    for maxiter in (20, 4, 20):
+        got = solver(tol=1e-4, maxiter=maxiter)
+        assert S.row_gather.launches == held
+        want = SV.pagerank(matvec, mask, alpha=0.85, tol=1e-4,
+                           maxiter=maxiter)
+        held = S.row_gather.launches
+        assert got[1] == want[1] and (maxiter == 4) is (got[1] == 4)
+        _same_bits(got[0], want[0])
+        _same_bits(got[2], want[2])
+
