@@ -207,6 +207,15 @@ and y join kernels (``dd_prepare_x``, ``dd_join_y``) at fem3d_cube's 648,000
 columns, bit for bit their plain versions, the PyTorch composition they
 replaced, with each one's device and host times.
 
+Then the CG phase (:func:`cg_step_phase`), twice: CG's fused kernels
+(``cg_init``, ``cg_alpha``, ``cg_step``, ``cg_dir`` of ``csrc/cg_step.cu``)
+at fem3d_cube's 648,000 rows in f32 and in f64, each against its plain
+version (the eager loop's ops) on the state the kernels before it left,
+with each one's device time, bound (bytes) and the plain version's time;
+their launches are the solver phase's (its CG solves run them, the dd one
+the f64 instantiations), a JSON row each (``cg_init``, ..., and
+``cg_init_f64``, ...).
+
 On the main path too, the row-map phase (:func:`row_map_phase`): GAP's kron
 graph at SCALE 16, converted by the exported ``SellMatrix``'s row-order
 rule (heavy rows split, rows sorted), through ``sell_spmv`` and
@@ -426,6 +435,12 @@ SPLIT_JOIN_KERNELS = {
     "dd_join_y": f"{TPU_DD}:786 (y join)",
 }
 FEM3D_COLS = 648_000  # fem3d_cube's fem_3d(60, 60, 60, dof=3): rows, cols
+# CG's fused kernels: they replace the eager PyTorch ops of the port's CG
+# iteration, the TPU package's while_loop body; -> vectors each reads and
+# writes (n entries of the state's dtype)
+CG_REPLACES = ("sparsematrixvectormultiplication_tpu/solvers/cg.py:64 "
+               "(the lax.while_loop body)")
+CG_KERNELS = {"cg_init": 5, "cg_alpha": 2, "cg_step": 7, "cg_dir": 4}
 # the gather of a split, sorted SELL's y into the caller's rows: no TPU
 # kernel; it replaces the host's unpermute and segment sum
 ROW_MAP_KERNELS = {
@@ -555,7 +570,9 @@ def solver_phase(dev, fem_csr):
     """The solvers of ``solvers/`` at full size over the port's kernels;
     ``fem_csr`` is the CSR of the bench suite's fem3d_cube, ``fem_3d(60,
     60, 60, dof=3, seed=1)``. Returns each kernel's launches in the phase,
-    keyed (group, kernel) with group "" (SELL SpMV), " dd" or " SpMM"."""
+    keyed (group, kernel) with group "" (SELL SpMV), " dd", " SpMM" or
+    " CG" and " CG f64" (the fused CG kernels' f32 and f64 instantiations,
+    which every CG solve but the one with a ``prec`` callable runs)."""
     import scipy.sparse as sp
 
     from sparsematrixvectormultiplication_tpu_torch import (
@@ -564,6 +581,7 @@ def solver_phase(dev, fem_csr):
     from sparsematrixvectormultiplication_tpu_torch.models.synthetic import (
         banded, cfd_multidof, webbase_like)
     from sparsematrixvectormultiplication_tpu_torch.ops import bsr as BSR
+    from sparsematrixvectormultiplication_tpu_torch.ops import cg_step as CS
     from sparsematrixvectormultiplication_tpu_torch.ops import sell as S
     from sparsematrixvectormultiplication_tpu_torch.ops import sell_dd as D
     from sparsematrixvectormultiplication_tpu_torch.ops import sell_spmm as SM
@@ -722,6 +740,8 @@ def solver_phase(dev, fem_csr):
         for w in ws.values():
             w.launches = 0
             w.accumulating = 0
+    for kname in CG_KERNELS:
+        getattr(CS, kname).launches = 0
 
     # ---- spd_fem3d ----
     n = fem.nrows
@@ -751,9 +771,12 @@ def solver_phase(dev, fem_csr):
                      f"[{lmin:.4f}, {lmax:.4f}]"))
     mvdd = Counted(dd_mv(d_fem_dd))
     b64 = vec(n, torch.float64)
+    cg_before = {k: getattr(CS, k).launches for k in CG_KERNELS}
     run("spd_fem3d cg dd", lambda: SV.cg(mvdd, b64, tol=1e-10),
         [(mvdd, b64)],
         lambda out: (out[1], check_res("cg dd", fem, out[0], b64, 1e-9)))
+    # the f64 instantiations' launches: this phase's one fp64-state solve
+    cg_f64 = {k: getattr(CS, k).launches - n for k, n in cg_before.items()}
     mvbf = Counted(sell_mv(d_fem_bf))
     b_ref = rng.standard_normal(n)
 
@@ -919,6 +942,12 @@ def solver_phase(dev, fem_csr):
     if idle or bf16_wl <= 0:
         fail(f"solvers: kernels {idle} (wl bf16: {bf16_wl} launches) were not "
              "launched")
+    for kname in CG_KERNELS:
+        got[" CG f64", kname] = cg_f64[kname]
+        got[" CG", kname] = getattr(CS, kname).launches - cg_f64[kname]
+        if min(got[" CG", kname], got[" CG f64", kname]) <= 0:
+            fail(f"solvers: CG's {kname} kernel was not launched in f32 and "
+                 "f64")
     launched = {f"{k}{g}": n for (g, k), n in got.items() if n}
     print(f"[solvers] launches {launched}, of which wl bf16 {bf16_wl}; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1751,6 +1780,120 @@ def split_join_phase(dev):
           f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     rows_out["dd_join_y"] = (ms, ms_p, bound)
     return rows_out
+
+
+def cg_step_phase(dev, dtype=torch.float32):
+    """CG's fused kernels (``ops/cg_step.py``, ``csrc/cg_step.cu``) at
+    fem3d_cube's 648,000 rows, in ``dtype`` (float32, or float64, the state
+    of CG over fp64 and dd matvecs) with a Jacobi-like ``minv``: each kernel
+    after the state of the kernels before it is copied into a second
+    solve's, against its plain version (the eager loop's PyTorch ops) there:
+    r and p of ``cg_init`` bit for bit (one rounding each), x and r of
+    ``cg_step`` and p of ``cg_dir`` within rounding of max|.| (a fused
+    multiply-add), the scalars within 1e-5 (f64: 1e-12) relative (sums in
+    another order), the flag equal. Prints each one's device time, its
+    bound (the vectors it reads and writes over 3.35 TB/s), the plain
+    version's device time, and the host time of an iteration's three
+    launches against the plain versions'; returns ``{kernel: (ms, plain_ms,
+    bound_ms, max_abs_err)}``."""
+    from sparsematrixvectormultiplication_tpu_torch.ops import cg_step as CS
+    from sparsematrixvectormultiplication_tpu_torch.utils.timing import (
+        device_time_fn)
+
+    t_phase = time.perf_counter()
+    n, tag = FEM3D_COLS, {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    rtol, rel = (RTOL, 1e-5) if dtype == torch.float32 else (DD_TOL, DD_TOL)
+    rng = np.random.default_rng(SEED)
+
+    def vec(lo=None):
+        v = rng.uniform(lo, 2.0, n) if lo else rng.standard_normal(n)
+        return torch.from_numpy(v).to(dev, dtype)
+
+    b, ax, ap, x0, minv = vec(), vec(), vec(), vec(), vec(0.5)
+    wk, wp = (CS.CGWork(b, x0, minv, 1e-5) for _ in range(2))
+    s = wp.scalars
+    plain = {"cg_init": lambda: CS.cg_init_plain(wp.b, ax, wp.minv, wp.r,
+                                                 wp.p, s, wp.tol),
+             "cg_alpha": lambda: CS.cg_alpha_plain(wp.p, ap, s),
+             "cg_step": lambda: CS.cg_step_plain(wp.x, wp.r, ap, wp.p,
+                                                 wp.minv, s),
+             "cg_dir": lambda: CS.cg_dir_plain(wp.r, wp.minv, wp.p, s)}
+    kernel = {"cg_init": lambda: CS.cg_init(wk, ax),
+              "cg_alpha": lambda: CS.cg_alpha(wk, ap),
+              "cg_step": lambda: CS.cg_step(wk, ap),
+              "cg_dir": lambda: CS.cg_dir(wk)}
+    errs = {}
+
+    def sync_plain():
+        for name in ("x", "r", "p", "scalars"):
+            getattr(wp, name).copy_(getattr(wk, name))
+
+    def check(kname, exact, close, scalars):
+        err = 0.0
+        for name in exact:
+            if not torch.equal(getattr(wk, name), getattr(wp, name)):
+                fail(f"cg_step {tag}: {kname} wrote another {name} than its "
+                     "plain version")
+        for name in close:
+            got, want = getattr(wk, name), getattr(wp, name)
+            err = max(err, float((got - want).abs().max()))
+            if not torch.allclose(got, want, rtol=rtol, atol=rtol * float(
+                    want.abs().max())):
+                fail(f"cg_step {tag}: {kname}'s {name} beyond rounding of "
+                     "its plain version's")
+        for i in scalars:
+            got, want = float(wk.scalars[i]), float(s[i])
+            if not abs(got - want) <= rel * abs(want):
+                fail(f"cg_step {tag}: {kname} scalar {i} {got} against the "
+                     f"plain version's {want}")
+        errs[kname] = err
+
+    for kname, exact, close, scalars in (
+            ("cg_init", ("r", "p"), (), (CS.RZ, CS.RR, CS.ATOL2)),
+            ("cg_alpha", (), (), (CS.ALPHA,)),
+            ("cg_step", (), ("x", "r"), (CS.BETA, CS.RZ, CS.RR)),
+            ("cg_dir", (), ("p",), ())):
+        sync_plain()
+        kernel[kname]()
+        flag = plain[kname]()
+        check(kname, exact, close, scalars)
+        if flag is not None and CS.cg_unconverged(wk) != bool(flag):
+            fail(f"cg_step {tag}: {kname}'s flag differs from its plain "
+                 "version's")
+
+    def host_us(fns, calls=50):
+        """Host microseconds of one pass of ``fns``, ``calls`` passes
+        queued."""
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            for fn in fns:
+                fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        return 1e6 * t / calls
+
+    rows = {}
+    es = b.element_size()
+    for kname, vectors in CG_KERNELS.items():
+        ms = device_time_fn(kernel[kname], device=dev) * 1e3
+        ms_p = device_time_fn(plain[kname], device=dev, reps=10) * 1e3
+        bound = vectors * es * n / HBM_BYTES_PER_S * 1e3
+        rows[kname] = (ms, ms_p, bound, errs[kname])
+        print(f"[cg_step] {kname}, {n} rows {tag}: device {ms:.4f} ms, bound "
+              f"{bound:.6f} ms ({vectors} vectors); its plain version (the "
+              f"eager loop's ops) {ms_p:.4f} ms; max|kernel - plain| "
+              f"{errs[kname]:.2e}", flush=True)
+    steps = ("cg_alpha", "cg_step", "cg_dir")
+    it_k = host_us([kernel[k] for k in steps])
+    it_p = host_us([plain[k] for k in steps])
+    CS.cg_settle(wk)
+    print(f"[cg_step] host an iteration (cg_alpha, cg_step, cg_dir) {tag}: "
+          f"{it_k:.1f} us against the plain versions' {it_p:.1f} us; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def row_map_phase(dev):
@@ -2625,6 +2768,9 @@ def main() -> int:
 
     # ---- the dd entry's x split and y join at fem3d_cube's shape ----
     split_join_rows = split_join_phase(dev)
+    # ---- CG's fused kernels at fem3d_cube's shape, f32 and f64 ----
+    cg_rows = {tag: cg_step_phase(dev, dt) for tag, dt in (
+        ("", torch.float32), (" f64", torch.float64))}
 
     # ---- cuSPARSE's CSR SpMV on each phase's matrix: the yardstick ----
     library = {}
@@ -3882,6 +4028,17 @@ def main() -> int:
             "launches": launches_split_join[kname], "max_abs_err": 0.0,
             "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None})
+    for tag, kname in ((t, k) for t in cg_rows for k in CG_KERNELS):
+        ms_k, ms_p, bound, err = cg_rows[tag][kname]
+        print(f"{kname}{tag}: device times at fem3d_cube's {FEM3D_COLS} rows,"
+              f" {tag.strip() or 'f32'} (cg_step phase); launches in the "
+              "solver phase")
+        summary.append({
+            "name": kname + tag.replace(" ", "_"), "route": "cuda",
+            "source": f"{PKG}/csrc/cg_step.cu", "replaces": CG_REPLACES,
+            "launches": solver_launches[" CG" + tag, kname],
+            "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
     for kname, replaces in ROW_MAP_KERNELS.items():
         ms_k, ms_p, bound = row_map_rows[kname]
         print(f"{kname}: device times at kron SCALE {ROW_MAP_SCALES[1]}'s "

@@ -28,14 +28,16 @@ _HEADERS = ("sell_common.cuh", "dd.cuh")
 _SOURCES = ("sell_k_major.cu", "sell_wl.cu", "sell_sb.cu", "sell_sg.cu",
             "pr.cu", "sell_spmm.cu", "bsr.cu", "bw_probe.cu",
             "kernel_probe.cu", "panel_reduce.cu", "dd_split_join.cu",
-            "row_map.cu")
+            "row_map.cu", "cg_step.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
-# C entry -> argument types; every entry returns cudaGetLastError() as an int.
+_F64 = ctypes.c_double
+# C entry -> argument types; every entry returns cudaGetLastError() as an int
+# but those of _RESTYPES.
 # The k-major and sb dd entries take, in place of (as, x, y), the hi/lo
 # planes (as_hi, as_lo, x_hi, x_lo, y_hi, y_lo); the wl, sg and compacted
 # sb-list dd entries (as2, x2, y_hi, y_lo): (hi, lo) value pairs and an
@@ -83,6 +85,17 @@ _ENTRIES = {
     # stream; dd: src_hi, src_lo, ptr, pos, y_hi, y_lo, n, stream
     "row_gather_f32": (_P, _P, _P, _P, _I64, _P),
     "row_gather_dd": (*(_P,) * 6, _I64, _P),
+    # CG's vector work (solvers/cg.py): the workspace's bytes for an entry
+    # size, a pinned word's device address, the stop flag once written;
+    # b, ax, minv, r, p, work, flag, n, tol, stream; p, ap, work, n, stream;
+    # x, r, ap, p, minv, work, flag, n, stream; r, minv, p, work, n, stream
+    "cg_work_bytes": (_I32,),
+    "cg_flag_pointer": (_P,),
+    "cg_flag": (_P, _P),
+    **{f"cg_init_{v}": (*(_P,) * 7, _I64, _F64, _P) for v in ("f32", "f64")},
+    **{f"cg_alpha_{v}": (_P, _P, _P, _I64, _P) for v in ("f32", "f64")},
+    **{f"cg_step_{v}": (*(_P,) * 7, _I64, _P) for v in ("f32", "f64")},
+    **{f"cg_dir_{v}": (*(_P,) * 4, _I64, _P) for v in ("f32", "f64")},
     # bins, n_bins, dst_col, dst_val, x, y, n_groups, stream; dd: dst_val
     # holds (hi, lo) pairs, then x_hi, x_lo, y_hi, y_lo
     **{f"pr_spmv_{v}": (_P, _I32, _P, _P, _P, _P, _I64, _P)
@@ -128,6 +141,8 @@ _ENTRIES = {
     # a, b, two, n_rows, n_blocks, partial, out, stream
     "kp_colsum": (_P, _P, _I32, _I64, _I32, _P, _P, _P),
 }
+# entries that return something else than an error code
+_RESTYPES = {"cg_work_bytes": _I64, "cg_flag_pointer": _I64}
 
 
 def library_path() -> Path:
@@ -196,5 +211,5 @@ def load() -> ctypes.CDLL:
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib

@@ -7,6 +7,15 @@ of ``b``, and each iteration reads one boolean back to the host, the stop
 test, at the point where the JAX loop tests its condition, so the iteration
 counts are JAX's. Iteration counts come back as Python ``int``.
 
+``cg`` has two paths with the same recurrences, stop rule and return
+contract. On the card (``b`` a contiguous 1-D CUDA float32 or float64
+tensor, ``minv`` None or a tensor of ``b``'s shape, no ``prec``) the fused
+path runs each iteration's vector update, dot products and stop-test
+comparison as three hand-written kernels (:mod:`..ops.cg_step`,
+``csrc/cg_step.cu``) with the scalars in a device workspace. Otherwise (the
+CPU, a ``prec`` callable, other inputs) the eager loop runs them as PyTorch
+ops; it is also the plain version the card tests hold the fused path to.
+
 ``cg`` takes any matvec ``v -> A @ v``; ``cg_sell`` wires in the port's
 device containers: ``DeviceSell`` (:func:`..ops.sell.sell_spmv`, f32 sums),
 ``DevicePanelSell`` (:func:`..ops.sell.panel_sell_spmv`) and ``DeviceCSR``
@@ -25,6 +34,7 @@ import numpy as np
 import torch
 
 from ..formats.sell import LANES, slab_table_rows
+from ..ops import cg_step as CS
 from ..ops.sell import (DevicePanelSell, DeviceSell, panel_sell_spmv,
                         sell_spmv)
 from ..ops.xla import DeviceCSR
@@ -44,6 +54,36 @@ def _unconverged(rr: torch.Tensor, atol2: torch.Tensor) -> bool:
         return bool(rr > atol2)
 
 
+def _fused_unconverged(w: CS.CGWork) -> bool:
+    """The fused path's stop test: the flag its kernels wrote, read back."""
+    with annotate("solvers.cg.stop_test"):
+        count("solvers.cg.host_reads")
+        return CS.cg_unconverged(w)
+
+
+def _eager_reason(b: torch.Tensor, x0=None, minv=None,
+                 prec: Callable | None = None) -> str | None:
+    """Why :func:`cg` runs the eager loop for these inputs, or None where it
+    runs the fused kernels: "prec" (a preconditioner callable), "dtype"
+    (``b`` not float32 or float64), "layout" (``b`` not a contiguous
+    vector), "minv" or "x0" (not a tensor of ``b``'s shape and device),
+    "device" (``b`` not on a CUDA device)."""
+    if prec is not None:
+        return "prec"
+    if b.dtype not in (torch.float32, torch.float64):
+        return "dtype"
+    if b.dim() != 1 or not b.is_contiguous():
+        return "layout"
+    for name, t in (("minv", minv), ("x0", x0)):
+        if t is not None and not (isinstance(t, torch.Tensor)
+                                  and t.shape == b.shape
+                                  and t.device == b.device):
+            return name
+    if b.device.type != "cuda":
+        return "device"
+    return None
+
+
 def cg(matvec: Callable, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
        maxiter: int = 1000, minv=None, prec: Callable | None = None):
     """Solve ``A @ x = b`` for SPD ``A`` given ``matvec(v) -> A @ v``.
@@ -55,45 +95,114 @@ def cg(matvec: Callable, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     ``resnorm`` a 0-d tensor; stops when ``||r|| <= tol * ||b||`` or after
     ``maxiter``.
 
+    The path follows the inputs (:func:`_eager_reason`): a contiguous 1-D
+    CUDA ``b`` of float32 or float64 with ``minv`` None or a tensor of its
+    shape (cast once a solve to ``b``'s dtype) and no ``prec`` takes the
+    fused kernels (:func:`_cg_fused`: three launches and one flag read an
+    iteration besides the matvec, which it queues ahead of the read);
+    anything else the eager loop (:func:`_cg_eager`). Both test the stop
+    rule at the head of the loop, so their iteration counts are the same.
+    The eager loop calls ``matvec`` ``iters + 1`` times; the fused path
+    calls it once more where it stops on the test (``iters + 2``, the last
+    product dropped), as often where it stops at ``maxiter``.
+
     Traced (``utils.profiling``): the solve ``solvers.cg``, each matvec
     ``solvers.cg.matvec``, each iteration's vector updates
-    ``solvers.cg.update``, each stop test ``solvers.cg.stop_test``, and its
-    host reads in the counter ``solvers.cg.host_reads``.
+    ``solvers.cg.update`` (the fused launches on that path), each stop test
+    ``solvers.cg.stop_test``, its host reads in the counter
+    ``solvers.cg.host_reads``, and the iterations the fused kernels ran in
+    ``solvers.cg.fused_iters``.
     """
     with annotate("solvers.cg"):
-        dt = b.dtype
-        x = torch.zeros_like(b) if x0 is None else x0.to(dt)
-        bnorm = torch.sqrt(_dot(b, b))
-        atol2 = (tol * bnorm) ** 2
-        if minv is not None:
-            apply_m = lambda r: r * minv.to(r.dtype)  # noqa: E731
-        elif prec is not None:
-            apply_m = prec
-        else:
-            apply_m = lambda r: r  # noqa: E731
+        if _eager_reason(b, x0, minv, prec) is None:
+            return _cg_fused(matvec, b, x0, tol, maxiter, minv)
+        return _cg_eager(matvec, b, x0, tol, maxiter, minv, prec)
 
+
+def _cg_eager(matvec, b, x0, tol, maxiter, minv, prec):
+    """:func:`cg` as PyTorch ops: about 17 launches an iteration."""
+    dt = b.dtype
+    x = torch.zeros_like(b) if x0 is None else x0.to(dt)
+    bnorm = torch.sqrt(_dot(b, b))
+    atol2 = (tol * bnorm) ** 2
+    if minv is not None:
+        apply_m = lambda r: r * minv.to(r.dtype)  # noqa: E731
+    elif prec is not None:
+        apply_m = prec
+    else:
+        apply_m = lambda r: r  # noqa: E731
+
+    with annotate("solvers.cg.matvec"):
+        ax = matvec(x).to(dt)
+    r = b - ax
+    z = apply_m(r)
+    p = z
+    rz = _dot(r, z)
+    rr = _dot(r, r)
+    k = 0
+    while k < maxiter and _unconverged(rr, atol2):
         with annotate("solvers.cg.matvec"):
-            ax = matvec(x).to(dt)
-        r = b - ax
-        z = apply_m(r)
-        p = z
-        rz = _dot(r, z)
-        rr = _dot(r, r)
-        k = 0
-        while k < maxiter and _unconverged(rr, atol2):
-            with annotate("solvers.cg.matvec"):
-                ap = matvec(p).to(dt)
-            with annotate("solvers.cg.update"):
-                alpha = rz / _dot(p, ap)
-                x = x + alpha * p
-                r = r - alpha * ap
-                z = apply_m(r)
-                rz_new = _dot(r, z)
-                p = z + (rz_new / rz) * p
-                rz = rz_new
-                rr = _dot(r, r)
-            k += 1
-        return x, k, torch.sqrt(rr)
+            ap = matvec(p).to(dt)
+        with annotate("solvers.cg.update"):
+            alpha = rz / _dot(p, ap)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = apply_m(r)
+            rz_new = _dot(r, z)
+            p = z + (rz_new / rz) * p
+            rz = rz_new
+            rr = _dot(r, r)
+        k += 1
+    return x, k, torch.sqrt(rr)
+
+
+def _state(v: torch.Tensor, dt) -> torch.Tensor:
+    """A matvec's output as the fused kernels read it."""
+    if v.dtype != dt:
+        v = v.to(dt)
+    return v if v.is_contiguous() else v.contiguous()
+
+
+def _cg_fused(matvec, b, x0, tol, maxiter, minv):
+    """:func:`cg` on the kernels of :mod:`..ops.cg_step`: the device guard,
+    the stream and the workspace taken once a solve. Each iteration's matvec
+    is called before the stop test that heads it reads its flag, so the
+    host's matvec work overlaps the card's: a solve that stops on the test
+    calls the matvec once more than the eager loop and drops that product.
+    A solve that leaves without reading its last flag (at ``maxiter``, or on
+    an exception) waits for it before its workspace is freed
+    (:func:`..ops.cg_step.cg_settle`)."""
+    with torch.cuda.device(b.device):
+        w = CS.CGWork(b, x0, minv, tol)
+        try:
+            k = _fused_iterations(w, matvec, maxiter)
+        finally:
+            CS.cg_settle(w)
+        return w.x, k, w.resnorm()
+
+
+def _fused_iterations(w: CS.CGWork, matvec, maxiter: int) -> int:
+    """The fused path's loop over ``w``; returns the iterations run."""
+    dt = w.dtype
+    with annotate("solvers.cg.matvec"):
+        ax = _state(matvec(w.x), dt)
+    CS.cg_init(w, ax)
+    k = 0
+    while k < maxiter:
+        # the product of the direction the stop test may not need is queued
+        # before the test's read, so the card runs it while the host reads;
+        # a solve that stops drops it
+        with annotate("solvers.cg.matvec"):
+            ap = _state(matvec(w.p), dt)
+        if not _fused_unconverged(w):
+            break
+        with annotate("solvers.cg.update"):
+            CS.cg_alpha(w, ap)
+            CS.cg_step(w, ap)
+            CS.cg_dir(w)
+        count("solvers.cg.fused_iters")
+        k += 1
+    return k
 
 
 def jacobi_preconditioner(csr, dtype=None, *, device):

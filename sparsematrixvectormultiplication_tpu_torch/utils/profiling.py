@@ -39,7 +39,8 @@ Spans and counters of the port (names carry the layer):
   ``ops.sell_spmv_dd_f64`` with ``ops.dd.split_x`` (x split into its
   tables), ``ops.dd.assemble``, ``ops.dd.join_y``: each call, tracing on;
 * ``solvers.cg`` with ``solvers.cg.matvec``, ``solvers.cg.update`` and
-  ``solvers.cg.stop_test``, and the counter ``solvers.cg.host_reads``;
+  ``solvers.cg.stop_test``, and the counters ``solvers.cg.host_reads`` and
+  ``solvers.cg.fused_iters`` (the iterations its fused kernels ran);
   ``solvers.pagerank`` with ``.matvec``, ``.update`` and ``.stop_test``
   (``GraphedPageRank``: ``.iteration``, a replay, and ``.stop_test``), and
   the counter ``solvers.pagerank.host_reads``: each solve and iteration,

@@ -25,7 +25,13 @@ over the kernels: CG and multi-RHS CG on the card in as many iterations as
 the same solve on the CPU's plain versions and at the f32 tolerance above of
 it, each launching the kernels of its container and never a plain version;
 CG over the dd kernels within 1e-10*max|x| of CG over the fp64 CSR
-container, in as many iterations. The multi-device layer: 4 gloo ranks
+container, in as many iterations. CG's fused kernels (``ops/cg_step.py``)
+against the eager loop on the card: the same iteration count, x within the
+f32 tolerance above (f64: 1e-12*max|x|), the residual norm within 1e-2
+(f64: 1e-6) relative (its sums run in another order), and a repeated solve
+bit for bit the same; a solve right after one that left with its last flag
+unread (at ``maxiter``, or on a matvec's exception) reads its own flag. The
+multi-device layer: 4 gloo ranks
 sharing the card launch the kernels of every sharded path and equal 4 CPU
 ranks' plain versions at the f32 tolerance; one NCCL rank per card and
 ``shard_sell_rows`` on ``[cuda:0] * 4`` within it of the oracle. The dd
@@ -35,6 +41,7 @@ for bit against their plain versions (NaN payloads aside), and
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -1708,6 +1715,158 @@ def test_cg_dd_matches_fp64_csr_on_card(dev):
     assert k_dd == k64
     assert float((x_dd - x64).abs().max()) <= 1e-10 * float(x64.abs().max())
     assert _true_res(csr, x_dd, b) <= 1e-9
+
+
+def _cg_case(case, dev):
+    """(matvec, b, keyword arguments of cg) for a fused-CG case: the SELL
+    f32 matvec or the dd one (fp64 in and out) over ``_spd_fem()``, or at
+    600,000 rows (past the kernels' 1024 blocks, so their loops stride) a
+    diagonal. Each matvec is deterministic (the fp64 CSR one adds with
+    atomics)."""
+    rng = np.random.default_rng(7)
+    if case == "f32_large":
+        d = torch.from_numpy(rng.uniform(1.0, 4.0, 600_000)).float().to(dev)
+        b = torch.from_numpy(rng.standard_normal(d.numel())).float().to(dev)
+        return (lambda v: d * v), b, {"tol": 1e-5}
+    csr = _spd_fem()
+    dt = torch.float64 if case == "f64_minv" else torch.float32
+    b = torch.from_numpy(rng.standard_normal(csr.nrows)).to(dev, dt)
+    if dt == torch.float64:
+        ddd = D.device_put_sell_dd(SellMatrix.from_csr(csr), device=dev)
+        matvec, kw = (lambda v: D.sell_spmv_dd_f64(ddd, v)), {"tol": 1e-10}
+    else:
+        d32 = S.device_put_sell(SellMatrix.from_csr(csr), device=dev)
+        tab = torch.zeros(S.slab_table_rows(csr.ncols) * 128, device=dev)
+
+        def matvec(v):
+            tab[: v.shape[0]].copy_(v)
+            return S.sell_spmv(d32, tab)
+        kw = {"tol": 1e-5}
+    if case != "f32_none":
+        kw["minv"] = SV.jacobi_preconditioner(csr, dt, device=dev)
+    if case == "x0":
+        kw["x0"] = torch.from_numpy(rng.standard_normal(csr.nrows)).to(
+            dev, dt)
+    if case == "maxiter":
+        kw["maxiter"] = 2
+    if case == "b_zero":
+        b = torch.zeros_like(b)
+    return matvec, b, kw
+
+
+@pytest.mark.parametrize("case", ["f32_minv", "f32_none", "f64_minv", "x0",
+                                  "maxiter", "b_zero", "f32_large"])
+def test_cg_fused_matches_eager_loop_on_card(case, dev):
+    from sparsematrixvectormultiplication_tpu_torch.ops import cg_step as CS
+    from sparsematrixvectormultiplication_tpu_torch.utils import profiling
+
+    cg_mod = importlib.import_module(
+        "sparsematrixvectormultiplication_tpu_torch.solvers.cg")
+    matvec, b, kw = _cg_case(case, dev)
+    assert cg_mod._eager_reason(b, kw.get("x0"), kw.get("minv")) is None
+    before = [f.launches for f in (CS.cg_init, CS.cg_alpha, CS.cg_step,
+                                   CS.cg_dir)]
+    profiling.reset()
+    profiling.enable()
+    try:
+        x, k, res = SV.cg(matvec, b, **kw)
+        counted = profiling.counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert [f.launches - n for f, n in zip(
+        (CS.cg_init, CS.cg_alpha, CS.cg_step, CS.cg_dir), before)] \
+        == [1, k, k, k]
+    assert counted.get("solvers.cg.fused_iters", 0) == k
+    assert counted["solvers.cg.host_reads"] == k + (k < kw.get("maxiter",
+                                                               1000))
+    x_e, k_e, res_e = cg_mod._cg_eager(matvec, b, kw.get("x0"), kw["tol"],
+                                       kw.get("maxiter", 1000),
+                                       kw.get("minv"), None)
+    assert k == k_e
+    assert {"maxiter": k == 2, "b_zero": k == 0}.get(case, k > 2)
+    assert x.dtype == res.dtype == b.dtype and res.dim() == 0
+    if b.dtype == torch.float64:
+        assert float((x - x_e).abs().max()) <= 1e-12 * float(
+            x_e.abs().max())
+        torch.testing.assert_close(res, res_e, rtol=1e-6, atol=0.0)
+    elif case == "b_zero":
+        assert not bool(x.any()) and float(res) == float(res_e) == 0.0
+    else:
+        _close(x, x_e)
+        torch.testing.assert_close(res, res_e, rtol=1e-2, atol=0.0)
+    x2, k2, res2 = SV.cg(matvec, b, **kw)
+    assert k2 == k and torch.equal(x2, x) and torch.equal(res2, res)
+
+
+@pytest.mark.parametrize("then", ["full", "b_zero"])
+@pytest.mark.parametrize("first", ["maxiter", "raise"])
+def test_cg_fused_after_a_solve_left_early_on_card(first, then, dev):
+    """A fused solve that leaves with its last ``cg_step``'s flag unread
+    (at ``maxiter``, or where its matvec raises), that ``cg_step`` held
+    back on the stream behind a spin, then at once, with no host sync
+    between, a whole solve or a ``b = 0`` one: the second reads its own
+    stop flag, not a late write of the first's (the first waits for its
+    unread flag before its pinned word is freed)."""
+    cg_mod = importlib.import_module(
+        "sparsematrixvectormultiplication_tpu_torch.solvers.cg")
+    matvec, b, kw = _cg_case("f32_minv", dev)
+    b2 = torch.zeros_like(b) if then == "b_zero" else b
+    x1_e, _, _ = cg_mod._cg_eager(matvec, b, None, kw["tol"], 2,
+                                  kw["minv"], None)
+    x2_e, k2_e, res2_e = cg_mod._cg_eager(matvec, b2, None, kw["tol"], 1000,
+                                          kw["minv"], None)
+    calls = []
+    # the call whose spin the last cg_step queues behind: the second
+    # iteration's head at maxiter 2; the first's where the third raises
+    spin_at = 3 if first == "maxiter" else 2
+
+    def held(v):
+        calls.append(1)
+        if len(calls) == spin_at:
+            torch.cuda._sleep(100_000_000)
+        if first == "raise" and len(calls) == 3:
+            raise ArithmeticError("matvec failed")
+        return matvec(v)
+
+    torch.cuda.synchronize(dev)
+    if first == "raise":
+        with pytest.raises(ArithmeticError, match="matvec failed"):
+            SV.cg(held, b, **kw)
+    else:
+        x1, k1, _ = SV.cg(held, b, maxiter=2, **kw)
+    x2, k2, res2 = SV.cg(matvec, b2, **kw)
+    assert len(calls) == 3
+    if first == "maxiter":
+        assert k1 == 2
+        _close(x1, x1_e)
+    assert k2 == k2_e and (k2 == 0) == (then == "b_zero")
+    assert bool(torch.isfinite(x2).all())
+    if then == "b_zero":
+        assert not bool(x2.any()) and float(res2) == float(res2_e) == 0.0
+    else:
+        _close(x2, x2_e)
+        torch.testing.assert_close(res2, res2_e, rtol=1e-2, atol=0.0)
+
+
+def test_cg_with_prec_callable_stays_eager_on_card(dev):
+    from sparsematrixvectormultiplication_tpu_torch.utils import profiling
+
+    matvec, b, kw = _cg_case("f32_minv", dev)
+    minv = kw.pop("minv")
+    profiling.reset()
+    profiling.enable()
+    try:
+        x, k, _ = SV.cg(matvec, b, prec=lambda r: r * minv, **kw)
+        counted = profiling.counters()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert k > 0 and "solvers.cg.fused_iters" not in counted
+    assert counted["solvers.cg.host_reads"] == k + 1
+    x_f, k_f, _ = SV.cg(matvec, b, minv=minv, **kw)
+    assert k_f == k
+    _close(x_f, x)
 
 
 @pytest.mark.parametrize("kind", ["sell_spmm", "bsr_spmm"])
